@@ -6,8 +6,10 @@ there) and holds the same functions on torch tensors.  Its one kernel,
 the BVH8 triangle traversal (``ops/trace_cuda.py``), is written in CUDA
 C++ for the H100 (``csrc/``).  The package imports torch and numpy and
 nothing of jax or of ``corona13_tpu``: the host code it needs (the numpy
-BVH builder, the ``.cam``/``.geo``/``.pfm`` readers and writers, the CIE
-tables) is carried in ``ops/bvh.py``, ``io/`` and ``spectral/_cie_data.py``.
+BVH builder, the ``.nra2``/``.geo``/``.vol``/``.cam``/``.fb``/``.pfm``
+readers and writers, the CIE tables) is carried in ``ops/bvh.py``, ``io/``
+and ``spectral/_cie_data.py``.  ``python -m corona13_tpu_torch scene.nra2``
+is the pt/ptdl command line.
 """
 
 __version__ = '0.1.0'

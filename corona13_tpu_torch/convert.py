@@ -3,7 +3,7 @@
 ``scene_from_numpy`` walks a ``corona13_tpu`` Scene duck-typed (dataclass
 fields, ``np.asarray`` on every array leaf) without importing jax, and
 returns the port's Scene on ``device``, so both packages can be fed the
-very same BVH, packed leaves, materials, lights and camera.
+very same BVH, packed leaves, materials, lights, camera and medium grid.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import scene as scene_mod
+from .models import medium_hete
 from .ops import trace as trace_mod
 
 _CLASSES = {
@@ -23,6 +24,7 @@ _CLASSES = {
     'CameraP': scene_mod.CameraP,
     'DeviceGeometry': trace_mod.DeviceGeometry,
     'DeviceBVH': trace_mod.DeviceBVH,
+    'VolGrid': medium_hete.VolGrid,
 }
 # int32 arrays the kernel reads as int32; every other int array becomes
 # int64 (torch's index type)

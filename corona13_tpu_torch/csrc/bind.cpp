@@ -12,7 +12,7 @@ extern "C" void corona13_traverse_tris(
     const float* org, const float* dir, const float* inv,
     const float* t_init, const int* ignore1, const int* ignore2, int n,
     float* t_out, int* prim_out, float* u_out, float* v_out, int* slot_out,
-    int any_hit, cudaStream_t stream);
+    int* iters_out, int* leafs_out, int any_hit, cudaStream_t stream);
 
 namespace {
 
@@ -28,7 +28,7 @@ std::vector<torch::Tensor> traverse_tris(
     torch::Tensor wbounds, torch::Tensor wlinks, torch::Tensor leaf,
     torch::Tensor org, torch::Tensor dir, torch::Tensor inv,
     torch::Tensor t_init, torch::Tensor ignore1, torch::Tensor ignore2,
-    bool any_hit) {
+    bool any_hit, bool want_counters) {
   const auto f32 = torch::kFloat32;
   const auto i32 = torch::kInt32;
   check(wbounds, "wbounds", f32, org);
@@ -62,15 +62,22 @@ std::vector<torch::Tensor> traverse_tris(
   auto v = torch::empty({n}, org.options());
   auto prim = torch::empty({n}, org.options().dtype(i32));
   auto slot = torch::empty({n}, org.options().dtype(i32));
+  torch::Tensor iters, leafs;
+  if (want_counters) {
+    iters = torch::empty({n}, org.options().dtype(i32));
+    leafs = torch::empty({n}, org.options().dtype(i32));
+  }
   corona13_traverse_tris(
       wbounds.data_ptr<float>(), wlinks.data_ptr<int>(), leaf.data_ptr<float>(),
       org.data_ptr<float>(), dir.data_ptr<float>(), inv.data_ptr<float>(),
       t_init.data_ptr<float>(), ignore1.data_ptr<int>(),
       ignore2.data_ptr<int>(), (int)n, t.data_ptr<float>(),
       prim.data_ptr<int>(), u.data_ptr<float>(), v.data_ptr<float>(),
-      slot.data_ptr<int>(), any_hit ? 1 : 0,
+      slot.data_ptr<int>(), want_counters ? iters.data_ptr<int>() : nullptr,
+      want_counters ? leafs.data_ptr<int>() : nullptr, any_hit ? 1 : 0,
       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  if (want_counters) return {t, prim, u, v, slot, iters, leafs};
   return {t, prim, u, v, slot};
 }
 
@@ -78,5 +85,6 @@ std::vector<torch::Tensor> traverse_tris(
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("traverse_tris", &traverse_tris,
-        "BVH8 closest-hit / any-hit triangle traversal (CUDA)");
+        "BVH8 closest-hit / any-hit triangle traversal, optionally with "
+        "per-ray pop counters (CUDA)");
 }

@@ -18,6 +18,11 @@
 //
 // Bound on this card: divergent, latency-bound 256 B node and 512 B leaf
 // gathers and the local-memory stack; no matrix work.
+//
+// kCounters (the TPU kernel's want_counters, its ACCEL_DEBUG analogue)
+// adds each ray's inner-node and leaf pops to two int32 outputs; the
+// wrapper sums them per 1024-ray block.  It is a template flag, so the
+// closest-hit and any-hit launches of the render path carry no counting.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,7 +34,7 @@ constexpr int kLeaf = 8;
 constexpr int kNoHit = 0x7f000000;
 constexpr int kThreads = 128;
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kCounters>
 __global__ void __launch_bounds__(kThreads)
 traverse_kernel(const float* __restrict__ wbounds,
                 const int* __restrict__ wlinks,
@@ -43,12 +48,14 @@ traverse_kernel(const float* __restrict__ wbounds,
                 int n,
                 float* __restrict__ t_out, int* __restrict__ prim_out,
                 float* __restrict__ u_out, float* __restrict__ v_out,
-                int* __restrict__ slot_out) {
+                int* __restrict__ slot_out,
+                int* __restrict__ iters_out, int* __restrict__ leafs_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t_best = t_init[i];
   int prim = -1, slot = -1;
   float u = 0.f, v = 0.f;
+  int iters = 0, leafs = 0;
   if (t_best > 0.f) {
     const float ox = org[3 * i], oy = org[3 * i + 1], oz = org[3 * i + 2];
     const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
@@ -60,6 +67,7 @@ traverse_kernel(const float* __restrict__ wbounds,
     while (sp > 0) {
       const int entry = stack[--sp];
       if (entry >= 0) {
+        if (kCounters) ++iters;
         const float* blk = wbounds + (size_t)entry * 64;
         const int* lnk = wlinks + (size_t)entry * 8;
 #pragma unroll
@@ -79,6 +87,7 @@ traverse_kernel(const float* __restrict__ wbounds,
           }
         }
       } else {
+        if (kCounters) ++leafs;
         const int lid = -entry - 1;
         const float* rows = leaf + (size_t)lid * (kLeaf * 16);
         int best = kNoHit;
@@ -133,26 +142,49 @@ traverse_kernel(const float* __restrict__ wbounds,
   u_out[i] = u;
   v_out[i] = v;
   slot_out[i] = slot;
+  if (kCounters) {
+    iters_out[i] = iters;
+    leafs_out[i] = leafs;
+  }
+}
+
+template <bool kAnyHit, bool kCounters>
+void launch(int blocks, cudaStream_t stream, const float* wbounds,
+            const int* wlinks, const float* leaf, const float* org,
+            const float* dir, const float* inv, const float* t_init,
+            const int* ignore1, const int* ignore2, int n, float* t_out,
+            int* prim_out, float* u_out, float* v_out, int* slot_out,
+            int* iters_out, int* leafs_out) {
+  traverse_kernel<kAnyHit, kCounters><<<blocks, kThreads, 0, stream>>>(
+      wbounds, wlinks, leaf, org, dir, inv, t_init, ignore1, ignore2, n,
+      t_out, prim_out, u_out, v_out, slot_out, iters_out, leafs_out);
 }
 
 }  // namespace
 
 // Plain C entry point (no torch headers here); bind.cpp wraps it and
-// checks the launch.
+// checks the launch.  iters_out/leafs_out: per-ray pop counts, or null for
+// the launches without counters.
 extern "C" void corona13_traverse_tris(
     const float* wbounds, const int* wlinks, const float* leaf,
     const float* org, const float* dir, const float* inv,
     const float* t_init, const int* ignore1, const int* ignore2, int n,
     float* t_out, int* prim_out, float* u_out, float* v_out, int* slot_out,
-    int any_hit, cudaStream_t stream) {
+    int* iters_out, int* leafs_out, int any_hit, cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  if (any_hit) {
-    traverse_kernel<true><<<blocks, kThreads, 0, stream>>>(
-        wbounds, wlinks, leaf, org, dir, inv, t_init, ignore1, ignore2, n,
-        t_out, prim_out, u_out, v_out, slot_out);
+  using Launch = void (*)(int, cudaStream_t, const float*, const int*,
+                          const float*, const float*, const float*,
+                          const float*, const float*, const int*, const int*,
+                          int, float*, int*, float*, float*, int*, int*, int*);
+  Launch fn;
+  if (iters_out != nullptr) {
+    fn = any_hit ? static_cast<Launch>(&launch<true, true>)
+                 : static_cast<Launch>(&launch<false, true>);
   } else {
-    traverse_kernel<false><<<blocks, kThreads, 0, stream>>>(
-        wbounds, wlinks, leaf, org, dir, inv, t_init, ignore1, ignore2, n,
-        t_out, prim_out, u_out, v_out, slot_out);
+    fn = any_hit ? static_cast<Launch>(&launch<true, false>)
+                 : static_cast<Launch>(&launch<false, false>);
   }
+  fn(blocks, stream, wbounds, wlinks, leaf, org, dir, inv, t_init, ignore1,
+     ignore2, n, t_out, prim_out, u_out, v_out, slot_out, iters_out,
+     leafs_out);
 }

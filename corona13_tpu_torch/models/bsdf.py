@@ -7,8 +7,8 @@ solid angle and weight = f/pdf; ``eval_pdf`` returns the BSDF value and
 pdf of a connection.  ``wi`` points into the vertex, ``wo`` away from it.
 Spectral quantities carry a trailing hero axis [MF].
 
-Ported kinds: DIFFUSE, DIELECTRIC, METAL and NULL.  DIFFDIEL and HAIR
-raise NotImplementedError.
+Ported kinds: DIFFUSE, DIELECTRIC, METAL, DIFFDIEL and NULL.  HAIR
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ MODE_VOLUME = 1 << 6
 GLOSSY_THR = 1e-3  # roughness below which we go specular (dielectric.c:35)
 
 ALL_KINDS = (DIFFUSE, DIELECTRIC, METAL, DIFFDIEL, HAIR)
-_PORTED = (DIFFUSE, DIELECTRIC, METAL, NULL)
+_PORTED = (DIFFUSE, DIELECTRIC, METAL, DIFFDIEL, NULL)
 
 
 @dataclasses.dataclass
@@ -64,8 +64,8 @@ class ShadingPoint:
 def _check_kinds(kinds):
     missing = [k for k in kinds if k not in _PORTED]
     if missing:
-        raise NotImplementedError(f'BSDF kinds {missing} (DIFFDIEL/HAIR) '
-                                  'are not ported yet')
+        raise NotImplementedError(f'BSDF kinds {missing} (HAIR) are not '
+                                  'ported yet')
 
 
 def _flip(sp: ShadingPoint, x):
@@ -333,6 +333,109 @@ def dielectric_eval_pdf(sp: ShadingPoint, wi, wo):
             torch.where(valid[..., None], pdf, 0.0))
 
 
+# --- diffuse-coated dielectric (diffdiel) ----------------------------------
+
+def _diffdiel_fresnel(sp: ShadingPoint, cos_in):
+    """Non-reciprocal fresnel on the surface-normal cosine (reference
+    diffdiel.c:259-265: n1 = eta_ratio, n2 = 1, R evaluated at cos_in
+    rather than the half-vector cosine)."""
+    n1, n2 = sp.eta_ratio, torch.ones_like(sp.eta_ratio)
+    nr = n1 / n2
+    cos_t2 = 1.0 - nr * nr * (1.0 - cos_in[..., None] ** 2)
+    cos_t = torch.where(cos_t2 <= 0.0, 0.0,
+                        torch.sqrt(torch.clamp(cos_t2, min=1e-12)))
+    return fresnel_dielectric(n1, n2, cos_in[..., None], cos_t)
+
+
+def diffdiel_sample(sp: ShadingPoint, wi, r1, r2, r_mode):
+    """Sample reflect (GGX or specular mirror) against diffuse transmit
+    (a cosine lobe into the surface with f = rg (1-R) / pi).
+    Returns (wo, pdf_proj[MF], weight[MF], is_specular, did_transmit)."""
+    n = _flip(sp, sp.n)
+    r = sp.roughness
+    rr = torch.clamp(r, min=GLOSSY_THR)
+    glossy = r > GLOSSY_THR
+    cos_in = -dot(n, wi)
+
+    u, v = build_onb(n)
+    wi_t = torch.stack([-dot(u, wi), -dot(v, wi), cos_in], dim=-1)
+    h_t = ggx_sample_vndf(wi_t, rr, r1, r2)
+    h = torch.where(glossy[..., None], from_frame(u, v, n, h_t), n)
+    cos_r = -dot(wi, h)
+    pdf_h = torch.where(glossy, ggx_pdf_h(dot(h, n), cos_in, cos_r, rr), 1.0)
+
+    big_r = _diffdiel_fresnel(sp, cos_in)
+    do_reflect = r_mode <= big_r[..., 0]
+
+    # reflection branch (the dielectric reflect lobe)
+    wo_r = wi + 2.0 * cos_r[..., None] * h
+    cos_out_r = dot(wo_r, n)
+    ok_r = (cos_out_r > 0.0) & (cos_r > 0.0) & (cos_in > 0.0)
+    pdf_proj_r = torch.where(
+        glossy[..., None],
+        big_r * (pdf_h / (4.0 * torch.clamp(cos_r, min=1e-12))
+                 / torch.clamp(torch.abs(cos_out_r), min=1e-12))[..., None],
+        big_r)
+    g1_r = ggx_smith_g1(cos_out_r, rr)
+    w_r = torch.where(glossy[..., None], sp.rg * g1_r[..., None], sp.rg)
+    w_r = torch.where(ok_r[..., None], w_r, 0.0)
+
+    # diffuse transmission branch: cosine lobe around -n
+    phi = 2.0 * math.pi * r2
+    s = torch.sqrt(r1)
+    z = torch.sqrt(torch.clamp(1.0 - r1, min=0.0))
+    wo_t = (-z[..., None] * n + (s * torch.cos(phi))[..., None] * u
+            + (s * torch.sin(phi))[..., None] * v)
+    pdf_proj_t = (1.0 - big_r) / math.pi
+    ok_t = cos_in > 0.0
+    w_t = torch.where(ok_t[..., None], sp.rg, 0.0)
+
+    wo = torch.where(do_reflect[..., None], wo_r, wo_t)
+    pdf = torch.where(do_reflect[..., None], pdf_proj_r, pdf_proj_t)
+    w = torch.where(do_reflect[..., None], w_r, w_t)
+    return wo, pdf, w, ~glossy & do_reflect, ~do_reflect
+
+
+def diffdiel_eval_pdf(sp: ShadingPoint, wi, wo):
+    """Eval + pdf for connections: the diffuse transmit lobe always
+    connects, the reflect lobe only when glossy."""
+    n = _flip(sp, sp.n)
+    r = sp.roughness
+    rr = torch.clamp(r, min=GLOSSY_THR)
+    glossy = r > GLOSSY_THR
+    cos_in = -dot(n, wi)
+    cos_out = dot(n, wo)
+    big_r = _diffdiel_fresnel(sp, cos_in)
+
+    # reflect lobe (glossy only)
+    h = normalize(wi - wo)
+    h = torch.where(dot(h, n)[..., None] < 0.0, -h, h)
+    cos_h = torch.abs(dot(h, n))
+    cos_r = torch.abs(dot(h, wi))
+    d = ggx_ndf(cos_h, rr)
+    g2 = ggx_smith_g1(cos_in, rr) * ggx_smith_g1(cos_out, rr)
+    f_refl = big_r * sp.rg * (d * g2 / torch.clamp(
+        4.0 * torch.abs(cos_in) * torch.abs(cos_out), min=1e-12))[..., None]
+    pdf_h = ggx_pdf_h(cos_h, cos_in, cos_r, rr)
+    pdf_refl = big_r * (pdf_h / torch.clamp(
+        4.0 * cos_r * torch.abs(cos_out), min=1e-12))[..., None]
+    refl_ok = glossy & (cos_out > 0.0)
+
+    # diffuse transmit lobe
+    one_m_r = torch.clamp(1.0 - big_r, 0.0, 1.0)
+    f_trans = sp.rg * one_m_r / math.pi
+    pdf_trans = one_m_r / math.pi
+    trans_ok = cos_out < 0.0
+
+    f = torch.where(refl_ok[..., None], f_refl,
+                    torch.where(trans_ok[..., None], f_trans, 0.0))
+    pdf = torch.where(refl_ok[..., None], pdf_refl,
+                      torch.where(trans_ok[..., None], pdf_trans, 0.0))
+    valid = cos_in > 0.0
+    return (torch.where(valid[..., None], f, 0.0),
+            torch.where(valid[..., None], pdf, 0.0))
+
+
 # --- metal (conductor) -----------------------------------------------------
 
 def metal_sample(sp: ShadingPoint, wi, r1, r2):
@@ -424,6 +527,17 @@ def bsdf_sample(sp: ShadingPoint, wi, r1, r2, r_mode, kinds=ALL_KINDS):
         w = torch.where(is_m[..., None], w_m, w)
         m_mode = torch.where(spec_m, MODE_SPECULAR, MODE_GLOSSY) | MODE_REFLECT
         mode = torch.where(is_m, m_mode, mode)
+    if DIFFDIEL in kinds:
+        wo_s, pdf_s, w_s, spec_s, trans_s = diffdiel_sample(sp, wi, r1, r2,
+                                                            r_mode)
+        is_s = sp.kind == DIFFDIEL
+        wo = torch.where(is_s[..., None], wo_s, wo)
+        pdf = torch.where(is_s[..., None], pdf_s, pdf)
+        w = torch.where(is_s[..., None], w_s, w)
+        s_mode = (torch.where(spec_s, MODE_SPECULAR,
+                              torch.where(trans_s, MODE_DIFFUSE, MODE_GLOSSY))
+                  | torch.where(trans_s, MODE_TRANSMIT, MODE_REFLECT))
+        mode = torch.where(is_s, s_mode, mode)
     if NULL in kinds:
         is_n = sp.kind == NULL
         wo = torch.where(is_n[..., None], wi, wo)
@@ -469,4 +583,9 @@ def bsdf_eval_pdf(sp: ShadingPoint, wi, wo, kinds=ALL_KINDS):
         f_m, p_m = metal_eval_pdf(sp, wi, wo)
         f = torch.where(is_m, f_m, f)
         pdf = torch.where(is_m, p_m, pdf)
+    if DIFFDIEL in kinds:
+        is_s = (sp.kind == DIFFDIEL)[..., None]
+        f_s, p_s = diffdiel_eval_pdf(sp, wi, wo)
+        f = torch.where(is_s, f_s, f)
+        pdf = torch.where(is_s, p_s, pdf)
     return f, pdf

@@ -2,8 +2,10 @@
 
 Replaces the Pallas TPU kernel ``corona13_tpu/ops/trace_pallas.py``
 (``_kernel`` behind ``traverse_tris``), the only ``pallas_call`` of the
-JAX package.  Both specialisations are ported: closest-hit (``intersect``)
-and any-hit (``occluded``, the NEE shadow ray).  They walk the same
+JAX package.  All three specialisations are ported: closest-hit
+(``intersect``), any-hit (``occluded``, the NEE shadow ray) and
+``want_counters`` (inner-node and leaf pops per 1024-ray block, the
+ACCEL_DEBUG analogue; no render path calls it).  They walk the same
 ``collapse8`` arrays (``corona13_tpu/ops/bvh.py``): ``wbounds [Wn,8,8]``
 child boxes plus push weights, ``wlinks [Wn*8]`` child links and
 ``leaf_packed [n_leaves,8,16]`` rows (v0, e1, e2, prim as f32).
@@ -25,7 +27,19 @@ levels, ``wgmma`` and stackless schemes are later work.
 On a CPU tensor ``traverse_tris`` runs ``traverse_tris_plain``, a
 vectorised torch version of the same walk over the same arrays; on a CUDA
 tensor it launches the kernel or raises.  ``launches`` counts kernel
-launches per specialisation.
+launches per specialisation ('closest', 'any', and 'counters' for the
+launches with ``want_counters``, either hit mode).
+
+Counters, per-ray walk against the TPU's union walk: the TPU kernel counts
+the pops of a 128-ray tile walking the union of its rays' hits, the port
+counts each ray's own pops and sums them per ``BLOCK`` = 1024 rays.  With
+one live ray per tile both walks pop the same nodes in the same order, so
+closest-hit totals are equal per block; with many live rays the per-ray
+sum is at least the union count.  Any-hit differs even with one live ray:
+the TPU loop stops early only when all 128 lanes are blocked (dead lanes
+count as open, trace_pallas.py:159,188-193), so a blocked ray's tile keeps
+popping there and the port's count is lower.  A tile with no live ray pops
+its root once on the TPU and nothing here.
 """
 
 from __future__ import annotations
@@ -39,8 +53,9 @@ from .bvh import LEAF_SIZE as LEAF
 MAX_STACK = 192  # >= wdepth*7 + 8, enforced by trace.DeviceBVH.from_host
 K_MASK = 7       # low mantissa bits that carry the winning leaf row
 NO_HIT = 0x7f000000
+BLOCK = 1024     # rays per counter block (the TPU kernel's grid step)
 
-launches = {'closest': 0, 'any': 0}
+launches = {'closest': 0, 'any': 0, 'counters': 0}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
@@ -106,14 +121,25 @@ def _check(wbounds, wlinks, leaf_packed, org, direction, t_init,
             f'traverse_tris: leaf_packed shape {tuple(leaf_packed.shape)}')
 
 
+def block_sums(per_ray: torch.Tensor) -> torch.Tensor:
+    """Per-ray int counts [N] -> sums per BLOCK rays [ceil(N/BLOCK)] int32,
+    the last block padded with rays that count 0."""
+    pad = (-per_ray.shape[0]) % BLOCK
+    padded = torch.nn.functional.pad(per_ray.to(torch.int64), (0, pad))
+    return padded.reshape(-1, BLOCK).sum(dim=1).to(torch.int32)
+
+
 def traverse_tris(wbounds, wlinks, leaf_packed, org, direction, t_init,
-                  ignore_prim, ignore_prim2=None, any_hit=False):
+                  ignore_prim, ignore_prim2=None, any_hit=False,
+                  want_counters=False):
     """Closest-hit (or any-hit) triangle traversal for a ray wavefront.
 
     org/direction [N, 3] f32; t_init [N] f32 (exclusive upper bound; lanes
     with t_init <= 0 do no work); ignore_prim(2) [N] i32.  Returns
     (t, prim, u, v, slot): prim/slot i32, prim = -1 for misses,
-    slot = leaf_id*8 + row.  any_hit: prim = 0 on blocked lanes."""
+    slot = leaf_id*8 + row.  any_hit: prim = 0 on blocked lanes.
+    want_counters appends (iters, leafs) [ceil(N/BLOCK)] i32: inner-node
+    and leaf pops per 1024-ray block (see the module docstring)."""
     if ignore_prim2 is None:
         ignore_prim2 = torch.full_like(ignore_prim, -1)
     _check(wbounds, wlinks, leaf_packed, org, direction, t_init,
@@ -121,31 +147,38 @@ def traverse_tris(wbounds, wlinks, leaf_packed, org, direction, t_init,
     if org.device.type == 'cpu':
         return traverse_tris_plain(wbounds, wlinks, leaf_packed, org,
                                    direction, t_init, ignore_prim,
-                                   ignore_prim2, any_hit=any_hit)
+                                   ignore_prim2, any_hit=any_hit,
+                                   want_counters=want_counters)
     if org.device.type != 'cuda':
         raise ValueError(f'traverse_tris: no kernel for {org.device}')
     n = org.shape[0]
     f32 = dict(dtype=torch.float32, device=org.device)
     i32 = dict(dtype=torch.int32, device=org.device)
     if n == 0:
-        return (torch.empty(0, **f32), torch.empty(0, **i32),
-                torch.empty(0, **f32), torch.empty(0, **f32),
-                torch.empty(0, **i32))
+        out = (torch.empty(0, **f32), torch.empty(0, **i32),
+               torch.empty(0, **f32), torch.empty(0, **f32),
+               torch.empty(0, **i32))
+        return out + (torch.empty(0, **i32),) * 2 if want_counters else out
     inv = inv_dir(direction)
-    t, prim, u, v, slot = build().traverse_tris(
+    out = build().traverse_tris(
         wbounds, wlinks, leaf_packed, org, direction, inv, t_init,
-        ignore_prim, ignore_prim2, bool(any_hit))
+        ignore_prim, ignore_prim2, bool(any_hit), bool(want_counters))
+    if want_counters:
+        launches['counters'] += 1
+        t, prim, u, v, slot, iters, leafs = out
+        return t, prim, u, v, slot, block_sums(iters), block_sums(leafs)
     launches['any' if any_hit else 'closest'] += 1
-    return t, prim, u, v, slot
+    return tuple(out)
 
 
 def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
                         t_init, ignore_prim, ignore_prim2=None,
-                        any_hit=False):
+                        any_hit=False, want_counters=False):
     """The kernel's walk in vectorised torch: per-ray stacks
     [N, MAX_STACK] and a lockstep loop over the rays whose stack is not
     empty; each step pops one entry per ray.  Same slab, Moeller-Trumbore
-    and winner-encoding arithmetic as ``csrc/traverse_tris.cu``."""
+    and winner-encoding arithmetic as ``csrc/traverse_tris.cu``, and the
+    same per-ray pop counts (summed per block) for want_counters."""
     n = org.shape[0]
     dev = org.device
     if ignore_prim2 is None:
@@ -156,6 +189,8 @@ def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
     slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     u = torch.zeros(n, dtype=torch.float32, device=dev)
     v = torch.zeros(n, dtype=torch.float32, device=dev)
+    iters = torch.zeros(n, dtype=torch.int64, device=dev)
+    leafs = torch.zeros(n, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, MAX_STACK), dtype=torch.int64, device=dev)
     sp = (t_init > 0).to(torch.int64)      # root (wide node 0) pushed
     links = wlinks.to(torch.int64).reshape(-1, 8)
@@ -169,6 +204,7 @@ def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
         inner = e >= 0
 
         ai, ei = act[inner], e[inner]
+        iters[ai] += 1
         if ai.numel():
             blk = wbounds[ei]                                   # [k, 8, 8]
             o, iv = org[ai][:, None, :], inv[ai][:, None, :]
@@ -190,6 +226,7 @@ def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
             sp[ai] += hi_i.sum(dim=1)
 
         al, el = act[~inner], e[~inner]
+        leafs[al] += 1
         if al.numel():
             lid = -el - 1
             r = leaf_packed[lid]                                # [k, 8, 16]
@@ -234,4 +271,6 @@ def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
                 prim[dst] = cand[wr, k]
                 slot[dst] = (lid[wr] * LEAF + k).to(torch.int32)
         act = act[sp[act] > 0]
+    if want_counters:
+        return t, prim, u, v, slot, block_sums(iters), block_sums(leafs)
     return t, prim, u, v, slot

@@ -60,16 +60,18 @@ class RenderResult:
 
 
 def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
-           path_hist: bool = False) -> RenderResult:
+           progress: bool = False, path_hist: bool = False) -> RenderResult:
     """Render ``spp`` progressions (1 path/pixel each) on the scene's
     device.  ``batch`` progressions run per step (0 = auto: the whole spp
-    for small images, else 1)."""
+    for small images, else 1); ``progress`` prints the time per frame
+    after each step."""
     if batch <= 0:
         batch = spp if cfg.width * cfg.height * spp <= (1 << 21) else 1
     batch = min(batch, spp)
     if not cfg.media and (scene.has_hete
                           or bool(scene.materials.med_enabled.any())):
-        cfg = cfg.replace(media=True)   # raises in the sampler: not ported
+        # the scene carries participating media: run the media path
+        cfg = cfg.replace(media=True)
     dev = scene.device
     fb = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                      device=dev)
@@ -79,6 +81,11 @@ def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
         while done < spp:
             fb = fb + pt_mod.render_sample(scene, cfg, done, batch=batch)
             done += batch
+            if progress:
+                if fb.is_cuda:
+                    torch.cuda.synchronize(fb.device)
+                print(f'  [{done}/{spp}] {(_time.time() - t0) / done:.3f}s/frame',
+                      flush=True)
         fb_host = fb.cpu().numpy()
         seconds = _time.time() - t0
         hist = (pt_mod.alive_profile(scene, cfg, 0).cpu().numpy()

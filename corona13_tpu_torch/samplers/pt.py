@@ -6,9 +6,13 @@ combined with the hero-wavelength balance heuristic; NEE is MIS-weighted
 against BSDF extension (ptdl).  Every ``stop_gradient`` of the JAX
 package is a ``.detach()`` at the same place.
 
-Ported: the dense wavefront with ``media=False``, ``compact=None`` and the
-counter RNG (no primary-sample replay).  Other configurations raise
-NotImplementedError.
+Ported: the dense wavefront with ``compact=None`` and the counter RNG (no
+primary-sample replay), with or without participating media
+(``cfg.media``: free flight through homogeneous interiors and the
+heterogeneous grid, its blackbody emission, HG phase NEE and extension,
+the interior priority stack; ``cfg.equiangular``: equiangular volume
+NEE).  ``cfg.compact``, envmap and daylight skies and image textures
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..models import bsdf as bsdf_mod
 from ..models import camera as camera_mod
 from ..models import lights as lights_mod
 from ..models import medium as medium_mod
+from ..models import medium_hete as hete_mod
 from ..models import shading as shading_mod
 from ..ops import rng
 from ..ops.trace import INVALID_PRIM, MAX_DIST, intersect, occluded
@@ -65,12 +70,12 @@ def _finite(x):
 
 
 def _check(scene, cfg: PTConfig):
-    if cfg.media or cfg.equiangular:
-        raise NotImplementedError('participating media are not ported yet')
     if cfg.compact is not None:
         raise NotImplementedError('cfg.compact is not ported yet')
     if scene.has_envmap or scene.has_daylight:
         raise NotImplementedError('envmap and daylight skies are not ported yet')
+    if scene.has_textures:
+        raise NotImplementedError('image textures are not ported yet')
 
 
 def sample_paths(scene, cfg: PTConfig, sample_idx, pixel_idx):
@@ -130,29 +135,72 @@ def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
 
 
 def _bounce(scene, cfg, state, depth, lam, time, rnd):
-    """One wavefront bounce: intersect, shade, emitter/sky hit with hero
-    MIS, area NEE, BSDF extension and Russian roulette."""
+    """One wavefront bounce: intersect, free flight through the current
+    medium (cfg.media), shade, emitter/sky hit with hero MIS, area NEE from
+    the surface or volume vertex, BSDF or phase extension, Russian
+    roulette and the interior stack update."""
     alive = state['alive']
     org = state['org']
     d = state['dir']
+    mats = scene.materials
+    cur_med = medium_mod.stack_current(state['med_stack'])
     # dead lanes trace with t_max = 0 and do no traversal work
     hit = intersect(scene.geom, org, d, ignore_prim=state['prev_prim'],
                     t_max=torch.where(alive, MAX_DIST, 0.0), time=time)
     nrays = state['nrays'] + alive.to(torch.int64)
-    thr_in = state['thr']
-    valid = hit.valid & alive
+
+    # free flight through the interior medium (path_propagate's
+    # shader_vol_sample step, pathspace.c:697-740)
+    if cfg.media:
+        r_free = rnd(rng.Dim.FREE_PATH, salt=1 + depth)
+        scat, vdist, w_med = medium_mod.sample_dist_scene(
+            scene, cur_med, lam, org, d, hit.t, r_free)
+        scat = scat & alive
+        thr_in = state['thr'] * torch.where(alive[..., None], _finite(w_med),
+                                            1.0)
+    else:
+        scat = torch.zeros_like(alive)
+        vdist = hit.t
+        thr_in = state['thr']
+    valid = hit.valid & alive & ~scat
     # escaped rays park at a finite 1 km like the reference's envmap vertices
     t_park = torch.where(hit.valid, hit.t, 1e4)
+
+    # emissive grid: the analytic T-weighted blackbody integral along the
+    # whole segment (SEGMENT_EMISSION, include/vol/trace.h:27-33)
+    em_vol = None
+    if cfg.media and scene.has_hete and scene.has_vol_emission:
+        in_h = alive & (cur_med == scene.vol.mat_id)
+        e_seg = _finite(hete_mod.emission_along(scene.vol, org, d, t_park,
+                                                lam))
+        em_vol = torch.where(in_h[..., None], state['thr'] * e_seg, 0.0)
     x = org + t_park[..., None] * d
     sp = shading_mod.prepare(scene, hit, x, d, lam)
 
     # geometric term of this segment (path_G, pathspace.c:59-69)
     g = (_lambert(state['prev_n'], d) * _lambert(sp.n, d)
          / torch.clamp(hit.t * hit.t, min=1e-20))
-    pdf_area = _finite(state['pdf_proj'] * g[..., None])
+    pdf_area = state['pdf_proj'] * g[..., None]
+    if cfg.media:
+        # free-flight distance pdfs enter the vertex pdf (sigma_t*T at a
+        # scatter vertex, the survival T at the surface)
+        st_med = medium_mod.sigma_t(mats, cur_med, lam)
+        d_eff = torch.clamp(torch.where(scat, vdist, hit.t), max=1e4)
+        tr_pdf = torch.exp(-st_med * d_eff[..., None])
+        pdf_area = torch.where(scat[..., None], st_med * tr_pdf,
+                               pdf_area * tr_pdf)
+        if scene.has_hete:
+            # the grid's flat extinction cancels in the normalised hero-MIS
+            # products: the JAX package carries 1 (a known reference
+            # defect, ROADMAP Queue 3), reproduced here
+            in_h = cur_med == scene.vol.mat_id
+            pdf_area = torch.where((in_h & scat)[..., None], 1.0, pdf_area)
+            pdf_area = torch.where((in_h & ~scat)[..., None],
+                                   state['pdf_proj'] * g[..., None], pdf_area)
+    pdf_area = _finite(pdf_area)
 
     # environment hit: escaped rays collect sky radiance (hero MIS only)
-    missed = alive & ~hit.valid
+    missed = alive & ~hit.valid & ~scat
     sky = lights_mod.sky_eval(scene, d, lam)
     w_sky = _hero_mis(state['pdf_prod'], state['pdf_proj'],
                       torch.zeros_like(state['pdf_proj']))
@@ -171,24 +219,56 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
     w = _finite(w).detach()
     accum = state['accum'] + torch.where(emits[..., None], thr_in * le * w,
                                          0.0) + accum_sky
+    if em_vol is not None:
+        accum = accum + em_vol
 
     # update the hero pdf product with this vertex (renormalized)
     pdf_prod = state['pdf_prod'] * pdf_area
     pp_norm = torch.amax(pdf_prod, dim=-1, keepdim=True)
     pdf_prod = pdf_prod / torch.where(pp_norm > 0.0, pp_norm, 1.0)
 
-    # next event estimation (nee.h:87-243)
+    # volume scatter vertex and its phase function
+    if cfg.media:
+        xv = org + vdist[..., None] * d
+        g_hg = mats.med_g[torch.clamp(cur_med, min=0)]
+        x_nee = torch.where(scat[..., None], xv, x)
+    else:
+        xv = x
+        g_hg = torch.zeros_like(hit.t)
+        x_nee = x
+
+    # next event estimation (nee.h:87-243), surface and volume vertices
     if cfg.use_nee and scene.lights.n_lights > 0:
         ls = lights_mod.sample_nee(
-            scene.lights, scene.geom, x,
+            scene.lights, scene.geom, x_nee,
             rnd(rng.Dim.NEE_LIGHT2, salt=10 + depth),
             rnd(rng.Dim.NEE_X, salt=10 + depth),
             rnd(rng.Dim.NEE_Y, salt=10 + depth))
-        to_l = ls['pos'] - x
+        thr_nee = thr_in
+        if cfg.media and cfg.equiangular:
+            # re-place the volume connection vertex by equiangular sampling
+            # toward the chosen light point (homogeneous interiors only):
+            # the NEE weight swaps the free-flight factor for
+            # sigma_s T(t_eq) / pdf_eq
+            eq = scat
+            if scene.has_hete:
+                eq = eq & (cur_med != scene.vol.mat_id)
+            r_eq = rnd(rng.Dim.FREE_PATH, salt=40 + depth)
+            t_eq, pdf_eq = medium_mod.equiangular_sample(
+                org, d, ls['pos'], torch.clamp(t_park, max=1e4), r_eq)
+            t_eq = t_eq.detach()
+            pdf_eq = pdf_eq.detach()
+            x_eq = org + t_eq[..., None] * d
+            st_m = medium_mod.sigma_t(mats, cur_med, lam)
+            ss_m = medium_mod.sigma_s(mats, cur_med, lam)
+            w_eq = _finite(ss_m * torch.exp(-st_m * t_eq[..., None])
+                           / torch.clamp(pdf_eq[..., None], min=1e-20))
+            x_nee = torch.where(eq[..., None], x_eq, x_nee)
+            thr_nee = torch.where(eq[..., None], state['thr'] * w_eq, thr_in)
+        to_l = ls['pos'] - x_nee
         dist = torch.sqrt(torch.clamp(dot(to_l, to_l), min=1e-20))
         wo = to_l / dist[..., None]
         cos_l = -dot(ls['gn'], wo)
-        mats = scene.materials
         lmat = torch.clamp(scene.prim_shader[torch.clamp(ls['prim'], min=0)],
                            0, mats.kind.shape[0] - 1)
         edf = lights_mod.phong_edf(mats.roughness[lmat], cos_l)
@@ -197,14 +277,29 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
         f, pdf_bsdf_proj = bsdf_mod.bsdf_eval_pdf(sp, d, wo,
                                                   kinds=scene.kinds_used)
         cos_near = _lambert(sp.n, wo)
+        can_vertex = valid
+        if cfg.media:
+            # volume vertex: phase function instead of the BSDF and no
+            # cosine at the scatter point (path_lambert, pathspace.c:45)
+            ph = medium_mod.hg_phase(g_hg, dot(d, wo))
+            f = torch.where(scat[..., None], ph[..., None], f)
+            pdf_bsdf_proj = torch.where(scat[..., None], ph[..., None],
+                                        pdf_bsdf_proj)
+            cos_near = torch.where(scat, 1.0, cos_near)
+            can_vertex = valid | scat
         g_nee = cos_near * torch.abs(cos_l) / torch.clamp(dist * dist,
                                                           min=1e-20)
         # the NEE vertex extends the path by one: respect max_verts
-        can = valid & (cos_l > 0.0) & torch.any(f > 0.0, dim=-1) & \
+        can = can_vertex & (cos_l > 0.0) & torch.any(f > 0.0, dim=-1) & \
             (ls['pdf_area'] > 0.0) & (depth <= cfg.max_verts - 3)
-        blocked = occluded(scene.geom, ray_offset(x, wo), wo,
+        shadow_org = ray_offset(x_nee, wo)
+        ignore = hit.prim
+        if cfg.media:
+            shadow_org = torch.where(scat[..., None], x_nee, shadow_org)
+            ignore = torch.where(scat, INVALID_PRIM, ignore)
+        blocked = occluded(scene.geom, shadow_org, wo,
                            torch.where(can, dist * (1.0 - 1e-3), 0.0),
-                           ignore_prim=hit.prim, ignore_prim2=ls['prim'],
+                           ignore_prim=ignore, ignore_prim2=ls['prim'],
                            time=time)
         # count shadow rays that traverse (t_max > 0)
         nrays = nrays + can.to(torch.int64)
@@ -212,7 +307,11 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
         pdf_nee = ls['pdf_area'][..., None]
         pdf_nee_safe = torch.where(pdf_nee > 0.0, pdf_nee, 1.0)
         gfac = _finite((g_nee * edf)[..., None] / pdf_nee_safe)
-        val = thr_in * f * gfac * l_em
+        val = thr_nee * f * gfac * l_em
+        if cfg.media:
+            # transmittance of the current interior along the shadow segment
+            val = val * medium_mod.transmittance_scene(scene, cur_med, lam,
+                                                       x_nee, wo, dist)
         # MIS vs bsdf extension (ptdl.c:141-145): pdfs in area measure
         w_nee = _hero_mis(pdf_prod, pdf_nee, pdf_bsdf_proj * g_nee[..., None])
         w_nee = _finite(w_nee).detach()
@@ -224,13 +323,25 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
     rm = rnd(rng.Dim.SCATTER_MODE, salt=1 + depth)
     wo, pdf_proj_new, bsdf_w, mode = bsdf_mod.bsdf_sample(
         sp, d, r1, r2, rm, kinds=scene.kinds_used)
+    if cfg.media:
+        # volume extension: an HG phase direction, weight phase/detach(pdf)
+        # (primal 1; gradients w.r.t. the mean cosine flow)
+        wo_v, pdf_v = medium_mod.hg_sample(g_hg, d, r1, r2)
+        wo = torch.where(scat[..., None], wo_v, wo)
+        pdf_proj_new = torch.where(scat[..., None], pdf_v[..., None],
+                                   pdf_proj_new)
+        ph_v = medium_mod.hg_phase(g_hg, dot(wo_v.detach(), d.detach()))
+        w_v = ph_v / torch.clamp(pdf_v.detach(), min=1e-20)
+        bsdf_w = torch.where(scat[..., None], w_v[..., None], bsdf_w)
+        mode = torch.where(scat, bsdf_mod.MODE_VOLUME | bsdf_mod.MODE_DIFFUSE,
+                           mode)
     # detached-sampling estimator: sampled directions and pdfs are
     # constants of the backward pass
     wo = wo.detach()
     pdf_proj_new = _finite(pdf_proj_new).detach()
     bsdf_w = _finite(bsdf_w)
     thr = thr_in * bsdf_w
-    still = valid & torch.any(thr > 0.0, dim=-1) & \
+    still = (valid | scat) & torch.any(thr > 0.0, dim=-1) & \
         torch.any(pdf_proj_new > 0.0, dim=-1)
 
     # russian roulette by throughput ratio once paths are long enough
@@ -247,11 +358,33 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
     still = still & survive
     connectable = (mode & (bsdf_mod.MODE_DIFFUSE | bsdf_mod.MODE_GLOSSY)) > 0
 
+    new_org = ray_offset(x, wo)
+    new_prev_n = sp.n
+    new_prev_prim = hit.prim
+    new_med = state['med_stack']
+    if cfg.media:
+        # interior transitions on transmission through the priority stack
+        # (_path_edge_medium, pathspace.c:80-115): entering pushes the
+        # shape's interior, exiting pops it
+        mat = torch.clamp(scene.prim_shader[torch.clamp(hit.prim, min=0)], 0,
+                          mats.kind.shape[0] - 1)
+        has_med = mats.med_enabled[mat] & valid
+        transmitted = (mode & bsdf_mod.MODE_TRANSMIT) > 0
+        new_med = medium_mod.stack_push(new_med, mat,
+                                        has_med & transmitted & ~sp.inside)
+        new_med = medium_mod.stack_pop(new_med, mat,
+                                       has_med & transmitted & sp.inside)
+        new_org = torch.where(scat[..., None], xv, new_org)
+        # volume vertices have no cosine: prev_n = wo makes the next
+        # segment's near-lambert exactly 1 (path_lambert convention)
+        new_prev_n = torch.where(scat[..., None], wo, new_prev_n)
+        new_prev_prim = torch.where(scat, INVALID_PRIM, new_prev_prim)
+
     new_state = dict(
-        org=ray_offset(x, wo), dir=wo, thr=thr, pdf_proj=pdf_proj_new,
-        pdf_prod=pdf_prod, prev_n=sp.n, prev_prim=hit.prim,
+        org=new_org, dir=wo, thr=thr, pdf_proj=pdf_proj_new,
+        pdf_prod=pdf_prod, prev_n=new_prev_n, prev_prim=new_prev_prim,
         prev_connectable=connectable, alive=still, accum=accum,
-        length=new_len, nrays=nrays, med_stack=state['med_stack'])
+        length=new_len, nrays=nrays, med_stack=new_med)
     # dead lanes keep their state; accum and ray counts take the new values
     out = {}
     for k, new in new_state.items():

@@ -72,3 +72,23 @@ def eta_from_abbe(n_d: float, v_d: float, lam: torch.Tensor) -> torch.Tensor:
     """Spectral IOR eta(lambda[nm]) via Cauchy's equation."""
     a, b = cauchy_from_abbe(n_d, v_d)
     return a + (b * 1e6) / (lam * lam)
+
+
+def blackbody(temp: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Planck spectral radiance [W/m^2/sr/nm] at temperature ``temp`` [K]
+    and wavelength ``lam`` [nm] in the reference's convention
+    (include/vol/shaders.h:24-47), which omits the factor 2 of the
+    textbook 2hc^2 numerator; kept so emissive volumes match.  temp <= 0
+    emits nothing."""
+    h = 6.62606957e-34
+    c = 299792458.0
+    k = 1.3807e-23
+    temp = torch.as_tensor(temp, dtype=torch.float32)
+    lam = torch.as_tensor(lam, dtype=torch.float32)
+    lam5 = lam ** 5
+    c1 = 1e45 * h * c * c / torch.clamp(lam5, min=1e-20)
+    t_safe = torch.clamp(temp, min=1.0)
+    c2 = (h * c * 1e9 / k) / (lam * t_safe)
+    val = c1 / torch.clamp(torch.exp(torch.clamp(c2, max=80.0)) - 1.0,
+                           min=1e-30) * 1e-9
+    return torch.where(temp > 0.0, val, 0.0)

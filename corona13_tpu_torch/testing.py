@@ -16,7 +16,6 @@ from . import scene as scene_mod
 from .io import cam as cam_io
 from .io import geo as geo_io
 from .ops.trace import make_device_geometry
-from .spectral import fresnel_data, rgb2spec
 
 _DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'data')
@@ -53,69 +52,11 @@ def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
                                 device=device)
     prim_shader = np.concatenate([tri_sh, sph_sh])
 
-    rows = lambda attr: np.array([getattr(m, attr) for m in mats], np.float32)
-    d_c, d_m = scene_mod._fit(rows('d_rgb'))
-    g_c, g_m = scene_mod._fit(rows('g_rgb'))
-    e_c, e_m = scene_mod._fit(rows('e_rgb'))
-    mfp = rows('med_mfp_rgb')
-    with np.errstate(divide='ignore'):
-        mut = np.where(mfp > 0.0, 1.0 / np.maximum(mfp, 1e-20), 0.0)
-    mut_c, mut_m = scene_mod._fit(mut.astype(np.float32))
-    mus_c, mus_m = scene_mod._fit(rows('med_albedo_rgb'))
-    checker = np.load(os.path.join(_DATA, 'colorchecker_sg.npy'))
-    conductors = [fresnel_data.get_conductor(getattr(m, 'metal_name',
-                                                     'default'))
-                  for m in mats]
-
-    def t(a, dtype=None):
-        a = np.asarray(a)
-        if dtype is None:
-            dtype = {np.dtype(np.float64): np.float32,
-                     np.dtype(np.int32): np.int64}.get(a.dtype, a.dtype)
-        return torch.as_tensor(np.ascontiguousarray(a.astype(dtype)),
-                               device=device)
-
-    M = len(mats)
-    materials = scene_mod.MaterialTable(
-        kind=t([m.kind for m in mats], np.int64),
-        d_coeff=t(d_c), d_mul=t(d_m), g_coeff=t(g_c), g_mul=t(g_m),
-        e_coeff=t(e_c), e_mul=t(e_m),
-        roughness=t(rows('roughness')), ior_nd=t(rows('ior_nd')),
-        ior_abbe=t(rows('ior_abbe')),
-        use_checker=t([m.use_checker for m in mats], bool),
-        checker_spectra=t(checker, np.float32),
-        med_mut_coeff=t(mut_c), med_mut_mul=t(mut_m),
-        med_mus_coeff=t(mus_c), med_mus_mul=t(mus_m),
-        med_g=t(rows('med_g')),
-        med_enabled=t([m.med_enabled for m in mats], bool),
-        tex_idx=t(np.full(M, -1), np.int64),
-        tex_slot=t(np.zeros(M), np.int64),
-        tex_mul=t(np.ones(M), np.float32),
-        fres_n=t(np.stack([c[0] for c in conductors])),
-        fres_k=t(np.stack([c[1] for c in conductors])))
-
-    # light table: weight per prim = L / sum(L*A) (lights.d/list.c:125-128)
-    lam4 = torch.tensor([400.0, 480.0, 560.0, 660.0])
-    e_eval = rgb2spec.eval_coeff(torch.as_tensor(e_c)[:, None, :],
-                                 lam4[None, :]).numpy()
-    L_mat = e_m * e_eval.mean(axis=1)
-    areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
-    sel = np.nonzero(L_mat[tri_sh] > 0.0)[0]
-    prim_weight = np.zeros(max(len(prim_shader), 1), np.float32)
-    if len(sel):
-        lw = L_mat[tri_sh[sel]]
-        la = areas[sel]
-        wa = lw * la
-        cdf = np.cumsum(wa) / wa.sum()
-        weight = lw / wa.sum()
-        prim_weight[sel] = weight
-    else:
-        la = cdf = weight = np.zeros((0,), np.float32)
-    lights = scene_mod.LightTable(
-        prim=t(sel, np.int64), cdf=t(cdf, np.float32),
-        weight=t(weight, np.float32), area=t(la, np.float32),
-        prim_weight=t(prim_weight))
-
+    materials = scene_mod.material_table(mats, np.full(len(mats), -1),
+                                         device)
+    lights = scene_mod.light_table(tri_v, tri_sh, len(prim_shader),
+                                   materials)
+    t = lambda a, dtype=None: scene_mod._tensor(a, device, dtype)
     f32 = lambda x: torch.tensor(float(x), dtype=torch.float32, device=device)
     camera = scene_mod.CameraP(
         pos=t(cam.pos, np.float32), pos_t1=t(cam.pos_t1, np.float32),
@@ -141,7 +82,8 @@ def cornell_scene(sphere: str | None = 'diffuse', light=40.0,
                   albedo=(0.7, 0.7, 0.7), device='cpu') -> scene_mod.Scene:
     """Cornell-style box, 10 units wide, centered 15 units down +z from the
     camera at the origin.  ``sphere``: None | 'diffuse' | 'dielectric' |
-    'rough_dielectric' | 'metal' | 'mirror'."""
+    'rough_dielectric' | 'metal' | 'mirror' | 'subsurf' (dielectric shell
+    with a scattering interior) | 'absorb' (purely absorbing interior)."""
     s = 5.0    # half box width
     z0, z1 = 10.0, 20.0
     tris = []
@@ -185,6 +127,15 @@ def cornell_scene(sphere: str | None = 'diffuse', light=40.0,
             'metal': M(kind=scene_mod.METAL, g_rgb=(0.9, 0.9, 0.9),
                        roughness=0.2),
             'mirror': M(kind=scene_mod.METAL, g_rgb=(1, 1, 1), roughness=0.0),
+            'subsurf': M(kind=scene_mod.DIELECTRIC, g_rgb=(1, 1, 1),
+                         roughness=0.0, ior_nd=1.3, ior_abbe=40.0,
+                         med_mfp_rgb=(0.5, 0.7, 0.9),
+                         med_albedo_rgb=(0.95, 0.9, 0.85), med_g=0.3,
+                         med_enabled=True),
+            'absorb': M(kind=scene_mod.DIELECTRIC, g_rgb=(1, 1, 1),
+                        roughness=0.0, ior_nd=1.3, ior_abbe=40.0,
+                        med_mfp_rgb=(1.0, 1.0, 1.0),
+                        med_albedo_rgb=(0.0, 0.0, 0.0), med_enabled=True),
         }
         if sphere not in spheres:
             raise ValueError(sphere)
@@ -228,8 +179,8 @@ def plane_scene_inputs():
     ``test01.cam``.  Returns (tri_v, tri_sh, mats, cam) for
     ``assemble_scene`` of either package."""
     geo_dir = os.path.join(_DATA, 'golden', 'scenes', 'geo')
-    plane = geo_io.load_tri_vtx(os.path.join(geo_dir, 'plane.geo'))
-    light = geo_io.load_tri_vtx(os.path.join(geo_dir, 'emitter.geo'))
+    plane = geo_io.load_geo(os.path.join(geo_dir, 'plane.geo')).tri_vtx
+    light = geo_io.load_geo(os.path.join(geo_dir, 'emitter.geo')).tri_vtx
     tri_v = np.concatenate([plane, light])
     tri_sh = np.concatenate([np.zeros(len(plane), np.int32),
                              np.ones(len(light), np.int32)])

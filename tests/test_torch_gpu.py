@@ -89,3 +89,39 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         trace_cuda.traverse_tris(b.wbounds, b.wlinks, b.leaf_packed,
                                  org.cpu(), d, t0, ig)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_kernel_counters_match_plain(cuda, any_hit):
+    """want_counters: the kernel's per-block inner and leaf pops equal the
+    plain walk's on every block (both count the same per-ray walk), the
+    hit outputs agree as above, and only the 'counters' launch count
+    moves."""
+    geom = ttrace.make_device_geometry(tri_v=_soup(20000, 11), device=cuda)
+    b = geom.tri_bvh
+    n = 65536 + 300                                 # a ragged last block
+    org, d = _rays(n, 6, cuda)
+    t0 = torch.full((n,), 3.0e38, device=cuda)
+    t0[::5] = 6.0
+    t0[:40] = 0.0
+    ig = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    before = dict(trace_cuda.launches)
+    k = trace_cuda.traverse_tris(b.wbounds, b.wlinks, b.leaf_packed, org, d,
+                                 t0, ig, any_hit=any_hit, want_counters=True)
+    torch.cuda.synchronize()
+    assert trace_cuda.launches['counters'] == before['counters'] + 1
+    assert trace_cuda.launches['closest'] == before['closest']
+    assert trace_cuda.launches['any'] == before['any']
+    p = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
+                                       org, d, t0, ig, any_hit=any_hit,
+                                       want_counters=True)
+    k = [x.cpu().numpy() for x in k]
+    p = [x.cpu().numpy() for x in p]
+    assert k[5].shape == k[6].shape == (65,) and k[5].dtype == np.int32
+    np.testing.assert_array_equal(k[5], p[5])
+    np.testing.assert_array_equal(k[6], p[6])
+    assert (k[5] > 0).all() and (k[6] > 0).all()
+    assert (k[1] == p[1]).mean() >= 0.999
+    plain5 = trace_cuda.traverse_tris(b.wbounds, b.wlinks, b.leaf_packed,
+                                      org, d, t0, ig, any_hit=any_hit)
+    np.testing.assert_array_equal(plain5[1].cpu().numpy(), k[1])

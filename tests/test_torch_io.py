@@ -1,5 +1,5 @@
 """The port's host file readers and writer against the JAX package's:
-triangle positions, cameras and PFM images identical, bit for bit."""
+decoded .geo shapes, cameras and PFM images identical, bit for bit."""
 
 import dataclasses
 import glob
@@ -22,15 +22,34 @@ _SCENES = os.path.join(os.path.dirname(os.path.dirname(
 @pytest.mark.parametrize('name', ['geo/plane.geo', 'geo/emitter.geo',
                                   '0031_hete/smokeproxy.geo'])
 def test_load_tri_vtx_matches_jax(name):
+    """Triangle positions (quads split in the reference loader's order)."""
     path = os.path.join(_SCENES, name)
-    np.testing.assert_array_equal(tgeo.load_tri_vtx(path),
+    np.testing.assert_array_equal(tgeo.load_geo(path).tri_vtx,
                                   jgeo.load_geo(path).tri_vtx)
 
 
-@pytest.mark.parametrize('name', ['geo/sphere.geo', 'geo/mbcube.geo'])
-def test_load_tri_vtx_refuses_unported_prims(name):
-    with pytest.raises(NotImplementedError):
-        tgeo.load_tri_vtx(os.path.join(_SCENES, name))
+_GEOS = sorted(os.path.relpath(p, _SCENES) for p in
+               glob.glob(os.path.join(_SCENES, '*', '*.geo')))
+
+
+@pytest.mark.parametrize('name', _GEOS)
+def test_load_geo_matches_jax(name):
+    """Every field of the decoded shape: triangles and quad halves, oct
+    normals, uvs, spheres, lines and the shutter-close (t1) motion data."""
+    a = tgeo.load_geo(os.path.join(_SCENES, name))
+    b = jgeo.load_geo(os.path.join(_SCENES, name))
+    for f in dataclasses.fields(jgeo.GeoShape):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        np.testing.assert_array_equal(x, y, f.name)
+        assert np.asarray(x).dtype == np.asarray(y).dtype, f.name
+
+
+def test_geo_covers_spheres_and_motion():
+    sph = tgeo.load_geo(os.path.join(_SCENES, 'geo', 'sphere.geo'))
+    assert len(sph.sph_radius) == 1 and sph.sph_radius[0] == 1.0
+    mb = tgeo.load_geo(os.path.join(_SCENES, 'geo', 'mbcube.geo'))
+    assert mb.has_motion and not np.array_equal(mb.tri_vtx, mb.tri_vtx_t1)
+    assert len(_GEOS) == 7
 
 
 def test_read_cam_matches_jax():

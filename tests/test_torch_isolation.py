@@ -1,7 +1,8 @@
 """The port runs without JAX: a fresh interpreter imports
-corona13_tpu_torch, builds cornell_scene and the plane scene and renders
-one 16x9 progression on the CPU, and neither jax, flax nor any module of
-the JAX package corona13_tpu gets imported."""
+corona13_tpu_torch, builds cornell_scene and the plane scene, renders one
+16x9 progression on the CPU, loads 0031_hete with scene.load_scene and
+traces one 16x9 media progression of it, and neither jax, flax nor any
+module of the JAX package corona13_tpu gets imported."""
 
 import os
 import subprocess
@@ -18,6 +19,12 @@ res = render.render(sc, pt.PTConfig(width=16, height=9, max_verts=4), spp=1)
 assert res.image_xyz.shape == (9, 16, 3) and np.isfinite(res.image_xyz).all()
 assert res.image_xyz.max() > 0
 assert testing.plane_scene().geom.n_tris == 8198
+from corona13_tpu_torch import scene
+hete, _ = scene.load_scene('data/golden/scenes/0031_hete/test.nra2')
+hete = scene.fit_film(hete, 16, 9)
+img = pt.render_sample(hete, pt.PTConfig(width=16, height=9, max_verts=4,
+                                         media=True), 0).numpy()
+assert np.isfinite(img).all()
 leaked = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'flax', 'corona13_tpu')]
 assert not leaked, leaked

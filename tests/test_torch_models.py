@@ -172,11 +172,11 @@ def _shading_points(kind, seed):
 
 
 @pytest.mark.parametrize('kind', [jbsdf.DIFFUSE, jbsdf.DIELECTRIC,
-                                  jbsdf.METAL])
+                                  jbsdf.METAL, jbsdf.DIFFDIEL])
 def test_bsdf_sample_and_eval(kind):
     jsp, tsp, wi = _shading_points(kind, 20 + kind)
     r1, r2, rm = _u(30, N), _u(31, N), _u(32, N)
-    kinds = (jbsdf.DIFFUSE, jbsdf.DIELECTRIC, jbsdf.METAL)
+    kinds = (jbsdf.DIFFUSE, jbsdf.DIELECTRIC, jbsdf.METAL, jbsdf.DIFFDIEL)
     jo = jbsdf.bsdf_sample(jsp, jnp.asarray(wi), *map(jnp.asarray, (r1, r2, rm)),
                            kinds=kinds)
     to = tbsdf.bsdf_sample(tsp, torch.as_tensor(wi),
@@ -207,4 +207,61 @@ def test_unported_kinds_raise():
                           kinds=(tbsdf.DIFFUSE, tbsdf.HAIR))
     with pytest.raises(NotImplementedError):
         tbsdf.bsdf_eval_pdf(tsp, torch.as_tensor(wi), torch.as_tensor(wi),
-                            kinds=(tbsdf.DIFFDIEL,))
+                            kinds=(tbsdf.HAIR,))
+
+
+# --- the DIFFDIEL battle test of tests/test_bsdf.py:138-164 ----------------
+
+_KINDS = (tbsdf.DIFFUSE, tbsdf.DIELECTRIC, tbsdf.METAL, tbsdf.DIFFDIEL)
+
+def _battle_sp(kind, roughness, n=4096, eta=1.5):
+    ones = torch.ones((n, MF))
+    nrm = torch.tensor([0.0, 0.0, 1.0]).expand(n, 3)
+    return tbsdf.ShadingPoint(
+        kind=torch.full((n,), kind), rd=ones * 0.8, rg=ones * 1.0,
+        em=torch.zeros((n, MF)), roughness=torch.full((n,), roughness),
+        eta_ratio=ones / eta, fresnel_eta=ones * 0.2, fresnel_k=ones * 3.0,
+        n=nrm, gn=nrm, inside=torch.zeros(n, dtype=torch.bool))
+
+
+def _battle_wi(n=4096, theta_deg=40.0):
+    t = np.radians(theta_deg)
+    return torch.tensor([np.sin(t), 0.0, -np.cos(t)],
+                        dtype=torch.float32).expand(n, 3)
+
+
+@pytest.mark.parametrize('roughness', [0.4, 0.0])
+def test_diffdiel_consistency(roughness):
+    """pdf(sample) == pdf(eval) and weight * pdf == f on the connectable
+    lanes (95th percentile within 3%, the JAX suite's bar); at roughness 0
+    the reflect lobe goes specular and the diffuse transmit lobe still
+    passes."""
+    sp = _battle_sp(tbsdf.DIFFDIEL, roughness)
+    wi = _battle_wi()
+    r1, r2, rm = (torch.as_tensor(_u(40 + i, 4096)) for i in range(3))
+    wo, pdf_s, w, mode = tbsdf.bsdf_sample(sp, wi, r1, r2, rm, kinds=_KINDS)
+    f, pdf_e = tbsdf.bsdf_eval_pdf(sp, wi, wo, kinds=_KINDS)
+    live = (torch.any(w > 0, dim=-1)
+            & ((mode & tbsdf.MODE_SPECULAR) == 0)).numpy()
+    assert live.mean() > 0.5
+    pdf_s, pdf_e, f, w = (x.numpy() for x in (pdf_s, pdf_e, f, w))
+    rel = np.abs(pdf_s - pdf_e) / np.maximum(pdf_s, 1e-6)
+    assert np.quantile(rel[live], 0.95) < 0.03
+    rel2 = np.abs(w * pdf_s - f) / np.maximum(f, 1e-4)
+    assert np.quantile(rel2[live], 0.95) < 0.03
+
+
+def test_diffdiel_transmits_diffusely():
+    """Transmission goes into the surface with a cosine lobe, reflection
+    stays above, and the weight is bounded by rg."""
+    sp = _battle_sp(tbsdf.DIFFDIEL, 0.2)
+    r1, r2, rm = (torch.as_tensor(_u(50 + i, 4096)) for i in range(3))
+    wo, _, w, mode = tbsdf.bsdf_sample(sp, _battle_wi(), r1, r2, rm,
+                                       kinds=_KINDS)
+    live = torch.any(w > 0, dim=-1)
+    trans = (((mode & tbsdf.MODE_TRANSMIT) > 0) & live).numpy()
+    refl = (((mode & tbsdf.MODE_REFLECT) > 0) & live).numpy()
+    cos_out = wo[:, 2].numpy()
+    assert trans.mean() > 0.4
+    assert (cos_out[trans] < 0).all() and (cos_out[refl] > 0).all()
+    assert float(w.max()) <= 1.0 + 1e-4

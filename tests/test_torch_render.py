@@ -30,6 +30,17 @@ W, H = 32, 18
 SAMPLE = 3
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread per process: the suite runs in several xdist
+    workers, whose torch thread pools would oversubscribe the cores (up to
+    50x slower here), and these small wavefronts gain nothing from them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _compare(js, max_verts, use_nee):
     js = jscene.fit_film(js, W, H)
     ts = convert.scene_from_numpy(js)
@@ -169,10 +180,14 @@ def test_alive_profile_and_fit_film(cornell):
 
 
 def test_unported_configs_raise(cornell):
+    """cfg.compact, daylight and envmap skies and image textures raise."""
+    import dataclasses
     n = 16
     pix = torch.arange(n)
-    for cfg in (pt_mod.PTConfig(width=4, height=4, media=True),
-                pt_mod.PTConfig(width=4, height=4, max_verts=3,
-                                compact=(1.0, 0.5))):
+    cfg = pt_mod.PTConfig(width=4, height=4, max_verts=3)
+    cases = [(cornell, cfg.replace(compact=(1.0, 0.5)))] + [
+        (dataclasses.replace(cornell, **{flag: True}), cfg)
+        for flag in ('has_daylight', 'has_envmap', 'has_textures')]
+    for sc, c in cases:
         with pytest.raises(NotImplementedError):
-            pt_mod.sample_paths(cornell, cfg, 0, pix)
+            pt_mod.sample_paths(sc, c, 0, pix)

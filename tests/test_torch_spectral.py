@@ -103,3 +103,16 @@ def test_colour_convert_and_gamma():
                rtol=1e-5, atol=1e-6)
     _close(jcolour.srgb_gamma(jnp.asarray(x)),
            tcolour.srgb_gamma(torch.as_tensor(x)), rtol=1e-5)
+
+
+def test_blackbody_matches_jax():
+    """The reference's Planck convention (no factor 2), rtol 1e-5; 0 at and
+    below 0 K."""
+    g = np.random.default_rng(3)
+    temp = g.uniform(-500, 8000, (64, 1)).astype(np.float32)
+    temp[:4] = 0.0
+    lam = g.uniform(360, 830, (1, 16)).astype(np.float32)
+    j = np.asarray(jcie.blackbody(jnp.asarray(temp), jnp.asarray(lam)))
+    t = tcie.blackbody(torch.as_tensor(temp), torch.as_tensor(lam)).numpy()
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6)
+    assert (t[:4] == 0).all() and t.max() > 1.0

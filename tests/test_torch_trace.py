@@ -264,3 +264,66 @@ def test_candidate_intersectors_match_jax():
     np.testing.assert_array_equal(tsok.numpy(), np.asarray(jsok))
     np.testing.assert_allclose(ts.numpy()[tsok.numpy()],
                                np.asarray(js)[tsok.numpy()], rtol=1e-5)
+
+
+def _one_live_lane_per_tile(n_blocks, seed, t_live):
+    """n_blocks*1024 rays with exactly one live lane per 128-ray tile
+    (t_init = 0 elsewhere); t_live [n_blocks*8] is the live lanes' t_init."""
+    n = n_blocks * trace_cuda.BLOCK
+    org, d = _rays(n, seed)
+    t0 = np.zeros(n, np.float32)
+    live = np.arange(0, n, 128) + np.random.default_rng(seed).integers(
+        0, 128, n // 128)
+    t0[live] = t_live
+    return org, d, t0, live
+
+
+def test_plain_counters_match_pallas(soup):
+    """want_counters: the plain walk's per-block inner and leaf pops
+    against the Pallas kernel in interpret mode, one live lane per 128-ray
+    tile.  Closest-hit: equal per block.  Any-hit: equal on blocks whose
+    live rays are all unblocked, and <= elsewhere (the TPU union walk
+    keeps popping after its one ray is blocked; see trace_cuda's
+    docstring).  (t, prim, u, v, slot) as in the tests above."""
+    nb = 6
+    t_live = np.where(np.arange(nb * 8) < 24, 3.0e38, 1.5).astype(np.float32)
+    org, d, t0, live = _one_live_lane_per_tile(nb, 9, t_live)
+    ig = np.full(len(t0), -1, np.int32)
+    for any_hit in (False, True):
+        jb, tb = soup[0].tri_bvh, soup[1]
+        j = trace_pallas.traverse_tris(
+            jb.wbounds, jb.wlinks, jb.leaf_packed, jnp.asarray(org),
+            jnp.asarray(d), jnp.asarray(t0), jnp.asarray(ig), any_hit=any_hit,
+            interpret=True, want_counters=True)
+        T = torch.as_tensor
+        t = trace_cuda.traverse_tris(tb.wbounds, tb.wlinks, tb.leaf_packed,
+                                     T(org), T(d), T(t0), T(ig),
+                                     any_hit=any_hit, want_counters=True)
+        j = [np.asarray(x) for x in j]
+        t = [x.numpy() for x in t]
+        assert len(t) == 7 and t[5].shape == t[6].shape == (nb,)
+        assert t[5].dtype == t[6].dtype == np.int32
+        np.testing.assert_array_equal(t[1] >= 0, j[1] >= 0)
+        if not any_hit:
+            np.testing.assert_array_equal(t[1], j[1])
+            np.testing.assert_array_equal(t[4], j[4])
+            np.testing.assert_allclose(t[0], j[0], rtol=1e-5)
+            np.testing.assert_array_equal(t[5], j[5])
+            np.testing.assert_array_equal(t[6], j[6])
+            assert (t[6] > 0).all() and (t[5] > t[6]).all()
+        else:
+            blocked = (t[1][live] >= 0).reshape(nb, 8).any(axis=1)
+            assert blocked.any() and not blocked.all()
+            for k in (5, 6):
+                np.testing.assert_array_equal(t[k][~blocked], j[k][~blocked])
+                assert (t[k][blocked] <= j[k][blocked]).all()
+            assert (t[5][blocked] < j[5][blocked]).any()
+    # an N that is no multiple of 1024: padded like the JAX package
+    n = 1500
+    o, dd = _rays(n, 3)
+    out = trace_cuda.traverse_tris_plain(
+        tb.wbounds, tb.wlinks, tb.leaf_packed, T(o), T(dd),
+        T(np.full(n, 3.0e38, np.float32)), T(np.full(n, -1, np.int32)),
+        want_counters=True)
+    assert out[5].shape == (2,) and out[6].shape == (2,)
+    assert (out[5] >= 0).all() and int(out[5][1]) > 0
