@@ -4,18 +4,26 @@
 
 Phases (each prints its results; any failure exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit;
-  2. build: compiles the BVH8 traversal kernel from corona13_tpu_torch/csrc;
+  2. build: compiles the BVH8 traversal kernel from corona13_tpu_torch/csrc
+     with nvcc and prints its registers per instantiation;
   3. kernel against plain: the CUDA kernel and its plain torch version on
      the same 589,824 rays (1024x576), closest-hit and any-hit, over the
      main path's cornell BVH, the in-repo 8198-triangle plane scene and a
-     2^17-triangle random soup, with times from CUDA events;
+     2^17-triangle random soup, with times from CUDA events; then the
+     plane and soup bounce and shadow rays again with the lanes dead
+     (t_init = 0) that pt.alive_profile finds dead at bounces 2 and 4 of
+     the plane scene, and once with every lane dead; every case launched
+     twice and held bit-identical; then intersect/occluded as callers see
+     them (ms per call, CUDA launches per call) on cornell and plane;
   4. main path: render.render of testing.cornell_scene at 1024x576, mf=4,
      max_verts=6, NEE on, 4 spp, through the kernel (launch counts
      checked), plus the same path on the card against the CPU at 64x36;
   5. larger BVH: the plane scene rendered the same way at 2 spp;
-  6. counters: the kernel with want_counters on the plane and soup BVHs at
-     589,824 rays, closest-hit and any-hit, against the plain walk (equal
-     pops per 1024-ray block), with its time with and without counters;
+  6. counters: the kernel with want_counters (the simple walk, thread i on
+     ray i) on the cornell, plane and soup BVHs at 589,824 rays,
+     closest-hit and any-hit, against the plain walk (equal pops per
+     1024-ray block), timed in turns with the render path's persistent
+     launch on the same rays;
   7. golden gates: scene.load_scene of data/golden/scenes/0031_hete and
      0030_subsurf on the card, rendered at the JAX gates' settings
      (tests/test_golden.py:134-173) and held to their RMSE and mean bounds;
@@ -25,14 +33,19 @@ Phases (each prints its results; any failure exits non-zero):
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
  10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp.
-The line before the last is a JSON record of the kernels; the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The line before the last is a JSON record of the kernels, each with its
+bound on this card: the larger of its bytes (inputs once, outputs once,
+dead lanes only their t_init) over 3.35 TB/s and its float operations (the
+pops this run's rays needed, on occupied children and rows) over 67
+TFLOP/s.  The last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -74,8 +87,20 @@ def build_phase():
     phase('build')
     t0 = time.time()
     trace_cuda.build()
-    print(f'built corona13_tpu_torch/csrc/traverse_tris.cu for sm_90a in '
-          f'{time.time() - t0:.1f} s', flush=True)
+    print(f'built corona13_tpu_torch/csrc/traverse_tris.cu for sm_90a with '
+          f'nvcc in {time.time() - t0:.1f} s', flush=True)
+    # ptxas -v: registers, stack frame and spills of each instantiation
+    # (template arguments: leaf test, any-hit, counters, persistent)
+    name = None
+    for line in trace_cuda.build_log.splitlines():
+        if 'Compiling entry function' in line:
+            flags = re.findall(r'Lb([01])E', line)
+            check(len(flags) == 3, f'unexpected kernel name: {line}')
+            name = ('any-hit' if flags[0] == '1' else 'closest-hit') + \
+                (' counters' if flags[1] == '1' else '') + \
+                (' persistent' if flags[2] == '1' else ' simple')
+        elif name and ('registers' in line or 'stack frame' in line):
+            print(f'  {name}: {line.split(":", 1)[-1].strip()}', flush=True)
 
 
 # --- phase 3: kernel against plain ------------------------------------------
@@ -139,30 +164,146 @@ def _soup_sets(dev, seed):
     return {k: tuple(a.to(dev) for a in v) for k, v in cpu.items()}
 
 
-def _time_ms(fn, n_sets, reps):
-    """Mean ms per call over reps calls cycling over n_sets input sets,
-    between CUDA events, ending in a synchronize and a read-back."""
+def _time_ms(fn, n_sets, reps, host=False):
+    """Mean card ms per call over reps calls cycling over n_sets input
+    sets, between CUDA events, ending in a synchronize and a read-back.
+    A dry pass measures how long the host takes to enqueue the calls; a
+    spin kernel half as long again (at an SM clock of at most 2 GHz) then
+    goes first, so that the host has enqueued every call before the card
+    starts on them: the events bracket the card's time, not the host's
+    pace of launching.  If the spin has ended by the time the host is done
+    the pass is host-bound and is taken again behind twice the spin (at
+    most three passes).  host=True also returns the host's microseconds
+    per call to enqueue and whether the last pass was still host-bound."""
     fn(0)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i % n_sets)
+    spin_s = (time.perf_counter() - t0) * 1.5 + 1e-3
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * 2e9))
+        start.record()
+        last = None
+        t0 = time.perf_counter()
+        for i in range(reps):
+            last = fn(i % n_sets)
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        host_bound = start.query()    # the spin is over: the card was waiting
+        end.record()
+        torch.cuda.synchronize()
+        if not host_bound:
+            break
+        spin_s *= 2
+    float(last[0].float().sum().item())
+    ms = start.elapsed_time(end) / reps
+    if host_bound and not host:
+        print(f'  (host-bound timing: {ms:.3f} ms a call is the host\'s '
+              f'pace, {host_us:.0f} us to enqueue one)', flush=True)
+    return (ms, host_us, host_bound) if host else ms
+
+
+MAX_DIST = 3.4e38
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
+PEAK_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
+# Float operations, counted from csrc/traverse_tris.cu, min/max and float
+# compares each as one.  An inner pop tests a child with 6 subtractions, 6
+# multiplications, 12 min/max and 4 compares; a leaf pop tests a row with 54
+# (two cross products, four dot products, a divide, three scalings, the
+# float compares); a live ray takes 3 clamped inverses (abs, compare,
+# select, divide).  The kernel does the arithmetic of all 8 slots of a
+# record; the bound counts only the occupied ones, which the walk needs.
+OPS_CHILD, OPS_ROW, OPS_RAY = 28, 54, 12
+
+
+def _bound_ms(b, n, alive, t_is_tensor, n_ignore, out_bytes, inner, leaf):
+    """The least time the card could take: (ms, 'bytes' or 'operations').
+    Bytes: the kernel's BVH records once, 24 B of origin and direction
+    plus 8 B per ignore id for a live ray, t_init where it is a tensor and
+    the outputs for every ray.  Operations: those of the pops this run's
+    rays made (inner, leaf: totals from the counters launch) on occupied
+    children and rows, at the tree's mean fill of a node and of a leaf (the
+    counters do not say which records were popped)."""
+    child_fill = float((b.knodes[:, :, 6] != 0).float().mean())
+    row_fill = float((b.kleaves[:, :, 3].contiguous().view(torch.int32)
+                      >= 0).float().mean())
+    nbytes = ((b.knodes.numel() + b.kleaves.numel()) * 4
+              + alive * (24 + 8 * n_ignore) + n * (4 * t_is_tensor + out_bytes))
+    ops = (alive * OPS_RAY + inner * 8 * child_fill * OPS_CHILD
+           + leaf * 8 * row_fill * OPS_ROW)
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _plain_timed(case, **kw):
+    """One call of the plain walk on the case's first input set: its
+    outputs as numpy and its ms between CUDA events."""
+    from corona13_tpu_torch.ops import trace_cuda
+    b, any_hit, argsets = case
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    last = None
-    for i in range(reps):
-        last = fn(i % n_sets)
+    out = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
+                                         *argsets[0], any_hit=any_hit, **kw)
     end.record()
     torch.cuda.synchronize()
-    float(last[0].float().sum().item())
-    return start.elapsed_time(end) / reps
+    return [x.cpu().numpy() for x in out], start.elapsed_time(end)
 
 
-def kernel_phase(dev):
+def _run_case(name, case):
+    """Kernel against plain on one case: two launches bit-identical, hits
+    held to the plain walk's, the kernel timed over 20 launches."""
+    from corona13_tpu_torch.ops import trace_cuda
+    b, any_hit, argsets = case
+    kern = lambda s: trace_cuda.traverse_tris(b, *argsets[s], any_hit=any_hit)
+    first, second = kern(0), kern(0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(first, second)),
+          f'{name}: two launches on the same inputs differ')
+    k = [x.cpu().numpy() for x in first]
+    p, plain_ms = _plain_timed(case)
+    agree, err = _compare_hits(k, p, any_hit, name)
+    res = dict(ms=_time_ms(kern, 2, 20), plain_ms=plain_ms, agree=agree,
+               max_abs_err=err, hit_share=float((k[1] >= 0).mean()),
+               alive=int(sum((a[2] > 0).sum() if torch.is_tensor(a[2])
+                             else N_RAYS for a in argsets) // len(argsets)))
+    if any_hit:
+        # the form trace.occluded launches: only the blocked flag is written
+        flag = lambda s: (trace_cuda.occluded_tris(b, *argsets[s]),)
+        blocked, again = flag(0)[0], flag(0)[0]
+        check(torch.equal(blocked, again) and
+              torch.equal(blocked, first[1] >= 0),
+              f'{name}: occluded_tris differs from traverse_tris')
+        res['flag_ms'] = _time_ms(flag, 2, 20)
+    slot_agree = agree if any_hit else float((k[4] == p[4]).mean())
+    print(f'  {name:36s} {"any" if any_hit else "closest"}-hit: alive '
+          f'{res["alive"] / N_RAYS:.4f}, hit share {res["hit_share"]:.4f}, '
+          f'prim agree {agree:.6f}, slot agree {slot_agree:.6f}, max |dt| '
+          f'{err:.3g}, two launches identical; kernel {res["ms"]:.3f} ms'
+          + (f' ({res["flag_ms"]:.3f} ms writing only the flag)'
+             if any_hit else '') + f', plain {plain_ms:.1f} ms', flush=True)
+    return res
+
+
+def kernel_phase(dev, card):
     from corona13_tpu_torch import testing
     from corona13_tpu_torch import scene as scene_mod
     from corona13_tpu_torch.ops import trace as trace_mod
-    from corona13_tpu_torch.ops import trace_cuda
-    phase(f'kernel against plain, {N_RAYS} rays per call')
-    cornell = scene_mod.fit_film(testing.cornell_scene(device=dev), W, H)
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'kernel against plain, {N_RAYS} rays per call, on {card}')
+    # an entry point without a device argument: it builds on the card
+    cornell = testing.cornell_scene()
+    check(cornell.device.type == 'cuda', f'cornell_scene() built on '
+          f'{cornell.device}, not on the card')
+    cornell = scene_mod.fit_film(cornell, W, H)
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
     t0 = time.time()
     soup = trace_mod.make_device_geometry(tri_v=_soup(1 << 17, 7), device=dev)
@@ -173,44 +314,112 @@ def kernel_phase(dev):
             'plane': (plane.geom, _ray_sets(plane.geom, plane, dev, 3),
                       _ray_sets(plane.geom, plane, dev, 4)),
             'soup': (soup, _soup_sets(dev, 5), _soup_sets(dev, 6))}
-    results = {'closest': {}, 'any': {}}
+    cases = {}
     for bname, (geom, set_a, set_b) in bvhs.items():
         b = geom.tri_bvh
         print(f'{bname}: {geom.n_tris} triangles, {b.wbounds.shape[0]} wide '
-              f'nodes, {b.leaf_packed.shape[0]} leaves', flush=True)
+              f'nodes, {b.leaf_packed.shape[0]} leaves, stack depth '
+              f'{b.stack_depth} ({b.stack_depth * 512} B of shared memory a '
+              f'block)', flush=True)
         for kind in ('camera', 'bounce', 'shadow'):
-            any_hit = kind == 'shadow'
-            key = 'any' if any_hit else 'closest'
-
             argsets = []
             for rays in (set_a, set_b):        # two input sets, varied
                 o, d, ig, *tm = rays[kind]
-                t = tm[0] if tm else torch.full((N_RAYS,), 3.4e38, device=dev)
-                argsets.append((b.wbounds, b.wlinks, b.leaf_packed,
-                                o.contiguous(), d.contiguous(), t.contiguous(),
-                                ig.to(torch.int32).contiguous()))
-            kern = lambda s: trace_cuda.traverse_tris(*argsets[s],
-                                                      any_hit=any_hit)
-            plain = lambda s: trace_cuda.traverse_tris_plain(*argsets[s],
-                                                             any_hit=any_hit)
-            k = [x.cpu().numpy() for x in kern(0)]
-            p = [x.cpu().numpy() for x in plain(0)]
-            ms = _time_ms(kern, 2, 20)
-            plain_ms = _time_ms(plain, 2, 1)
-            agree, err = _compare_hits(k, p, any_hit, f'{bname}/{kind}')
-            slot_agree = float((k[4] == p[4]).mean()) if not any_hit \
-                else agree
-            hits = float((k[1] >= 0).mean())
-            print(f'  {kind:6s} {"any" if any_hit else "closest"}-hit: '
-                  f'hit share {hits:.4f}, prim agree {agree:.6f}, slot agree '
-                  f'{slot_agree:.6f}, max |dt| {err:.3g}; kernel {ms:.3f} ms, '
-                  f'plain {plain_ms:.1f} ms', flush=True)
-            results[key][f'{bname}/{kind}'] = dict(
-                ms=ms, plain_ms=plain_ms, agree=agree, max_abs_err=err,
-                hit_share=hits)
+                # as the main path passes them: int64 ids and a tensor of
+                # segment ends (MAX_DIST on a live bounce ray); the camera
+                # rays take the one-float form of an unbounded ray
+                t = tm[0].contiguous() if tm else MAX_DIST if kind == 'camera' \
+                    else torch.full((N_RAYS,), MAX_DIST, device=dev)
+                argsets.append((o.contiguous(), d.contiguous(), t,
+                                ig.contiguous()))
+            cases[f'{bname}/{kind}'] = (b, kind == 'shadow', argsets)
+    # the main path's alive shares: bounces 2 and 4 of the plane scene
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    prof = pt_mod.alive_profile(plane, cfg, 0).cpu().numpy() / N_RAYS
+    print(f'plane scene alive shares per bounce: '
+          f'{", ".join(f"{x:.4f}" for x in prof)}', flush=True)
+    g = torch.Generator(device='cpu').manual_seed(9)
+    for tag, share in ((f'bounce 2 alive {prof[2]:.4f}', float(prof[2])),
+                       (f'bounce 4 alive {prof[4]:.4f}', float(prof[4])),
+                       ('all dead', 0.0)):
+        for bname in ('plane', 'soup'):
+            for kind in ('bounce', 'shadow'):
+                if tag == 'all dead' and (bname, kind) != ('plane', 'bounce'):
+                    continue
+                b, any_hit, argsets = cases[f'{bname}/{kind}']
+                dead = []
+                for o, d, t, ig in argsets:
+                    live = (torch.rand(N_RAYS, generator=g) < share).to(dev)
+                    dead.append((o, d, torch.where(live, t, 0.0), ig))
+                cases[f'{bname}/{kind}/{tag}'] = (b, any_hit, dead)
+    results = {'closest': {}, 'any': {}}
+    for name, case in cases.items():
+        results['any' if case[1] else 'closest'][name] = _run_case(name, case)
+    dead = results['closest']['plane/bounce/all dead']
+    check(dead['hit_share'] == 0.0 and dead['alive'] == 0,
+          'the all-dead case traced something')
     print('tolerance: prim and slot (any-hit: blocked) identical on >= 99.9% '
-          'of rays, t within rtol 1e-6 where prim agrees', flush=True)
-    return results, bvhs
+          'of rays, t within rtol 1e-6 where prim agrees; two launches of a '
+          'case bit-identical', flush=True)
+    return results, bvhs, cases
+
+
+def _cuda_launches(fn):
+    """Names of the CUDA kernels, copies and memsets that one call of fn
+    puts on the card, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def callers_phase(bvhs, kres, card):
+    """trace.intersect and trace.occluded as the sampler calls them: ms
+    per call with the wrapper, beside the bare kernel, and the CUDA
+    launches of one call.  The plane scene has only triangles: besides the
+    kernel a call may launch two torch kernels at most."""
+    from corona13_tpu_torch.ops import trace as trace_mod
+    phase(f'intersect / occluded as callers see them, {N_RAYS} rays, on '
+          f'{card}')
+    out = {}
+    for bname in ('cornell', 'plane'):
+        geom, set_a, set_b = bvhs[bname]
+        sets = [(s['bounce'], s['shadow']) for s in (set_a, set_b)]
+        isect = lambda i: (trace_mod.intersect(
+            geom, sets[i][0][0], sets[i][0][1], ignore_prim=sets[i][0][2]).t,)
+        occl = lambda i: (trace_mod.occluded(
+            geom, sets[i][1][0], sets[i][1][1], sets[i][1][3],
+            ignore_prim=sets[i][1][2], ignore_prim2=sets[i][1][2]),)
+        for call, fn, key, kind, field in (
+                ('intersect', isect, 'closest', 'bounce', 'ms'),
+                ('occluded', occl, 'any', 'shadow', 'flag_ms')):
+            names = _cuda_launches(lambda: fn(0))
+            ours = [n for n in names if 'traverse_kernel' in n]
+            others = [n for n in names if 'traverse_kernel' not in n]
+            ms, host_us, host_bound = _time_ms(fn, 2, 20, host=True)
+            bare = kres[key][f'{bname}/{kind}'][field]
+            whose = "at the host's pace" if host_bound else 'of the card'
+            print(f'  {bname} {call}: {ms:.3f} ms {whose} per call (the '
+                  f'host takes {host_us:.0f} us to enqueue one), bare kernel '
+                  f'{bare:.3f} ms; CUDA launches in one call: {len(ours)} '
+                  f'kernel + {len(others)} torch '
+                  f'({", ".join(sorted(set(n[:40] for n in others)))})',
+                  flush=True)
+            check(len(ours) == 1, f'{bname} {call}: {len(ours)} kernel '
+                  f'launches in one call')
+            if geom.n_spheres == 0:
+                check(len(others) <= 2, f'{bname} {call}: {len(others)} torch '
+                      f'launches around the kernel: {others}')
+            out[f'{bname}/{call}'] = dict(ms=ms, host_us=host_us,
+                                          host_bound=host_bound,
+                                          kernel_ms=bare,
+                                          torch_launches=len(others))
+    return out
 
 
 def _compare_hits(k, p, any_hit, where):
@@ -235,66 +444,74 @@ def _compare_hits(k, p, any_hit, where):
     return agree, err
 
 
-def counters_phase(bvhs):
+def counters_phase(cases, kres, card):
     """want_counters at the main path's shapes.  The counters' own path is
     one launch per case with the counts reset before and read after; the
-    comparisons with the plain walk and the timings come after it."""
+    comparisons with the plain walk and the timings come after it.  The
+    counters launch is the simple walk (thread i walks ray i), so its time
+    in turns with the render path's launch on the same rays is the
+    persistent design against the simple one."""
     from corona13_tpu_torch.ops import trace_cuda
-    phase(f'counters: want_counters against plain, {N_RAYS} rays per call')
-    cases = []
-    for bname in ('plane', 'soup'):
-        geom, set_a, set_b = bvhs[bname]
-        b = geom.tri_bvh
-        for kind in ('bounce', 'shadow'):
-            argsets = []
-            for rays in (set_a, set_b):
-                o, d, ig, *tm = rays[kind]
-                t = tm[0] if tm else torch.full((N_RAYS,), 3.4e38,
-                                                device=o.device)
-                argsets.append((b.wbounds, b.wlinks, b.leaf_packed,
-                                o.contiguous(), d.contiguous(), t.contiguous(),
-                                ig.to(torch.int32).contiguous()))
-            cases.append((f'{bname}/{kind}', kind == 'shadow', argsets))
+    phase(f'counters: want_counters against plain, and the simple walk '
+          f'against the persistent one, {N_RAYS} rays per call, on {card}')
+    names = [f'{b}/{k}' for b in ('cornell', 'plane', 'soup')
+             for k in ('bounce', 'shadow')]
     for k in trace_cuda.launches:
         trace_cuda.launches[k] = 0
-    outs = [trace_cuda.traverse_tris(*a[0], any_hit=ah, want_counters=True)
-            for _, ah, a in cases]
+    outs = [trace_cuda.traverse_tris(cases[n][0], *cases[n][2][0],
+                                     any_hit=cases[n][1], want_counters=True)
+            for n in names]
     torch.cuda.synchronize()
     launches = dict(trace_cuda.launches)
-    print(f'counter launches {launches} (expected {len(cases)} counters)',
+    print(f'counter launches {launches} (expected {len(names)} counters)',
           flush=True)
-    check(launches == {'closest': 0, 'any': 0, 'counters': len(cases)},
+    check(launches == {'closest': 0, 'any': 0, 'counters': len(names)},
           f'counter launch counts {launches}')
     res = {}
-    for (name, ah, argsets), out in zip(cases, outs):
+    for name, out in zip(names, outs):
+        b, ah, argsets = cases[name]
         k = [x.cpu().numpy() for x in out]
-        p = [x.cpu().numpy() for x in trace_cuda.traverse_tris_plain(
-            *argsets[0], any_hit=ah, want_counters=True)]
+        p, plain_ms = _plain_timed(cases[name], want_counters=True)
         check(k[5].shape == (N_RAYS // 1024,), f'{name}: counter shape')
         blocks_eq = float(((k[5] == p[5]) & (k[6] == p[6])).mean())
         check(blocks_eq == 1.0, f'{name}: counters differ on '
               f'{1 - blocks_eq:.4%} of blocks')
         agree, err = _compare_hits(k, p, ah, name)
-        # with and without counters in turns (with, without, without, with)
-        on = lambda s: trace_cuda.traverse_tris(*argsets[s], any_hit=ah,
-                                                want_counters=True)
-        off = lambda s: trace_cuda.traverse_tris(*argsets[s], any_hit=ah)
-        t_on, t_off = _time_ms(on, 2, 20), _time_ms(off, 2, 20)
-        t_off += _time_ms(off, 2, 20)
-        t_on += _time_ms(on, 2, 20)
-        ms, ms_off = t_on / 2, t_off / 2
-        plain_ms = _time_ms(lambda s: trace_cuda.traverse_tris_plain(
-            *argsets[s], any_hit=ah, want_counters=True), 2, 1)
-        per_ray = (k[5].sum() / N_RAYS, k[6].sum() / N_RAYS)
-        print(f'  {name:13s} {"any" if ah else "closest"}-hit: blocks equal '
+        # in turns: simple, persistent, persistent, simple; then the
+        # counters wrapper, which adds the per-block sums to the simple walk
+        simple = lambda s: trace_cuda.simple_walk(b, *argsets[s], any_hit=ah)
+        if ah:
+            pers = lambda s: (trace_cuda.occluded_tris(b, *argsets[s]),)
+        else:
+            pers = lambda s: trace_cuda.traverse_tris(b, *argsets[s])
+        t_s, t_p = _time_ms(simple, 2, 20), _time_ms(pers, 2, 20)
+        t_p += _time_ms(pers, 2, 20)
+        t_s += _time_ms(simple, 2, 20)
+        ms_simple, ms_pers = t_s / 2, t_p / 2
+        ms = _time_ms(lambda s: trace_cuda.traverse_tris(
+            b, *argsets[s], any_hit=ah, want_counters=True), 2, 20)
+        inner, leaf = int(k[5].sum()), int(k[6].sum())
+        m = kres['any' if ah else 'closest'][name]
+        t_tensor = torch.is_tensor(argsets[0][2])
+        bound, by = _bound_ms(b, N_RAYS, m['alive'], t_tensor, 1,
+                              1 if ah else 28, inner, leaf)
+        cbound, cby = _bound_ms(b, N_RAYS, m['alive'], t_tensor, 1, 36,
+                                inner, leaf)
+        print(f'  {name:14s} {"any" if ah else "closest"}-hit: blocks equal '
               f'{blocks_eq:.6f}, prim agree {agree:.6f}, max |dt| {err:.3g}; '
-              f'pops per ray {per_ray[0]:.2f} inner / {per_ray[1]:.2f} leaf; '
-              f'kernel {ms:.3f} ms with counters, {ms_off:.3f} ms without, '
-              f'plain {plain_ms:.1f} ms', flush=True)
-        res[name] = dict(ms=ms, ms_without=ms_off, plain_ms=plain_ms,
+              f'pops per ray {inner / N_RAYS:.2f} inner / '
+              f'{leaf / N_RAYS:.2f} leaf; simple walk '
+              f'{ms_simple:.3f} ms ({ms:.3f} ms with the per-block sums), '
+              f'persistent {ms_pers:.3f} ms, bound '
+              f'{bound:.4f} ms by {by} (share {bound / ms_pers:.3f}), plain '
+              f'{plain_ms:.1f} ms', flush=True)
+        res[name] = dict(ms=ms, ms_simple=ms_simple, ms_persistent=ms_pers,
+                         plain_ms=plain_ms,
                          max_abs_err=err, agree=agree, blocks_equal=blocks_eq,
-                         inner_per_ray=float(per_ray[0]),
-                         leaf_per_ray=float(per_ray[1]))
+                         inner_per_ray=inner / N_RAYS,
+                         leaf_per_ray=leaf / N_RAYS, bound_ms=bound,
+                         bound_by=by, counters_bound_ms=cbound,
+                         counters_bound_by=cby)
     print('tolerance: iters and leafs equal on every block; hits as phase 3',
           flush=True)
     return res, launches
@@ -477,42 +694,54 @@ def main():
     dev = torch.device('cuda')
     gpu = torch.cuda.get_device_name(0)
     build_phase()
-    kres, bvhs = kernel_phase(dev)
+    kres, bvhs, cases = kernel_phase(dev, smi)
+    callers = callers_phase(bvhs, kres, smi)
 
     cornell = scene_mod.fit_film(testing.cornell_scene(sphere='diffuse',
                                                        device=dev), W, H)
-    res, lit, launches, rays = render_phase('cornell', cornell, 4, gpu)
+    spp = 4
+    res, lit, launches, rays = render_phase('cornell', cornell, spp, gpu)
     check(lit >= 0.95, f'only {lit} of the pixels are lit')
     path_close = path_against_cpu(dev)
 
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
     res2, lit2, launches2, rays2 = render_phase('plane (8198 triangles)', plane,
                                                 2, gpu)
-    cres, claunches = counters_phase(bvhs)
-    del bvhs
+    cres, claunches = counters_phase(cases, kres, smi)
+    del bvhs, cases
     gold = golden_phase(dev)
     media = media_paths_phase(dev, smi)
     media_close = media_against_cpu(dev)
     cli_mean = cli_phase()
 
+    common = {'route': 'cuda',
+              'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
+              'replaces': 'corona13_tpu/ops/trace_pallas.py:284',
+              'library_ms': None}   # no PyTorch call walks a BVH
+
     def entry(key, name):
-        # the main path's shapes: cornell BVH, 589,824 bounce / shadow rays
-        m = kres[key]['cornell/shadow' if key == 'any' else 'cornell/bounce']
-        return {'name': name, 'route': 'cuda',
-                'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
-                'replaces': 'corona13_tpu/ops/trace_pallas.py:284',
-                'launches': launches[key], 'max_abs_err': m['max_abs_err'],
-                'ms': m['ms'], 'plain_ms': m['plain_ms']}
+        # the main path's shapes: cornell BVH, 589,824 bounce / shadow rays;
+        # any-hit as trace.occluded launches it (only the flag written)
+        case = 'cornell/shadow' if key == 'any' else 'cornell/bounce'
+        m, c = kres[key][case], cres[case]
+        ms = m['flag_ms'] if key == 'any' else m['ms']
+        return {'name': name, **common, 'launches': launches[key],
+                'launches_per_frame': launches[key] / spp,
+                'max_abs_err': m['max_abs_err'], 'ms': ms,
+                'plain_ms': m['plain_ms'], 'bound_ms': c['bound_ms'],
+                'bound_by': c['bound_by'],
+                'roofline_share': c['bound_ms'] / ms}
     m = cres['plane/bounce']     # the counters at a real BVH's bounce rays
-    counters = {'name': 'traverse_tris counters', 'route': 'cuda',
-                'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
-                'replaces': 'corona13_tpu/ops/trace_pallas.py:284',
+    counters = {'name': 'traverse_tris counters', **common,
                 'launches': claunches['counters'],
+                'launches_per_frame': launches['counters'] / spp,
                 'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
-                'plain_ms': m['plain_ms']}
-    print(json.dumps({'device': smi, 'kernel_cases': kres,
+                'plain_ms': m['plain_ms'], 'bound_ms': m['counters_bound_ms'],
+                'bound_by': m['counters_bound_by'],
+                'roofline_share': m['counters_bound_ms'] / m['ms']}
+    print(json.dumps({'device': smi, 'kernel_cases': kres, 'callers': callers,
                       'counter_cases': cres, 'golden': gold, 'render': {
-        'cornell': {'frame_s': res.seconds / 4, 'rays': rays,
+        'cornell': {'frame_s': res.seconds / spp, 'rays': rays,
                     'mrays_per_s': rays / res.seconds / 1e6,
                     'lit_share': lit, 'paths_vs_cpu': path_close},
         'plane': {'frame_s': res2.seconds / 2, 'rays': rays2,

@@ -16,6 +16,7 @@ import torch
 from . import scene as scene_mod
 from .models import medium_hete
 from .ops import trace as trace_mod
+from .ops import trace_cuda
 
 _CLASSES = {
     'Scene': scene_mod.Scene,
@@ -40,9 +41,10 @@ def _leaf(name, x, device):
     return torch.as_tensor(np.array(a, order='C'), device=device)
 
 
-def scene_from_numpy(tree, device='cpu'):
+def scene_from_numpy(tree, device='cuda'):
     """Convert a JAX package Scene (or any of its component tables) to the
-    port's dataclass of tensors on ``device``."""
+    port's dataclass of tensors on ``device`` (the card unless
+    ``device='cpu'`` is passed)."""
     cls = _CLASSES.get(type(tree).__name__)
     if cls is None:
         raise TypeError(f'no port class for {type(tree).__name__}')
@@ -61,4 +63,10 @@ def scene_from_numpy(tree, device='cpu'):
             kw[f.name] = scene_from_numpy(val, device)
         else:
             kw[f.name] = _leaf(f.name, val, device)
+    if cls is trace_mod.DeviceBVH and kw.get('wbounds') is not None:
+        # the kernel's own layout is the port's: derive it from the wide one
+        wb, wl, lp = (np.asarray(getattr(tree, k))
+                      for k in ('wbounds', 'wlinks', 'leaf_packed'))
+        kw.update(trace_mod.kernel_layout(
+            wb, wl, lp, trace_cuda.wide_depth(wb, wl), device))
     return cls(**kw)

@@ -42,8 +42,8 @@ class VolGrid:
     mat_id: int = -1
 
 
-def from_volfile(vf, sigma_s, sigma_t, sigma_e, g0, mat_id,
-                 device='cpu') -> VolGrid:
+def from_volfile(vf, sigma_s, sigma_t, sigma_e, g0, mat_id, *,
+                 device) -> VolGrid:
     """Build the device grid from io.vol.VolFile.  World placement uses the
     file's aabb (+ loc offset); rotation is not supported."""
     lo = np.asarray(vf.aabb[:3], np.float32) + vf.loc

@@ -38,12 +38,17 @@ class DeviceBVH:
     wlinks: torch.Tensor | None = None       # [Wn*8] i32
     leaf_packed: torch.Tensor | None = None  # [n_leaves, 8, 16] f32
     leaf_data_t1: torch.Tensor | None = None  # [slots, D] shutter close
+    # the CUDA kernel's own repack of the wide layout
+    # (trace_cuda.pack_kernel_layout) and the stack entries a thread needs
+    knodes: torch.Tensor | None = None       # [Wn, 8, 8] f32, link in [.., 7]
+    kleaves: torch.Tensor | None = None      # [n_leaves, 8, 12] f32
+    stack_depth: int = 0
 
     @classmethod
     def from_host(cls, b: bvh_mod.FlatBVH, leaf_data: np.ndarray,
                   leaf_shade: np.ndarray | None = None,
-                  leaf_data_t1: np.ndarray | None = None,
-                  device='cpu') -> 'DeviceBVH':
+                  leaf_data_t1: np.ndarray | None = None, *,
+                  device) -> 'DeviceBVH':
         packed = np.concatenate([
             b.node_min, b.node_max,
             b.node_skip[:, None].view(np.float32),
@@ -52,6 +57,7 @@ class DeviceBVH:
             leaf_shade = np.zeros((len(b.leaf_prims), 17), np.float32)
         dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
         wbounds = wlinks = leaf_packed = None
+        kernel = {}
         if leaf_data.shape[-1] == 9 and len(b.leaf_prims):
             wb, wl, wdepth = bvh_mod.collapse8(b)
             n_leaves = len(b.leaf_prims) // bvh_mod.LEAF_SIZE
@@ -62,21 +68,33 @@ class DeviceBVH:
             # stack guard: each inner pop nets at most +7 entries, so the
             # worst case is wdepth*7 + 8; a deeper tree gets no wide layout
             # and intersect/occluded refuse it
-            if wdepth * 7 + 8 <= trace_cuda.MAX_STACK:
+            if trace_cuda.stack_depth(wdepth) is not None:
                 wbounds = dev(wb)
                 wlinks = dev(wl.astype(np.int32))
                 leaf_packed = dev(lp)
+                kernel = kernel_layout(wb, wl, lp, wdepth, device)
         return cls(nodes=dev(packed),
                    leaf_prims=dev(b.leaf_prims.astype(np.int64)),
                    leaf_data=dev(leaf_data.astype(np.float32)),
                    leaf_shade=dev(leaf_shade.astype(np.float32)),
                    wbounds=wbounds, wlinks=wlinks, leaf_packed=leaf_packed,
                    leaf_data_t1=(dev(leaf_data_t1.astype(np.float32))
-                                 if leaf_data_t1 is not None else None))
+                                 if leaf_data_t1 is not None else None),
+                   **kernel)
 
     @property
     def n_nodes(self):
         return self.nodes.shape[0]
+
+
+def kernel_layout(wbounds: np.ndarray, wlinks: np.ndarray,
+                  leaf_packed: np.ndarray, wdepth: int, device) -> dict:
+    """DeviceBVH's kernel fields (knodes, kleaves, stack_depth) from the
+    host's wide layout, uploaded to ``device``."""
+    kn, kl = trace_cuda.pack_kernel_layout(wbounds, wlinks, leaf_packed)
+    return dict(knodes=torch.as_tensor(kn, device=device),
+                kleaves=torch.as_tensor(kl, device=device),
+                stack_depth=trace_cuda.stack_depth(wdepth))
 
 
 @dataclasses.dataclass
@@ -122,8 +140,8 @@ def make_device_geometry(tri_v=None, tri_vn=None, tri_uv=None,
                          tri_quad_half=None, tri_shader=None,
                          sph_c=None, sph_r=None, sph_shader=None,
                          line_vtx=None, line_radii=None, line_shader=None,
-                         tri_v_t1=None, sph_c_t1=None,
-                         device='cpu') -> DeviceGeometry:
+                         tri_v_t1=None, sph_c_t1=None, *,
+                         device) -> DeviceGeometry:
     """Build BVHs + packed leaf data from host triangle/sphere/line soup
     (numpy in, tensors on ``device`` out).
 
@@ -295,6 +313,12 @@ def _checked_tri_bvh(geom: DeviceGeometry, time):
     return b
 
 
+def _segment_ends(t_max, n, dev) -> torch.Tensor:
+    """t_max (a number or a tensor) as a detached contiguous [n] f32."""
+    t = torch.as_tensor(t_max, device=dev).detach()
+    return torch.broadcast_to(t, (n,)).to(torch.float32).contiguous()
+
+
 def intersect(geom: DeviceGeometry, org, direction, ignore_prim=None,
               t_max=None, time=None) -> Hit:
     """Closest hit for a wavefront of rays.  org/dir: [N, 3].
@@ -307,30 +331,28 @@ def intersect(geom: DeviceGeometry, org, direction, ignore_prim=None,
     direction = direction.detach()
     n = org.shape[0]
     dev = org.device
-    if t_max is None:
-        t = torch.full((n,), MAX_DIST, dtype=torch.float32, device=dev)
-    else:
-        t = torch.broadcast_to(torch.as_tensor(t_max, device=dev).detach(),
-                               (n,)).to(torch.float32)
-    prim = torch.full((n,), INVALID_PRIM, dtype=torch.int64, device=dev)
-    u = torch.zeros(n, dtype=torch.float32, device=dev)
-    v = torch.zeros(n, dtype=torch.float32, device=dev)
-    hslot = prim
-    ig = ignore_prim if ignore_prim is not None else prim
+    t_max = MAX_DIST if t_max is None else _segment_ends(t_max, n, dev)
 
     if geom.n_tris:
-        t, p32, u, v, s32 = trace_cuda.traverse_tris(
-            b.wbounds, b.wlinks, b.leaf_packed, org.contiguous(),
-            direction.contiguous(), t.contiguous(),
-            ig.to(torch.int32).contiguous())
-        prim = p32.to(torch.int64)
-        hslot = s32.to(torch.int64)
+        # the kernel allocates and writes all five outputs, int64 ids
+        t, prim, u, v, hslot = trace_cuda.traverse_tris(
+            b, org.contiguous(), direction.contiguous(), t_max,
+            None if ignore_prim is None else ignore_prim.contiguous())
+    else:
+        t = torch.broadcast_to(torch.as_tensor(
+            t_max, dtype=torch.float32, device=dev), (n,))
+        prim = torch.full((n,), INVALID_PRIM, dtype=torch.int64, device=dev)
+        u = torch.zeros(n, dtype=torch.float32, device=dev)
+        v = torch.zeros(n, dtype=torch.float32, device=dev)
+        hslot = prim
 
     if geom.n_spheres:
         gid = torch.arange(geom.n_spheres, device=dev) + geom.n_tris
         tt, ok = ray_sphere_intersect(geom.sph_c[None], geom.sph_r[None],
                                       org, direction)
-        ok = ok & (tt <= t[..., None]) & (gid[None] != ig[..., None])
+        ok = ok & (tt <= t[..., None])
+        if ignore_prim is not None:
+            ok = ok & (gid[None] != ignore_prim[..., None])
         t, prim, u, v = _closest_select(tt, ok, t, prim, u, v,
                                         gid.expand(tt.shape))
     return Hit(t=t, prim=prim, u=u, v=v, slot=hslot)
@@ -345,26 +367,24 @@ def occluded(geom: DeviceGeometry, org, direction, t_max, ignore_prim=None,
     direction = direction.detach()
     n = org.shape[0]
     dev = org.device
-    t = torch.broadcast_to(torch.as_tensor(t_max, device=dev).detach(),
-                           (n,)).to(torch.float32)
-    none = torch.full((n,), INVALID_PRIM, dtype=torch.int64, device=dev)
-    ig = ignore_prim if ignore_prim is not None else none
-    ig2 = ignore_prim2 if ignore_prim2 is not None else none
-    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    t = _segment_ends(t_max, n, dev)
 
     if geom.n_tris:
-        _, p32, _, _, _ = trace_cuda.traverse_tris(
-            b.wbounds, b.wlinks, b.leaf_packed, org.contiguous(),
-            direction.contiguous(), t.contiguous(),
-            ig.to(torch.int32).contiguous(),
-            ig2.to(torch.int32).contiguous(), any_hit=True)
-        blocked = p32 >= 0
+        # the kernel allocates and writes the answer
+        blocked = trace_cuda.occluded_tris(
+            b, org.contiguous(), direction.contiguous(), t,
+            None if ignore_prim is None else ignore_prim.contiguous(),
+            None if ignore_prim2 is None else ignore_prim2.contiguous())
+    else:
+        blocked = torch.zeros(n, dtype=torch.bool, device=dev)
 
     if geom.n_spheres:
         gid = torch.arange(geom.n_spheres, device=dev) + geom.n_tris
         tt, ok = ray_sphere_intersect(geom.sph_c[None], geom.sph_r[None],
                                       org, direction)
-        ok = ok & (tt < t[..., None]) & (gid[None] != ig[..., None]) & \
-            (gid[None] != ig2[..., None])
+        ok = ok & (tt < t[..., None])
+        for ig in (ignore_prim, ignore_prim2):
+            if ig is not None:
+                ok = ok & (gid[None] != ig[..., None])
         blocked = blocked | ok.any(dim=-1)
     return blocked

@@ -315,8 +315,8 @@ def _tensor(a, device, dtype=None):
                            device=device)
 
 
-def material_table(mats: list[_ResolvedMat], tex_idx: np.ndarray,
-                   device='cpu') -> MaterialTable:
+def material_table(mats: list[_ResolvedMat], tex_idx: np.ndarray, *,
+                   device) -> MaterialTable:
     """The SoA material table of resolved materials, spectral albedos,
     emission and medium coefficients fitted here; tex_idx [M] (-1 none)."""
     t = lambda a, dtype=None: _tensor(a, device, dtype)
@@ -382,9 +382,10 @@ def light_table(tri_v: np.ndarray, tri_sh: np.ndarray, n_prims: int,
 
 def load_scene(nra2_path: str, cam_path: str | None = None,
                searchpath: str | None = None,
-               device='cpu') -> tuple[Scene, cam_io.CameraData]:
+               device='cuda') -> tuple[Scene, cam_io.CameraData]:
     """Load a .nra2 scene with its .geo shapes, .cam camera and .vol grid
-    into device tables on ``device``."""
+    into device tables on ``device``: the card unless the caller asks for
+    ``device='cpu'``; without a card the default raises torch's error."""
     from .io import vol as vol_io
     from .models import medium_hete as hete_mod
     desc = nra2_io.parse_nra2(nra2_path, searchpath)
@@ -455,7 +456,7 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
             tex_files.append(tp)
         tex_idx[mi] = tex_files.index(tp)
 
-    materials = material_table(mats, tex_idx, device)
+    materials = material_table(mats, tex_idx, device=device)
     lights = light_table(tri_v, tri_sh, len(prim_shader), materials)
 
     # --- camera

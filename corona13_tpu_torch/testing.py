@@ -28,8 +28,9 @@ def _quad(p0, p1, p2, p3):
 
 def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
                    sky_rgb=(0.0, 0.0, 0.0), sph_c=None, sph_r=None,
-                   sph_sh=None, device='cpu') -> scene_mod.Scene:
-    """Build a Scene on ``device`` from triangle soup + resolved materials.
+                   sph_sh=None, device='cuda') -> scene_mod.Scene:
+    """Build a Scene on ``device`` (the card unless ``device='cpu'`` is
+    passed) from triangle soup + resolved materials.
 
     tri_v: [T, 3, 3]; tri_sh: [T] material ids; mats: list of
     scene._ResolvedMat (same light-CDF and spectral-fit semantics as the
@@ -53,7 +54,7 @@ def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
     prim_shader = np.concatenate([tri_sh, sph_sh])
 
     materials = scene_mod.material_table(mats, np.full(len(mats), -1),
-                                         device)
+                                         device=device)
     lights = scene_mod.light_table(tri_v, tri_sh, len(prim_shader),
                                    materials)
     t = lambda a, dtype=None: scene_mod._tensor(a, device, dtype)
@@ -79,7 +80,7 @@ def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
 
 
 def cornell_scene(sphere: str | None = 'diffuse', light=40.0,
-                  albedo=(0.7, 0.7, 0.7), device='cpu') -> scene_mod.Scene:
+                  albedo=(0.7, 0.7, 0.7), device='cuda') -> scene_mod.Scene:
     """Cornell-style box, 10 units wide, centered 15 units down +z from the
     camera at the origin.  ``sphere``: None | 'diffuse' | 'dielectric' |
     'rough_dielectric' | 'metal' | 'mirror' | 'subsurf' (dielectric shell
@@ -149,7 +150,7 @@ def cornell_scene(sphere: str | None = 'diffuse', light=40.0,
 
 
 def furnace_scene(albedo=0.5, emission=1.0, sphere=True,
-                  device='cpu') -> scene_mod.Scene:
+                  device='cuda') -> scene_mod.Scene:
     """White furnace: constant sky + a diffuse sphere (one faraway dummy
     triangle keeps the triangle BVH non-degenerate)."""
     M = scene_mod._ResolvedMat
@@ -191,6 +192,6 @@ def plane_scene_inputs():
     return tri_v, tri_sh, mats, cam
 
 
-def plane_scene(device='cpu') -> scene_mod.Scene:
+def plane_scene(device='cuda') -> scene_mod.Scene:
     """The 8198-triangle scene of ``plane_scene_inputs`` on ``device``."""
     return assemble_scene(*plane_scene_inputs(), device=device)

@@ -1,0 +1,79 @@
+"""Frame times of the port's render cells on one CUDA card, with spread.
+
+    python3 scripts/frame_times.py [--root TREE] [--frames N]
+
+Renders one 1024x576 progression (mf=4, NEE on) of each cell through
+render.render: cornell and plane at max_verts=6, 0031_hete and
+0030_subsurf at max_verts=8 with media on.  Two warm-up frames per cell,
+then N timed ones (default 8), each ending with the image on the host.
+Prints seconds per frame as min / median / max with the card's name and
+power limit.  --root names another checkout whose corona13_tpu_torch to
+import (to compare two trees within one call on one card, run this script
+once per tree, in turns); the default is this script's own tree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W, H = 1024, 576
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--root', default=HERE)
+    ap.add_argument('--frames', type=int, default=8)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    if not torch.cuda.is_available():
+        raise SystemExit('no CUDA device: this script needs a GPU')
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    from corona13_tpu_torch import render as render_mod
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    dev = torch.device('cuda')
+    golden = os.path.join(root, 'data', 'golden', 'scenes')
+    load = lambda name: scene_mod.load_scene(
+        os.path.join(golden, name, 'test.nra2'), device=dev)[0]
+    cells = {
+        'cornell': (lambda: testing.cornell_scene(sphere='diffuse',
+                                                  device=dev), 6, {}),
+        'plane': (lambda: testing.plane_scene(device=dev), 6, {}),
+        '0031_hete': (lambda: load('0031_hete'), 8, {'media': True}),
+        '0030_subsurf': (lambda: load('0030_subsurf'), 8, {'media': True}),
+    }
+    out = {}
+    for name, (make, max_verts, kw) in cells.items():
+        sc = scene_mod.fit_film(make(), W, H)
+        cfg = pt_mod.PTConfig(width=W, height=H, max_verts=max_verts, mf=4,
+                              use_nee=True, **kw)
+        secs = []
+        for i in range(2 + args.frames):
+            t0 = time.perf_counter()
+            render_mod.render(sc, cfg, spp=1, batch=1)
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs.append(time.perf_counter() - t0)
+        out[name] = secs
+        print(f'{name}: {min(secs):.4f} / {statistics.median(secs):.4f} / '
+              f'{max(secs):.4f} s per frame (min / median / max of '
+              f'{len(secs)}) on {card}, tree {root}', flush=True)
+    print(json.dumps({'device': card, 'root': root, 'frame_s': out}),
+          flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -14,13 +14,14 @@ import numpy as np
 import corona13_tpu_torch
 from corona13_tpu_torch import render, testing
 from corona13_tpu_torch.samplers import pt
-sc = testing.cornell_scene(sphere='diffuse')
+sc = testing.cornell_scene(sphere='diffuse', device='cpu')
 res = render.render(sc, pt.PTConfig(width=16, height=9, max_verts=4), spp=1)
 assert res.image_xyz.shape == (9, 16, 3) and np.isfinite(res.image_xyz).all()
 assert res.image_xyz.max() > 0
-assert testing.plane_scene().geom.n_tris == 8198
+assert testing.plane_scene(device='cpu').geom.n_tris == 8198
 from corona13_tpu_torch import scene
-hete, _ = scene.load_scene('data/golden/scenes/0031_hete/test.nra2')
+hete, _ = scene.load_scene('data/golden/scenes/0031_hete/test.nra2',
+                           device='cpu')
 hete = scene.fit_film(hete, 16, 9)
 img = pt.render_sample(hete, pt.PTConfig(width=16, height=9, max_verts=4,
                                          media=True), 0).numpy()

@@ -94,14 +94,14 @@ def mats():
                               g.uniform(-1.0, 1.0, 5)], -1).astype(np.float32)
     m = m.replace(med_mut_coeff=jnp.asarray(coeff()),
                   med_mus_coeff=jnp.asarray(coeff()))
-    return m, convert.scene_from_numpy(m)
+    return m, convert.scene_from_numpy(m, device='cpu')
 
 
 @pytest.fixture(scope='module')
 def hete_scene():
     js, _ = jscene.load_scene(os.path.join(_SCENES, '0031_hete',
                                            'test.nra2'))
-    return js, convert.scene_from_numpy(js)
+    return js, convert.scene_from_numpy(js, device='cpu')
 
 
 # --- elementwise against JAX ----------------------------------------------
@@ -236,7 +236,7 @@ def test_read_vol_matches_jax(tmp_path):
 # --- properties of tests/test_media.py and tests/test_hete.py --------------
 
 def test_free_flight_statistics_and_vacuum():
-    m = testing.cornell_scene(sphere='subsurf').materials
+    m = testing.cornell_scene(sphere='subsurf', device='cpu').materials
     n = 1 << 15
     med = torch.full((n,), 4)
     lam = torch.full((n, 2), 550.0)
@@ -314,7 +314,8 @@ def _const_grid(rho=1.0, sigma_t=2.0, sigma_s=1.0, size=4.0, temp=0.0,
     d = np.full((res, res, res), rho, np.float32)
     vf = tvol.VolFile(d, np.full_like(d, temp), [0, 0, 0, size, size, size],
                       1.0, np.zeros(3), np.zeros(3))
-    return thete.from_volfile(vf, sigma_s, sigma_t, sigma_e, 0.0, mat_id=7)
+    return thete.from_volfile(vf, sigma_s, sigma_t, sigma_e, 0.0, mat_id=7,
+                              device='cpu')
 
 
 def test_grid_transmittance_and_sampling_analytic():
@@ -359,18 +360,20 @@ def test_media_end_to_end_properties():
     agrees with free-flight NEE in expectation (tests/test_media.py)."""
     cfg = pt_mod.PTConfig(width=48, height=32, max_verts=8, mf=2,
                           use_nee=True, media=True)
-    a = render_mod.render(testing.cornell_scene(sphere='absorb'), cfg,
+    a = render_mod.render(testing.cornell_scene(sphere='absorb',
+                                                device='cpu'), cfg,
                           spp=8).image_xyz
-    b = render_mod.render(testing.cornell_scene(sphere='dielectric'),
+    b = render_mod.render(testing.cornell_scene(sphere='dielectric',
+                                                device='cpu'),
                           cfg.replace(media=False), spp=8).image_xyz
     assert np.isfinite(a).all()
     assert a[18:28, 16:32, 1].mean() < 0.9 * b[18:28, 16:32, 1].mean()
-    sc = testing.cornell_scene(sphere='diffuse')
+    sc = testing.cornell_scene(sphere='diffuse', device='cpu')
     small = pt_mod.PTConfig(width=32, height=24, max_verts=4, mf=2)
     np.testing.assert_allclose(
         pt_mod.render_sample(sc, small.replace(media=True), 0).numpy(),
         pt_mod.render_sample(sc, small, 0).numpy(), atol=1e-6)
-    sub = testing.cornell_scene(sphere='subsurf')
+    sub = testing.cornell_scene(sphere='subsurf', device='cpu')
     cfg0 = pt_mod.PTConfig(width=24, height=16, max_verts=8, mf=2,
                            use_nee=True, media=True)
     img0 = sum(pt_mod.render_sample(sub, cfg0, s, batch=2).numpy()
@@ -409,10 +412,11 @@ def test_nested_media_transmittance():
         pos=np.zeros(3, np.float32), pos_t1=np.zeros(3, np.float32),
         orient=np.array([1, 0, 0, 0], np.float32),
         orient_t1=np.array([1, 0, 0, 0], np.float32), focus=15.0)
-    sc = testing.assemble_scene(tri, shs, mats, cam, sky_rgb=(1.0, 1.0, 1.0))
+    sc = testing.assemble_scene(tri, shs, mats, cam, sky_rgb=(1.0, 1.0, 1.0),
+                                device='cpu')
     sc0 = testing.assemble_scene(
         tri, shs, [dataclasses.replace(m, med_enabled=False) for m in mats],
-        cam, sky_rgb=(1.0, 1.0, 1.0))
+        cam, sky_rgb=(1.0, 1.0, 1.0), device='cpu')
     cfg = pt_mod.PTConfig(width=16, height=12, max_verts=8, mf=2, media=True,
                           use_nee=False)
     fb = sum(pt_mod.render_sample(sc, cfg, s, batch=8).numpy()
@@ -458,7 +462,7 @@ def _full_jax(js, cfg, smp, pix):
 
 def _compare(js, use_nee, equiangular=False, signal=0.002):
     js = jscene.fit_film(js, W, H)
-    ts = convert.scene_from_numpy(js)
+    ts = convert.scene_from_numpy(js, device='cpu')
     kw = dict(width=W, height=H, max_verts=8, mf=4, use_nee=use_nee,
               media=True, equiangular=equiangular)
     cfg_j, cfg_t = jpt.PTConfig(**kw), pt_mod.PTConfig(**kw)

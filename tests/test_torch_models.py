@@ -63,7 +63,7 @@ def _u(seed, *shape):
 @pytest.fixture(scope='module')
 def scenes():
     js = jtesting.cornell_scene(sphere='metal')
-    return js, convert.scene_from_numpy(js)
+    return js, convert.scene_from_numpy(js, device='cpu')
 
 
 def test_camera_sample(scenes):

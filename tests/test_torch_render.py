@@ -43,7 +43,7 @@ def _one_torch_thread():
 
 def _compare(js, max_verts, use_nee):
     js = jscene.fit_film(js, W, H)
-    ts = convert.scene_from_numpy(js)
+    ts = convert.scene_from_numpy(js, device='cpu')
     cfg_j = jpt.PTConfig(width=W, height=H, max_verts=max_verts, mf=4,
                          use_nee=use_nee)
     cfg_t = pt_mod.PTConfig(width=W, height=H, max_verts=max_verts, mf=4,
@@ -89,7 +89,7 @@ def test_paths_match_jax_plane_scene():
 
 @pytest.fixture(scope='module')
 def cornell():
-    return testing.cornell_scene(sphere='diffuse')
+    return testing.cornell_scene(sphere='diffuse', device='cpu')
 
 
 def _render(scene, spp=4, w=64, h=48, **kw):
@@ -137,15 +137,16 @@ def test_furnace():
     within 3%; albedo 0.5 gives half (same pixels, as in test_render.py)."""
     cfg = pt_mod.PTConfig(width=32, height=24, max_verts=4, mf=4,
                           use_nee=False, rr_start=99)
-    with_s = testing.furnace_scene(albedo=1.0, emission=1.0)
-    no_s = testing.furnace_scene(albedo=1.0, emission=1.0, sphere=False)
+    with_s = testing.furnace_scene(albedo=1.0, emission=1.0, device='cpu')
+    no_s = testing.furnace_scene(albedo=1.0, emission=1.0, sphere=False,
+                                 device='cpu')
     a = render_mod.render(with_s, cfg, spp=32).image_xyz[..., 1]
     b = render_mod.render(no_s, cfg, spp=32).image_xyz[..., 1]
     center_a = a[10:14, 14:18].mean()
     center_b = b[10:14, 14:18].mean()
     assert center_b > 0
     assert abs(center_a - center_b) / center_b < 0.03, (center_a, center_b)
-    half = testing.furnace_scene(albedo=0.5, emission=1.0)
+    half = testing.furnace_scene(albedo=0.5, emission=1.0, device='cpu')
     c = render_mod.render(half, cfg, spp=32).image_xyz[..., 1]
     center_c = c[10:14, 14:18].mean()
     assert abs(center_c - 0.5 * center_b) / center_b < 0.03, (center_c, center_b)

@@ -71,7 +71,7 @@ def _walk(j, t, path, out):
 def test_load_scene_tables_match_jax(name, monkeypatch):
     monkeypatch.setattr(jbvh, '_build_bvh_native', lambda a, b: None)
     js, jcd = jscene.load_scene(_path(name))
-    ts, tcd = tscene.load_scene(_path(name))
+    ts, tcd = tscene.load_scene(_path(name), device='cpu')
     leaves = []
     _walk(js, ts, 'scene', leaves)
     assert len(leaves) > 60
@@ -104,21 +104,21 @@ def test_load_scene_tables_match_jax(name, monkeypatch):
 
 def test_scene_flags():
     """What each in-repo scene exercises (PERF.md section 4)."""
-    hete, _ = tscene.load_scene(_path('0031_hete'))
+    hete, _ = tscene.load_scene(_path('0031_hete'), device='cpu')
     assert hete.has_hete and hete.exterior_med == hete.vol.mat_id == 13
     assert not hete.has_vol_emission and hete.geom.n_tris == 8210
     assert tuple(hete.vol.density.shape) == (64, 64, 64)
-    sub, _ = tscene.load_scene(_path('0030_subsurf'))
+    sub, _ = tscene.load_scene(_path('0030_subsurf'), device='cpu')
     assert sub.geom.n_tris == 8198 and sub.geom.n_spheres == 0
     assert sub.kinds_used == (tscene.DIFFUSE, tscene.DIFFDIEL)
     assert bool(sub.materials.med_enabled.any()) and sub.vol is None
-    mb, _ = tscene.load_scene(_path('0002_mb'))
+    mb, _ = tscene.load_scene(_path('0002_mb'), device='cpu')
     assert mb.geom.has_motion and mb.materials.use_checker.any()
     assert tscene.align32(250) == 256 and tscene.align32(256) == 256
 
 
 def test_missing_geo_is_skipped(capsys):
-    tscene.load_scene(_path('0030_subsurf'))
+    tscene.load_scene(_path('0030_subsurf'), device='cpu')
     assert "could not load geo `../geo/skincube.geo', skipping shape" in \
         capsys.readouterr().out
 
@@ -235,7 +235,7 @@ def test_hete_matches_reference():
     """0031_hete gate at the JAX test's settings and bounds."""
     from corona13_tpu_torch import render as render_mod
     from corona13_tpu_torch.samplers import pt as pt_mod
-    sc, _ = tscene.load_scene(_path('0031_hete'))
+    sc, _ = tscene.load_scene(_path('0031_hete'), device='cpu')
     sc = tscene.fit_film(sc, 64, 40)
     cfg = pt_mod.PTConfig(width=64, height=40, max_verts=12, mf=2,
                           use_nee=True)
@@ -252,7 +252,7 @@ def test_subsurf_matches_reference():
     """0030_subsurf gate at the JAX test's settings and bounds."""
     from corona13_tpu_torch import render as render_mod
     from corona13_tpu_torch.samplers import pt as pt_mod
-    sc, _ = tscene.load_scene(_path('0030_subsurf'))
+    sc, _ = tscene.load_scene(_path('0030_subsurf'), device='cpu')
     sc = tscene.fit_film(sc, 128, 80)
     cfg = pt_mod.PTConfig(width=128, height=80, max_verts=8, mf=4,
                           use_nee=True)

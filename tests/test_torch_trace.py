@@ -8,6 +8,8 @@ agrees (XLA fuses multiply-adds the plain version rounds twice).  Any-hit
 must agree exactly with closest-hit blocking.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +42,7 @@ def _rays(n, seed):
 @pytest.fixture(scope='module')
 def soup():
     geom = jtrace.make_device_geometry(tri_v=_random_tris(700, seed=11))
-    return geom, convert.scene_from_numpy(geom.tri_bvh)
+    return geom, convert.scene_from_numpy(geom.tri_bvh, device='cpu')
 
 
 def _both(soup, org, d, t0, ig, ig2=None, any_hit=False):
@@ -110,7 +112,7 @@ def test_device_bvh_matches_jax():
     arrays bit for bit (the kernel walks exactly the reference tree)."""
     tri_v = _random_tris(300, seed=2)
     jg = jtrace.make_device_geometry(tri_v=tri_v)
-    tg = ttrace.make_device_geometry(tri_v=tri_v)
+    tg = ttrace.make_device_geometry(tri_v=tri_v, device='cpu')
     for name in ('nodes', 'leaf_prims', 'leaf_data', 'leaf_shade', 'wbounds',
                  'wlinks', 'leaf_packed'):
         np.testing.assert_array_equal(
@@ -150,9 +152,10 @@ def test_deep_tree_is_refused(monkeypatch):
     """A tree whose worst-case stack (wdepth*7 + 8) exceeds the kernel's
     gets no wide layout, and the query raises instead of overflowing."""
     tri_v = _random_tris(300, seed=3)
-    assert ttrace.make_device_geometry(tri_v=tri_v).tri_bvh.wbounds is not None
+    assert ttrace.make_device_geometry(
+        tri_v=tri_v, device='cpu').tri_bvh.wbounds is not None
     monkeypatch.setattr(trace_cuda, 'MAX_STACK', 8)
-    g = ttrace.make_device_geometry(tri_v=tri_v)
+    g = ttrace.make_device_geometry(tri_v=tri_v, device='cpu')
     assert g.tri_bvh.wbounds is None
     with pytest.raises(NotImplementedError):
         ttrace.intersect(g, torch.zeros(4, 3), torch.ones(4, 3))
@@ -161,7 +164,7 @@ def test_deep_tree_is_refused(monkeypatch):
 @pytest.fixture(scope='module')
 def cornell():
     js = jtesting.cornell_scene(sphere='diffuse')
-    return js, convert.scene_from_numpy(js)
+    return js, convert.scene_from_numpy(js, device='cpu')
 
 
 def _scene_rays(n, seed):
@@ -211,7 +214,7 @@ def test_port_cornell_scene_matches_jax(cornell):
     """testing.cornell_scene of the port: BVH arrays identical to the
     converted JAX scene, fitted reflectance spectra within 1e-4."""
     js, ts = cornell
-    ps = ttesting.cornell_scene(sphere='diffuse')
+    ps = ttesting.cornell_scene(sphere='diffuse', device='cpu')
     for name in ('nodes', 'leaf_prims', 'leaf_data', 'leaf_shade', 'wbounds',
                  'wlinks', 'leaf_packed'):
         np.testing.assert_array_equal(   # (NaN-coded int columns: equal)
@@ -296,8 +299,7 @@ def test_plain_counters_match_pallas(soup):
             jnp.asarray(d), jnp.asarray(t0), jnp.asarray(ig), any_hit=any_hit,
             interpret=True, want_counters=True)
         T = torch.as_tensor
-        t = trace_cuda.traverse_tris(tb.wbounds, tb.wlinks, tb.leaf_packed,
-                                     T(org), T(d), T(t0), T(ig),
+        t = trace_cuda.traverse_tris(tb, T(org), T(d), T(t0), T(ig),
                                      any_hit=any_hit, want_counters=True)
         j = [np.asarray(x) for x in j]
         t = [x.numpy() for x in t]
@@ -327,3 +329,147 @@ def test_plain_counters_match_pallas(soup):
         want_counters=True)
     assert out[5].shape == (2,) and out[6].shape == (2,)
     assert (out[5] >= 0).all() and int(out[5][1]) > 0
+
+
+def _layout_bvh(which):
+    if which == 'soup':
+        return ttrace.make_device_geometry(tri_v=_random_tris(700, seed=11),
+                                           device='cpu').tri_bvh
+    make = {'cornell': ttesting.cornell_scene, 'plane': ttesting.plane_scene}
+    return make[which](device='cpu').geom.tri_bvh
+
+
+@pytest.mark.parametrize('which', ['soup', 'cornell', 'plane'])
+def test_kernel_layout_round_trips(which):
+    """The CUDA kernel's records (knodes: the link in the pad word;
+    kleaves: 3 float4 a row, prim id as int bits) unpack to wbounds,
+    wlinks and leaf_packed bit for bit, and are what DeviceBVH carries."""
+    b = _layout_bvh(which)
+    wb, wl, lp = (x.numpy() for x in (b.wbounds, b.wlinks, b.leaf_packed))
+    kn, kl = trace_cuda.pack_kernel_layout(wb, wl, lp)
+    assert kn.shape == wb.shape and kn.dtype == np.float32
+    assert kl.shape == (lp.shape[0], 8, trace_cuda.LEAF_ROW)
+    assert kn.flags.c_contiguous and kl.flags.c_contiguous
+    np.testing.assert_array_equal(kn.view(np.int32),
+                                  b.knodes.numpy().view(np.int32))
+    np.testing.assert_array_equal(kl.view(np.int32),
+                                  b.kleaves.numpy().view(np.int32))
+    # what the kernel reads where: link bits, prim bits
+    np.testing.assert_array_equal(kn[:, :, 7].view(np.int32).reshape(-1), wl)
+    np.testing.assert_array_equal(kl[:, :, 3].view(np.int32),
+                                  lp[:, :, 9].astype(np.int32))
+    uwb, uwl, ulp = trace_cuda.unpack_kernel_layout(kn, kl)
+    assert uwl.dtype == np.int32
+    np.testing.assert_array_equal(uwb.view(np.int32), wb.view(np.int32))
+    np.testing.assert_array_equal(uwl, wl)
+    np.testing.assert_array_equal(ulp.view(np.int32), lp.view(np.int32))
+
+
+@pytest.mark.parametrize('wdepth,depth', [(1, 15), (4, 36), (8, 64),
+                                          (26, 190), (27, None), (40, None)])
+def test_stack_depth_choice(wdepth, depth):
+    """The kernel's stack holds wdepth*7 + 8 entries a thread, chosen at
+    upload; above MAX_STACK = 192 the tree is refused."""
+    assert trace_cuda.MAX_STACK == 192
+    assert trace_cuda.stack_depth(wdepth) == depth
+
+
+@pytest.mark.parametrize('which', ['soup', 'cornell', 'plane'])
+def test_uploaded_stack_depth(which):
+    """DeviceBVH.stack_depth is the choice for collapse8's depth, which
+    wide_depth recovers from the arrays (as convert does for a JAX BVH)."""
+    from corona13_tpu_torch.ops import bvh as tbvh
+    b = _layout_bvh(which)
+    wd = trace_cuda.wide_depth(b.wbounds.numpy(), b.wlinks.numpy())
+    assert b.stack_depth == wd * 7 + 8 <= trace_cuda.MAX_STACK
+    if which == 'soup':
+        tri_v = _random_tris(700, seed=11)
+        flat = tbvh.build_bvh(*tbvh.tri_bounds(tri_v))
+        assert tbvh.collapse8(flat)[2] == wd
+    assert wd == {'cornell': 1, 'plane': 4}.get(which, wd)
+
+
+@pytest.mark.parametrize('form', ['int64', 'none', 'scalar_t', 'scalar_any'])
+def test_wrapper_argument_forms(soup, form):
+    """traverse_tris on CPU tensors through each argument form the wrapper
+    takes (int64 ignore ids, None for no exclusion, one float for t_init)
+    against the int32/tensor form: prim and slot exact, t bit-equal; and
+    against the Pallas kernel in interpret mode with the bars of
+    test_plain_closest_hit_matches_pallas (>= 99.5% of rays, rtol 1e-5)."""
+    n = 256
+    org, d = _rays(n, 14)
+    T = torch.as_tensor
+    any_hit = form == 'scalar_any'
+    scalar = form.startswith('scalar')
+    t0 = np.full(n, 18.0 if scalar else 3.0e38, np.float32)
+    if not scalar:
+        t0[::5] = 12.0
+        t0[:7] = 0.0
+    ig = np.full(n, -1, np.int32)
+    if form == 'int64':
+        ig[50:120] = np.arange(70) * 3
+    ig2 = None if form == 'none' else ig[::-1].copy()
+    (jt, jp, _, _, js), ref = _both(soup, org, d, t0, ig, ig2, any_hit=any_hit)
+    tb = soup[1]
+    if form == 'none':
+        got = trace_cuda.traverse_tris(tb, T(org), T(d), T(t0))
+    elif form == 'int64':
+        got = trace_cuda.traverse_tris(tb, T(org), T(d), T(t0), T(ig).long(),
+                                       T(ig2).long())
+    else:
+        got = trace_cuda.traverse_tris(tb, T(org), T(d), 18.0, T(ig),
+                                       T(ig2), any_hit=any_hit)
+    got = [x.numpy() for x in got]
+    assert got[1].dtype == got[4].dtype == np.int64
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.view(np.int32) if a.dtype == np.float32
+                                      else a, b.view(np.int32)
+                                      if b.dtype == np.float32 else b)
+    if any_hit:
+        np.testing.assert_array_equal(got[1] >= 0, jp >= 0)
+        blocked = trace_cuda.occluded_tris(tb, T(org), T(d), 18.0, T(ig),
+                                           T(ig2))
+        assert blocked.dtype == torch.bool
+        np.testing.assert_array_equal(blocked.numpy(), got[1] >= 0)
+        assert blocked.any() and not blocked.all()
+    else:
+        assert (got[1] >= 0).mean() > 0.2
+        assert (got[1] == jp).mean() >= 0.995
+        assert (got[4] == js).mean() >= 0.995
+        agree = (got[1] == jp) & (got[1] >= 0)
+        np.testing.assert_allclose(got[0][agree], jt[agree], rtol=1e-5)
+
+
+def test_wrapper_rejects_bad_inputs(soup):
+    tb = soup[1]
+    T = torch.as_tensor
+    org, d = _rays(16, 2)
+    t0 = np.full(16, 1e30, np.float32)
+    ig = np.full(16, -1, np.int32)
+    with pytest.raises(TypeError):       # ids must be int32 or int64
+        trace_cuda.traverse_tris(tb, T(org), T(d), T(t0), T(ig).float())
+    with pytest.raises(TypeError):       # both exclusions in one dtype
+        trace_cuda.traverse_tris(tb, T(org), T(d), T(t0), T(ig), T(ig).long())
+    with pytest.raises(ValueError):      # contiguous rays
+        trace_cuda.traverse_tris(tb, T(org).t().contiguous().t(), T(d), T(t0))
+    with pytest.raises(ValueError):
+        trace_cuda.occluded_tris(tb, T(org), T(d), T(t0[:5]))
+
+
+def test_entry_points_default_to_the_card():
+    """The entry points that build a scene put it on the card unless the
+    caller passes device='cpu'; the constructors under them take ``device`` as
+    a required keyword, so nothing lands on the CPU unasked."""
+    from corona13_tpu_torch import scene as tscene
+    from corona13_tpu_torch.models import medium_hete
+    for fn in (tscene.load_scene, ttesting.assemble_scene,
+               ttesting.cornell_scene, ttesting.plane_scene,
+               ttesting.furnace_scene, convert.scene_from_numpy):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
+    for fn in (tscene.material_table, ttrace.make_device_geometry,
+               ttrace.DeviceBVH.from_host, medium_hete.from_volfile):
+        par = inspect.signature(fn).parameters['device']
+        assert par.default is inspect.Parameter.empty, fn
+        assert par.kind is inspect.Parameter.KEYWORD_ONLY, fn
+    with pytest.raises(TypeError):
+        ttrace.make_device_geometry(tri_v=_random_tris(4))
