@@ -2,9 +2,9 @@
 
 The JAX package ``corona13_tpu`` is the reference; this package mirrors
 its module paths (``ops/trace.py`` here is ``corona13_tpu/ops/trace.py``
-there) and holds the same functions on torch tensors.  Its one kernel,
-the BVH8 triangle traversal (``ops/trace_cuda.py``), is written in CUDA
-C++ for the H100 (``csrc/``).  The package imports torch and numpy and
+there) and holds the same functions on torch tensors.  Its kernels, the
+BVH traversal of every prim kind (``ops/trace_cuda.py``), are written in
+CUDA C++ for the H100 (``csrc/``).  The package imports torch and numpy and
 nothing of jax or of ``corona13_tpu``: the host code it needs (the numpy
 BVH builder, the ``.nra2``/``.geo``/``.vol``/``.cam``/``.fb``/``.pfm``
 readers and writers, the CIE tables) is carried in ``ops/bvh.py``, ``io/``

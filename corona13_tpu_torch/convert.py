@@ -15,8 +15,8 @@ import torch
 
 from . import scene as scene_mod
 from .models import medium_hete
+from .ops import bvh as bvh_mod
 from .ops import trace as trace_mod
-from .ops import trace_cuda
 
 _CLASSES = {
     'Scene': scene_mod.Scene,
@@ -27,14 +27,13 @@ _CLASSES = {
     'DeviceBVH': trace_mod.DeviceBVH,
     'VolGrid': medium_hete.VolGrid,
 }
-# int32 arrays the kernel reads as int32; every other int array becomes
-# int64 (torch's index type)
-_KEEP_INT32 = {'wlinks'}
 
 
-def _leaf(name, x, device):
+def _leaf(x, device):
+    """An array leaf as a tensor: int arrays become int64 (torch's index
+    type), float64 float32."""
     a = np.asarray(x)
-    if a.dtype == np.int32 and name not in _KEEP_INT32:
+    if a.dtype == np.int32:
         a = a.astype(np.int64)
     elif a.dtype == np.float64:
         a = a.astype(np.float32)
@@ -48,6 +47,15 @@ def scene_from_numpy(tree, device='cuda'):
     cls = _CLASSES.get(type(tree).__name__)
     if cls is None:
         raise TypeError(f'no port class for {type(tree).__name__}')
+    if cls is trace_mod.DeviceBVH:
+        # upload the JAX tree's own nodes and leaves again: the wide layout
+        # and the kernel's records (which a JAX sphere or line BVH and its
+        # moving triangles do not carry) come from the port's collapse8
+        arr = lambda k: None if getattr(tree, k) is None else \
+            np.asarray(getattr(tree, k))
+        flat = bvh_mod.flat_from_nodes(arr('nodes'), arr('leaf_prims'))
+        return cls.from_host(flat, arr('leaf_data'), arr('leaf_shade'),
+                             arr('leaf_data_t1'), device=device)
     ours = {f.name for f in dataclasses.fields(cls)}
     kw = {}
     for f in dataclasses.fields(tree):
@@ -62,11 +70,5 @@ def scene_from_numpy(tree, device='cuda'):
         elif dataclasses.is_dataclass(val):
             kw[f.name] = scene_from_numpy(val, device)
         else:
-            kw[f.name] = _leaf(f.name, val, device)
-    if cls is trace_mod.DeviceBVH and kw.get('wbounds') is not None:
-        # the kernel's own layout is the port's: derive it from the wide one
-        wb, wl, lp = (np.asarray(getattr(tree, k))
-                      for k in ('wbounds', 'wlinks', 'leaf_packed'))
-        kw.update(trace_mod.kernel_layout(
-            wb, wl, lp, trace_cuda.wide_depth(wb, wl), device))
+            kw[f.name] = _leaf(val, device)
     return cls(**kw)

@@ -66,8 +66,42 @@
 // the layout, the stack and the loop, and count each ray's own pops in
 // the reference order.
 //
-// The leaf test is a policy class (TriangleLeaf) chosen by a template
-// parameter of the kernel: the seam for the leaf tests still to come.
+// Beyond the TPU kernel.  The JAX package serves motion-blurred triangles,
+// sphere and line BVHs, short prim lists and trees too deep for the stack
+// with XLA's lockstep skip-link _traverse (corona13_tpu/ops/trace.py), not
+// with Pallas.  A lockstep torch loop would synchronise with the host at
+// every step, so this file serves them as further forms of the same kernel:
+//
+//   leaf policies   The leaf test is a policy class chosen by a template
+//            parameter: TriangleLeaf, MovingTriangleLeaf (two records a
+//            row, lerped at the ray's time as a*(1-w) + b*w), SphereLeaf
+//            and ConeLeaf (a line prim is a truncated cone).  They compute
+//            what ops/trace_plain.py computes, operation for operation.
+//   winner   TriangleLeaf in the wide walk keeps the TPU kernel's winner,
+//            the minimum of (bits(t) & ~7) | row.  Every other policy and
+//            form keeps _closest_select's: the smallest t, the first row
+//            on an exact tie, accepted when strictly below the running t.
+//   ids      A record holds its prim's id local to its kind; the launch
+//            takes the kind's offset into the global ids, excludes the
+//            ignore ids against the global id and writes global ids.
+//   carry    One intersect/occluded call walks triangles, then spheres,
+//            then lines, each from the best hit so far.  A launch with
+//            `carry` set starts every ray at the t in t_out and writes a
+//            ray's outputs only where it found a closer hit (u, v and slot
+//            only if its policy produces them); any-hit reads blocked_out,
+//            leaves blocked rays alone and sets the flag where it finds a
+//            blocker.  No pass runs between the launches of one call.
+//   dense    dense_kernel: up to 64 spheres or lines staged in shared
+//            memory, every ray against every prim, no tree and no box (the
+//            only form that lerps sphere centres in time).  It reads the
+//            geometry's own arrays, not a repack.
+//   deep     skip_kernel: a tree whose wdepth*7+8 exceeds the stack limit
+//            has no wide layout; its binary nodes [n, 8] are walked
+//            stacklessly by skip links, one ray a thread, with the same
+//            policies: _traverse without the lockstep.
+//   These forms are bound as the triangle walk is: bytes on small trees
+//   and short lists, fp32 operations on deep ones; a simple kernel that is
+//   right comes first, and each policy states its own occupancy bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,9 +114,7 @@ constexpr int kLeaf = 8;
 constexpr int kNoHit = 0x7f000000;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNodeVec = 16;  // float4 per wide node
-// __launch_bounds__' minimum of resident blocks per SM: 6 caps a thread at
-// 80 registers (unbounded the compiler takes 88-96 and only 5 blocks fit).
-constexpr int kMinBlocks = 6;
+constexpr int kDenseMax = 64;  // prims of a dense list
 
 struct Params {
   const float4* nodes;
@@ -106,12 +138,24 @@ struct Params {
   int* leafs_out;
   int* work;  // persistent launches: [0] batches dealt out by the counter,
               // [1] warps that are done; both zero between launches
+  const float4* leaves_t1;  // MovingTriangleLeaf: the shutter-close rows
+  const float* time;        // [n] ray times in [0, 1], or null
+  int prim_offset;          // global id of the kind's prim 0
+  int carry;                // start from and update t_out / blocked_out
+  int n_nodes;              // skip_kernel: binary nodes
+  // dense_kernel: spheres c [S,3], r [S], c_t1 [S,3] or null; lines
+  // v0 [L,3], v1 [L,3], r0 [L], r1 [L]
+  const float* d0;
+  const float* d1;
+  const float* d2;
+  const float* d3;
+  int n_prims;
 };
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-  float t, u, v;
-  int ig1, ig2, prim, slot;
+  float t, u, v, time;
+  int ig1, ig2, prim, slot;  // ig1, ig2: local to the kind (id - offset)
   int iters, leafs;
 };
 
@@ -149,14 +193,39 @@ __device__ __forceinline__ void load_ray(const Params& p, int i, float t,
   r.ix = clamped_inverse(r.dx);
   r.iy = clamped_inverse(r.dy);
   r.iz = clamped_inverse(r.dz);
-  r.ig1 = load_ignore(p.ignore1, i, p.ignore_is64);
-  r.ig2 = load_ignore(p.ignore2, i, p.ignore_is64);
+  r.ig1 = load_ignore(p.ignore1, i, p.ignore_is64) - p.prim_offset;
+  r.ig2 = load_ignore(p.ignore2, i, p.ignore_is64) - p.prim_offset;
+  r.time = p.time != nullptr ? __ldg(p.time + i) : 0.f;
   r.t = t;
+  r.u = 0.f; r.v = 0.f; r.prim = -1; r.slot = -1;
+  r.iters = 0; r.leafs = 0;
 }
 
-template <bool kCounters>
+// The t a ray starts from: with carry the running t of an earlier launch
+// (0 for a ray that is blocked already), else t_init or t_all.
+__device__ __forceinline__ float start_t(const Params& p, int i) {
+  if (p.carry) {
+    if (p.blocked_out != nullptr && p.blocked_out[i]) return 0.f;
+    if (p.t_out != nullptr) return p.t_out[i];
+  }
+  return p.t_init != nullptr ? __ldg(p.t_init + i) : p.t_all;
+}
+
+template <class Leaf, bool kCounters>
 __device__ __forceinline__ void store_ray(const Params& p, int i,
                                           const Ray& r) {
+  if (p.carry) {  // only what this launch improved
+    if (r.prim < 0) return;
+    if (p.blocked_out != nullptr) p.blocked_out[i] = 1;
+    if (p.t_out != nullptr) {
+      p.t_out[i] = r.t;
+      p.prim_out[i] = r.prim;
+      if (Leaf::kSetsU) p.u_out[i] = r.u;
+      if (Leaf::kSetsV) p.v_out[i] = r.v;
+      if (Leaf::kSetsSlot) p.slot_out[i] = r.slot;
+    }
+    return;
+  }
   if (p.blocked_out != nullptr) p.blocked_out[i] = r.prim >= 0;
   if (p.t_out != nullptr) {
     p.t_out[i] = r.t;
@@ -201,71 +270,218 @@ __device__ __forceinline__ void pop_inner(const float4* __restrict__ rec,
         stack[sp++ * kThreads] = ((leafm >> c) & 1u) ? -link[c] - 1 : link[c];
 }
 
-// The triangle leaf test: Moeller-Trumbore on one packed row
-// (v0.xyz, prim bits | e1.xyz, - | e2.xyz, -).  True where the row is hit
-// in (0, r.t) by a prim that is not excluded.
+// Moeller-Trumbore on (v0, e1, e2).  True where the triangle is hit in
+// (0, r.t); b_u weights vertex 2, b_v vertex 1.
+__device__ __forceinline__ bool triangle_hit(
+    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, const Ray& r, float& tt, float& b_u,
+    float& b_v) {
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv_det = fabsf(det) < 1e-20f ? 0.f : 1.f / det;
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  b_v = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  b_u = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return b_v >= 0.f && b_v <= 1.f && b_u >= 0.f && b_u + b_v <= 1.f &&
+         tt > 0.f && tt < r.t;
+}
+
+// The nearest positive root of a sphere (centre c, radius rad), in (0, r.t).
+__device__ __forceinline__ bool sphere_hit(float cx, float cy, float cz,
+                                           float rad, const Ray& r,
+                                           float& tt) {
+  const float ox = r.ox - cx, oy = r.oy - cy, oz = r.oz - cz;
+  const float b = ox * r.dx + oy * r.dy + oz * r.dz;
+  const float cc = ox * ox + oy * oy + oz * oz - rad * rad;
+  const float disc = b * b - cc;
+  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const float t0 = -b - sq, t1 = -b + sq;
+  tt = t0 > 0.f ? t0 : t1;
+  return disc > 0.f && tt > 0.f && tt < r.t;
+}
+
+// A line prim: the truncated cone through the circles (v0, r0), (v1, r1).
+// y is the axial fraction of the hit in [0, 1].
+__device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
+                                         float v1x, float v1y, float v1z,
+                                         float r0, float r1, const Ray& r,
+                                         float& tt, float& y) {
+  float ax = v1x - v0x, ay = v1y - v0y, az = v1z - v0z;
+  const float length = sqrtf(fmaxf(ax * ax + ay * ay + az * az, 1e-20f));
+  ax = ax / length; ay = ay / length; az = az / length;
+  const float ox = r.ox - v0x, oy = r.oy - v0y, oz = r.oz - v0z;
+  const float ya = ox * ax + oy * ay + oz * az;
+  const float wd = r.dx * ax + r.dy * ay + r.dz * az;
+  const float k = (r1 - r0) / length;
+  const float ow = ox * r.dx + oy * r.dy + oz * r.dz;
+  const float oo = ox * ox + oy * oy + oz * oz;
+  const float s = r0 + k * ya;
+  const float a = 1.f - wd * wd - k * k * wd * wd;
+  const float b = 2.f * (ow - ya * wd - k * wd * s);
+  const float c = oo - ya * ya - s * s;
+  const float disc = b * b - 4.f * a * c;
+  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const float sgn = b > 0.f ? 1.f : (b < 0.f ? -1.f : b);
+  const float q = -0.5f * (b + sgn * sq);
+  const float asafe = fabsf(a) < 1e-12f ? 1e-12f : a;
+  const float t0 = q / asafe;
+  const bool tiny = fabsf(q) < 1e-20f;
+  const float t1 = tiny ? 3.4e38f : c / (tiny ? 1.f : q);
+  const float tlo = fminf(t0, t1), thi = fmaxf(t0, t1);
+  const float ylo = ya + tlo * wd;
+  tt = (tlo > 0.f && ylo >= 0.f && ylo <= length) ? tlo : thi;
+  const float yt = ya + tt * wd;
+  y = fminf(fmaxf(yt / length, 0.f), 1.f);
+  return disc > 0.f && tt > 0.f && yt >= 0.f && yt <= length && tt < r.t;
+}
+
+// Leaf policies.  test(): true where row `row` (leaf id * 8 + row in the
+// leaf) is hit in (0, r.t) by a prim that is not excluded; cand is the
+// prim's id local to its kind.  kRowVec: float4 per row.  kEncoded: the
+// wide walk picks the winner by the TPU kernel's (bits(t) & ~7) | row.
+// kSets*: which of u, v, slot a hit of this kind defines.  kDenseList: the
+// kind has a dense small-list form (kCone: of lines).  kMinBlocks:
+// __launch_bounds__' resident blocks per SM for the wide walk (6 caps a
+// thread at 80 registers, 4 at 128).
+
+// (v0.xyz, prim bits | e1.xyz, - | e2.xyz, -)
 struct TriangleLeaf {
-  static constexpr int kRowVec = 3;  // float4 per row
-  static __device__ __forceinline__ bool test(const float4* __restrict__ row,
+  static constexpr int kRowVec = 3;
+  static constexpr bool kEncoded = true;
+  static constexpr bool kSetsU = true, kSetsV = true, kSetsSlot = true;
+  static constexpr bool kDenseList = false, kCone = false;
+  static constexpr int kMinBlocks = 6;
+  static __device__ __forceinline__ bool test(const Params& p, int row,
                                               const Ray& r, float& tt,
                                               float& b_u, float& b_v,
                                               int& cand) {
-    const float4 q0 = __ldg(row), q1 = __ldg(row + 1),
-                 q2 = __ldg(row + 2);
-    const float v0x = q0.x, v0y = q0.y, v0z = q0.z;
-    const float e1x = q1.x, e1y = q1.y, e1z = q1.z;
-    const float e2x = q2.x, e2y = q2.y, e2z = q2.z;
+    const float4* q = p.leaves + (size_t)row * kRowVec;
+    const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
     cand = __float_as_int(q0.w);
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const float inv_det = fabsf(det) < 1e-20f ? 0.f : 1.f / det;
-    const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-    b_v = (tx * px + ty * py + tz * pz) * inv_det;
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    b_u = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    return b_v >= 0.f && b_v <= 1.f && b_u >= 0.f && b_u + b_v <= 1.f &&
-           tt > 0.f && tt < r.t && cand >= 0 && cand != r.ig1 &&
-           cand != r.ig2;
+    return triangle_hit(q0.x, q0.y, q0.z, q1.x, q1.y, q1.z, q2.x, q2.y, q2.z,
+                        r, tt, b_u, b_v) &&
+           cand >= 0 && cand != r.ig1 && cand != r.ig2;
   }
 };
 
-// One leaf pop: test the 8 rows of leaf `lid`; the winner is the minimum
-// of (bits(t) & ~7) | row.  Returns true when the ray is finished (any-hit
-// found a blocker).
-template <class Leaf, bool kAnyHit>
-__device__ __forceinline__ bool pop_leaf(const float4* __restrict__ rows,
-                                         int lid, Ray& r) {
+// Two TriangleLeaf rows, shutter open (p.leaves) and close (p.leaves_t1),
+// lerped at the ray's time.
+struct MovingTriangleLeaf {
+  static constexpr int kRowVec = 3;
+  static constexpr bool kEncoded = false;
+  static constexpr bool kSetsU = true, kSetsV = true, kSetsSlot = true;
+  static constexpr bool kDenseList = false, kCone = false;
+  static constexpr int kMinBlocks = 4;
+  static __device__ __forceinline__ bool test(const Params& p, int row,
+                                              const Ray& r, float& tt,
+                                              float& b_u, float& b_v,
+                                              int& cand) {
+    const float4* q = p.leaves + (size_t)row * kRowVec;
+    const float4* s = p.leaves_t1 + (size_t)row * kRowVec;
+    const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+    const float4 s0 = __ldg(s), s1 = __ldg(s + 1), s2 = __ldg(s + 2);
+    const float w = r.time, w0 = 1.f - r.time;
+    cand = __float_as_int(q0.w);
+    return triangle_hit(q0.x * w0 + s0.x * w, q0.y * w0 + s0.y * w,
+                        q0.z * w0 + s0.z * w, q1.x * w0 + s1.x * w,
+                        q1.y * w0 + s1.y * w, q1.z * w0 + s1.z * w,
+                        q2.x * w0 + s2.x * w, q2.y * w0 + s2.y * w,
+                        q2.z * w0 + s2.z * w, r, tt, b_u, b_v) &&
+           cand >= 0 && cand != r.ig1 && cand != r.ig2;
+  }
+};
+
+// (c.xyz, radius | prim bits, -, -, -)
+struct SphereLeaf {
+  static constexpr int kRowVec = 2;
+  static constexpr bool kEncoded = false;
+  static constexpr bool kSetsU = false, kSetsV = false, kSetsSlot = false;
+  static constexpr bool kDenseList = true, kCone = false;
+  static constexpr int kMinBlocks = 6;
+  static __device__ __forceinline__ bool test(const Params& p, int row,
+                                              const Ray& r, float& tt,
+                                              float& b_u, float& b_v,
+                                              int& cand) {
+    const float4* q = p.leaves + (size_t)row * kRowVec;
+    const float4 q0 = __ldg(q), q1 = __ldg(q + 1);
+    cand = __float_as_int(q1.x);
+    b_u = 0.f; b_v = 0.f;
+    return sphere_hit(q0.x, q0.y, q0.z, q0.w, r, tt) && cand >= 0 &&
+           cand != r.ig1 && cand != r.ig2;
+  }
+};
+
+// (v0.xyz, prim bits | v1.xyz, r0 | r1, -, -, -); u is the axial fraction
+struct ConeLeaf {
+  static constexpr int kRowVec = 3;
+  static constexpr bool kEncoded = false;
+  static constexpr bool kSetsU = true, kSetsV = false, kSetsSlot = false;
+  static constexpr bool kDenseList = true, kCone = true;
+  static constexpr int kMinBlocks = 4;
+  static __device__ __forceinline__ bool test(const Params& p, int row,
+                                              const Ray& r, float& tt,
+                                              float& b_u, float& b_v,
+                                              int& cand) {
+    const float4* q = p.leaves + (size_t)row * kRowVec;
+    const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+    cand = __float_as_int(q0.w);
+    b_v = 0.f;
+    return cone_hit(q0.x, q0.y, q0.z, q1.x, q1.y, q1.z, q1.w, q2.x, r, tt,
+                    b_u) &&
+           cand >= 0 && cand != r.ig1 && cand != r.ig2;
+  }
+};
+
+// A winner of a leaf or of a dense list into the ray, as global id.
+template <class Leaf>
+__device__ __forceinline__ void take_hit(const Params& p, Ray& r, float bt,
+                                         float bu, float bv, int cand,
+                                         int slot) {
+  r.t = bt;
+  if (Leaf::kSetsU) r.u = bu;
+  if (Leaf::kSetsV) r.v = bv;
+  if (Leaf::kSetsSlot) r.slot = slot;
+  r.prim = cand + p.prim_offset;
+}
+
+// One leaf pop: test the 8 rows of leaf `lid`.  kEncoded: the winner is
+// the minimum of (bits(t) & ~7) | row; else the smallest t, the first row
+// on an exact tie.  Returns true when the ray is finished (any-hit found a
+// blocker).
+template <class Leaf, bool kAnyHit, bool kEncoded>
+__device__ __forceinline__ bool pop_leaf(const Params& p, int lid, Ray& r) {
   int best = kNoHit;
-  float bt = 0.f, bu = 0.f, bv = 0.f;
-  int bc = -1;
+  float bt = r.t, bu = 0.f, bv = 0.f;
+  int bc = -1, bk = 0;
 #pragma unroll
   for (int k = 0; k < kLeaf; ++k) {
     float tt, b_u, b_v;
     int cand;
-    if (Leaf::test(rows + k * Leaf::kRowVec, r, tt, b_u, b_v, cand)) {
-      const int enc = (__float_as_int(tt) & ~7) | k;
-      if (enc < best) {
-        best = enc;
-        bt = tt; bu = b_u; bv = b_v; bc = cand;
+    if (Leaf::test(p, lid * kLeaf + k, r, tt, b_u, b_v, cand)) {
+      if (kEncoded) {
+        const int enc = (__float_as_int(tt) & ~7) | k;
+        if (enc < best) {
+          best = enc;
+          bt = tt; bu = b_u; bv = b_v; bc = cand; bk = k;
+        }
+      } else if (tt < bt) {
+        bt = tt; bu = b_u; bv = b_v; bc = cand; bk = k;
       }
     }
   }
-  if (best < kNoHit) {
+  if (bc >= 0) {
     if (kAnyHit) {
       r.prim = 0;
       r.t = -1.f;
       return true;
     }
-    r.t = bt;
-    r.u = bu;
-    r.v = bv;
-    r.prim = bc;
-    r.slot = lid * kLeaf + (best & 7);
+    take_hit<Leaf>(p, r, bt, bu, bv, bc, lid * kLeaf + bk);
   }
   return false;
 }
@@ -273,7 +489,7 @@ __device__ __forceinline__ bool pop_leaf(const float4* __restrict__ rows,
 // kPersistent: warps fetch rays from p.work until none are left.
 // Otherwise thread i of the grid walks ray i (the counters launches).
 template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Leaf::kMinBlocks)
 traverse_kernel(const Params p) {
   extern __shared__ int smem[];
   int* stack = smem + threadIdx.x;  // entry e of this thread: stack[e * kThreads]
@@ -315,13 +531,13 @@ traverse_kernel(const Params p) {
           const int idx = base + lane;
           const bool in = idx < p.n;
           pend_t = 0.f;
-          if (in) pend_t = p.t_init != nullptr ? __ldg(p.t_init + idx) : p.t_all;
+          if (in) pend_t = start_t(p, idx);
           const bool alive = in && pend_t > 0.f;
           if (in && !alive) {  // a dead lane does no work: t stays t_init
             Ray dead;
             dead.t = pend_t; dead.u = 0.f; dead.v = 0.f;
             dead.prim = -1; dead.slot = -1; dead.iters = 0; dead.leafs = 0;
-            store_ray<kCounters>(p, idx, dead);
+            store_ray<Leaf, kCounters>(p, idx, dead);
           }
           pend = __ballot_sync(kFull, alive);
           pend_base = base;
@@ -338,8 +554,6 @@ traverse_kernel(const Params p) {
         if (mine) {
           ray = pend_base + src;
           load_ray(p, ray, t0, r);
-          r.u = 0.f; r.v = 0.f; r.prim = -1; r.slot = -1;
-          r.iters = 0; r.leafs = 0;
           stack[0] = 0;  // the root
           sp = 1;
         }
@@ -370,12 +584,10 @@ traverse_kernel(const Params p) {
         --sp;
         if (kCounters) ++r.leafs;
         const int lid = -entry - 1;
-        const float4* rows =
-            p.leaves + (size_t)lid * (kLeaf * Leaf::kRowVec);
-        if (pop_leaf<Leaf, kAnyHit>(rows, lid, r)) sp = 0;
+        if (pop_leaf<Leaf, kAnyHit, Leaf::kEncoded>(p, lid, r)) sp = 0;
       }
       if (sp == 0) {
-        store_ray<kCounters>(p, ray, r);
+        store_ray<Leaf, kCounters>(p, ray, r);
         ray = -1;
       }
     }
@@ -391,9 +603,118 @@ traverse_kernel(const Params p) {
   }
 }
 
-template <bool kAnyHit, bool kCounters, bool kPersistent>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kern = traverse_kernel<TriangleLeaf, kAnyHit, kCounters, kPersistent>;
+// The deep-tree form: thread i walks ray i through the binary nodes
+// (min.xyz, max.x | max.yz, skip bits, first bits) by skip links, without
+// a stack: the left child of an inner node is the next node, a miss or a
+// leaf goes on at the node's skip link.  A leaf's rows start at its first
+// slot, so the leaf id is first / 8.
+template <class Leaf, bool kAnyHit>
+__global__ void __launch_bounds__(kThreads) skip_kernel(const Params p) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= p.n) return;
+  Ray r;
+  const float t0 = start_t(p, i);
+  if (!(t0 > 0.f)) {
+    r.t = t0; r.u = 0.f; r.v = 0.f; r.prim = -1; r.slot = -1;
+    store_ray<Leaf, false>(p, i, r);
+    return;
+  }
+  load_ray(p, i, t0, r);
+  int node = 0;
+  while (node < p.n_nodes) {
+    const float4 a = __ldg(p.nodes + 2 * (size_t)node);
+    const float4 b = __ldg(p.nodes + 2 * (size_t)node + 1);
+    const float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
+    const float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
+    const float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
+    const float tn = fmaxf(fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                                 fminf(t0z, t1z)), 0.f);
+    const float tf = fminf(fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                                 fmaxf(t0z, t1z)), r.t);
+    const int skip = __float_as_int(b.z), first = __float_as_int(b.w);
+    if (tn <= tf) {
+      if (first < 0) {
+        ++node;
+        continue;
+      }
+      if (pop_leaf<Leaf, kAnyHit, false>(p, first / kLeaf, r)) break;
+    }
+    node = skip;
+  }
+  store_ray<Leaf, false>(p, i, r);
+}
+
+// The dense small-list form: the block stages the list (8 floats a prim)
+// in shared memory, then thread i tests ray i against every prim in list
+// order.  Spheres: (c.xyz, r, c_t1.xyz, -), the centre lerped at the ray's
+// time when the launch has both; lines: (v0.xyz, v1.xyz, r0, r1).  The id
+// of a prim is its index in the list.
+template <class Leaf, bool kAnyHit>
+__global__ void __launch_bounds__(kThreads) dense_kernel(const Params p) {
+  __shared__ float rec[kDenseMax * 8];
+  constexpr bool kCone = Leaf::kCone;
+  const bool lerp = !kCone && p.d2 != nullptr && p.time != nullptr;
+  for (int j = threadIdx.x; j < p.n_prims; j += kThreads) {
+    float* q = rec + 8 * j;
+    q[0] = p.d0[3 * j]; q[1] = p.d0[3 * j + 1]; q[2] = p.d0[3 * j + 2];
+    if (kCone) {
+      q[3] = p.d1[3 * j]; q[4] = p.d1[3 * j + 1]; q[5] = p.d1[3 * j + 2];
+      q[6] = p.d2[j]; q[7] = p.d3[j];
+    } else {
+      q[3] = p.d1[j];
+      q[4] = lerp ? p.d2[3 * j] : 0.f;
+      q[5] = lerp ? p.d2[3 * j + 1] : 0.f;
+      q[6] = lerp ? p.d2[3 * j + 2] : 0.f;
+      q[7] = 0.f;
+    }
+  }
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= p.n) return;
+  Ray r;
+  const float t0 = start_t(p, i);
+  if (!(t0 > 0.f)) {
+    r.t = t0; r.u = 0.f; r.v = 0.f; r.prim = -1; r.slot = -1;
+    store_ray<Leaf, false>(p, i, r);
+    return;
+  }
+  load_ray(p, i, t0, r);
+  const float w = r.time, w0 = 1.f - r.time;
+  float bt = r.t, bu = 0.f;
+  int bc = -1;
+  for (int j = 0; j < p.n_prims; ++j) {
+    const float* q = rec + 8 * j;
+    float tt, y = 0.f;
+    bool ok;
+    if (kCone) {
+      ok = cone_hit(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], r, tt, y);
+    } else if (lerp) {
+      ok = sphere_hit(q[0] * w0 + q[4] * w, q[1] * w0 + q[5] * w,
+                      q[2] * w0 + q[6] * w, q[3], r, tt);
+    } else {
+      ok = sphere_hit(q[0], q[1], q[2], q[3], r, tt);
+    }
+    if (ok && tt < bt && j != r.ig1 && j != r.ig2) {
+      bt = tt; bu = y; bc = j;
+      if (kAnyHit) break;
+    }
+  }
+  if (bc >= 0) {
+    if (kAnyHit) {
+      r.prim = 0;
+      r.t = -1.f;
+    } else {
+      take_hit<Leaf>(p, r, bt, bu, 0.f, bc, -1);
+    }
+  }
+  store_ray<Leaf, false>(p, i, r);
+}
+
+// The wide walk of one policy.  kPersistent: as many blocks as are
+// resident at once; else one thread a ray (the counters launches).
+template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
+cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
+  auto kern = traverse_kernel<Leaf, kAnyHit, kCounters, kPersistent>;
   const size_t smem = (size_t)p.depth * kThreads * sizeof(int);
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -418,52 +739,135 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+enum Form { kWide = 0, kDeep = 1, kDense = 2 };
+enum Kind { kTriangle = 0, kMoving = 1, kSphere = 2, kLine = 3 };
+
+template <class Leaf, bool kAnyHit>
+cudaError_t launch_form(const Params& p, int form, cudaStream_t stream) {
+  const int blocks = (p.n + kThreads - 1) / kThreads;
+  if (form == kWide) return launch_wide<Leaf, kAnyHit, false, true>(p, stream);
+  if (form == kDeep) {
+    skip_kernel<Leaf, kAnyHit><<<blocks, kThreads, 0, stream>>>(p);
+  } else if constexpr (Leaf::kDenseList) {
+    dense_kernel<Leaf, kAnyHit><<<blocks, kThreads, 0, stream>>>(p);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <bool kAnyHit>
+cudaError_t launch_kind(const Params& p, int form, int kind,
+                        cudaStream_t stream) {
+  switch (kind) {
+    case kTriangle: return launch_form<TriangleLeaf, kAnyHit>(p, form, stream);
+    case kMoving:
+      return launch_form<MovingTriangleLeaf, kAnyHit>(p, form, stream);
+    case kSphere: return launch_form<SphereLeaf, kAnyHit>(p, form, stream);
+    case kLine: return launch_form<ConeLeaf, kAnyHit>(p, form, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes (ops/trace_cuda.py); returns the
-// launch's cudaError_t (0: launched).  nodes/leaves: the kernel layout.
-// t_init null: every ray starts at t_all.  ignore1/ignore2: [n] int64
-// (ignore_is64) or int32, or null.  Outputs: (t, prim, u, v, slot)
-// together or all null; blocked_out [n] bytes or null.  iters_out and
-// leafs_out non-null select the counters launch (thread i walks ray i,
-// per-ray pop counts); otherwise the launch is persistent and `work`
-// points at two int32 zeros, which the launch leaves zero again.
-extern "C" int corona13_traverse_tris(
-    const void* nodes, const void* leaves, int depth, const float* org,
-    const float* dir, const float* t_init, float t_all, const void* ignore1,
-    const void* ignore2, int ignore_is64, int n, float* t_out,
-    long long* prim_out, float* u_out, float* v_out, long long* slot_out,
-    unsigned char* blocked_out, int* iters_out, int* leafs_out, int* work,
-    int any_hit, void* stream) {
+// Launch arguments, as ops/trace_cuda.py fills them through ctypes.
+struct Corona13TraceArgs {
+  int form;   // 0 wide walk, 1 deep tree (skip links), 2 dense list
+  int kind;   // 0 triangles, 1 moving triangles, 2 spheres, 3 lines
+  int any_hit;
+  int carry;  // start from t_out / blocked_out and update them
+  const void* nodes;      // wide: kernel nodes; deep: binary nodes [n, 8]
+  const void* leaves;     // the kind's leaf rows
+  const void* leaves_t1;  // moving triangles: shutter-close rows
+  int depth;              // wide: stack entries a thread
+  int n_nodes;            // deep: binary nodes
+  const float* d0;        // dense: see dense_kernel
+  const float* d1;
+  const float* d2;
+  const float* d3;
+  int n_prims;
+  int prim_offset;
+  const float* org;
+  const float* dir;
+  const float* time;    // [n] or null
+  const float* t_init;  // [n], or null: every ray starts at t_all
+  float t_all;
+  int ignore_is64;
+  const void* ignore1;  // [n] int64 (ignore_is64) or int32, or null
+  const void* ignore2;
+  int n;
+  float* t_out;  // (t, prim, u, v, slot) together or all null
+  long long* prim_out;
+  float* u_out;
+  float* v_out;
+  long long* slot_out;
+  unsigned char* blocked_out;  // [n] bytes or null
+  int* iters_out;  // both non-null: the counters launch (wide triangles,
+  int* leafs_out;  // thread i walks ray i, per-ray pop counts)
+  int* work;       // wide, not counters: two int32 zeros, left zero again
+  void* stream;
+};
+
+// Plain C entry point, loaded with ctypes; returns the launch's
+// cudaError_t (0: launched).
+extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   Params p;
-  p.nodes = (const float4*)nodes;
-  p.leaves = (const float4*)leaves;
-  p.org = org;
-  p.dir = dir;
-  p.t_init = t_init;
-  p.t_all = t_all;
-  p.ignore1 = ignore1;
-  p.ignore2 = ignore2;
-  p.ignore_is64 = ignore_is64;
-  p.n = n;
-  p.depth = depth;
-  p.t_out = t_out;
-  p.prim_out = prim_out;
-  p.u_out = u_out;
-  p.v_out = v_out;
-  p.slot_out = slot_out;
-  p.blocked_out = blocked_out;
-  p.iters_out = iters_out;
-  p.leafs_out = leafs_out;
-  p.work = work;
-  if (n <= 0 || depth < 1 || (n >> 30) != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (iters_out != nullptr) {
-    if (leafs_out == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)(any_hit ? launch<true, true, false>(p, s)
-                         : launch<false, true, false>(p, s));
+  p.nodes = (const float4*)a->nodes;
+  p.leaves = (const float4*)a->leaves;
+  p.leaves_t1 = (const float4*)a->leaves_t1;
+  p.org = a->org;
+  p.dir = a->dir;
+  p.time = a->time;
+  p.t_init = a->t_init;
+  p.t_all = a->t_all;
+  p.ignore1 = a->ignore1;
+  p.ignore2 = a->ignore2;
+  p.ignore_is64 = a->ignore_is64;
+  p.n = a->n;
+  p.depth = a->depth;
+  p.n_nodes = a->n_nodes;
+  p.prim_offset = a->prim_offset;
+  p.carry = a->carry;
+  p.d0 = a->d0; p.d1 = a->d1; p.d2 = a->d2; p.d3 = a->d3;
+  p.n_prims = a->n_prims;
+  p.t_out = a->t_out;
+  p.prim_out = a->prim_out;
+  p.u_out = a->u_out;
+  p.v_out = a->v_out;
+  p.slot_out = a->slot_out;
+  p.blocked_out = a->blocked_out;
+  p.iters_out = a->iters_out;
+  p.leafs_out = a->leafs_out;
+  p.work = a->work;
+  const int n = a->n, form = a->form, kind = a->kind;
+  if (n <= 0 || (n >> 30) != 0) return (int)cudaErrorInvalidValue;
+  if (form == kWide && (a->depth < 1 || a->nodes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (form == kDeep && (a->n_nodes < 1 || a->nodes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (form == kDense && (a->n_prims < 1 || a->n_prims > kDenseMax ||
+                         a->d0 == nullptr || a->d1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (form != kDense && a->leaves == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kMoving && (a->leaves_t1 == nullptr || a->time == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (kind == kLine && form == kDense &&
+      (a->d2 == nullptr || a->d3 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (a->carry && a->t_out == nullptr && a->blocked_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)a->stream;
+  if (a->iters_out != nullptr) {
+    if (a->leafs_out == nullptr || form != kWide || kind != kTriangle ||
+        a->carry)
+      return (int)cudaErrorInvalidValue;
+    return (int)(a->any_hit
+                     ? launch_wide<TriangleLeaf, true, true, false>(p, s)
+                     : launch_wide<TriangleLeaf, false, true, false>(p, s));
   }
-  if (work == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)(any_hit ? launch<true, false, true>(p, s)
-                       : launch<false, false, true>(p, s));
+  if (form == kWide && a->work == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)(a->any_hit ? launch_kind<true>(p, form, kind, s)
+                          : launch_kind<false>(p, form, kind, s));
 }

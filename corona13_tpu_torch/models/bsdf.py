@@ -7,8 +7,9 @@ solid angle and weight = f/pdf; ``eval_pdf`` returns the BSDF value and
 pdf of a connection.  ``wi`` points into the vertex, ``wo`` away from it.
 Spectral quantities carry a trailing hero axis [MF].
 
-Ported kinds: DIFFUSE, DIELECTRIC, METAL, DIFFDIEL and NULL.  HAIR
-raises NotImplementedError.
+Kinds: DIFFUSE, DIELECTRIC, METAL, DIFFDIEL, NULL and HAIR (a fibre
+model on line prims: Kajiya-Kay diffuse plus a gaussian longitudinal
+specular cone around the fibre tangent ``ShadingPoint.tangent``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ MODE_VOLUME = 1 << 6
 GLOSSY_THR = 1e-3  # roughness below which we go specular (dielectric.c:35)
 
 ALL_KINDS = (DIFFUSE, DIELECTRIC, METAL, DIFFDIEL, HAIR)
-_PORTED = (DIFFUSE, DIELECTRIC, METAL, DIFFDIEL, NULL)
 
 
 @dataclasses.dataclass
@@ -59,13 +59,6 @@ class ShadingPoint:
     gn: torch.Tensor         # [N, 3] geometric normal
     inside: torch.Tensor     # [N] bool: hit from the inside
     tangent: torch.Tensor | None = None  # [N, 3] fiber direction
-
-
-def _check_kinds(kinds):
-    missing = [k for k in kinds if k not in _PORTED]
-    if missing:
-        raise NotImplementedError(f'BSDF kinds {missing} (HAIR) are not '
-                                  'ported yet')
 
 
 def _flip(sp: ShadingPoint, x):
@@ -490,13 +483,109 @@ def metal_eval_pdf(sp: ShadingPoint, wi, wo):
             torch.where(valid[..., None], pdf, 0.0))
 
 
+# --- hair fibre ------------------------------------------------------------
+
+_HAIR_BETA_MIN = 0.02
+
+
+def _hair_frame(sp, wi):
+    """Fibre frame: tangent T, an ONB (U, V) around it, and the incoming
+    tangential component ci = dot(T, -wi) that the specular cone keeps
+    (reflection off a cylinder flips only the radial part)."""
+    t = normalize(sp.tangent if sp.tangent is not None else sp.n)
+    u, v = build_onb(t)
+    return t, u, v, dot(t, -wi)
+
+
+def _hair_lobes(sp):
+    """Per-lane lobe energies (hero lane 0): diffuse rd, specular rg."""
+    e_d = torch.clamp(sp.rd[..., 0], min=0.0)
+    e_s = torch.clamp(sp.rg[..., 0], min=0.0)
+    tot = torch.clamp(e_d + e_s, min=1e-12)
+    return e_d / tot, e_s / tot
+
+
+def _hair_spec_norm(ci, beta):
+    """Truncated-gaussian normalisation over co in [-1, 1]."""
+    s = beta * math.sqrt(2.0)
+    return torch.clamp(0.5 * (torch.erf((1.0 - ci) / s)
+                              - torch.erf((-1.0 - ci) / s)), min=1e-6)
+
+
+def _hair_gauss(co, ci, beta):
+    return torch.exp(-0.5 * ((co - ci) / beta) ** 2) / \
+        (beta * math.sqrt(2.0 * math.pi))
+
+
+def hair_S(sp, wi, wo):
+    """Fibre scattering distribution S(wo) per solid angle [N, MF]
+    (energy-normalised): Kajiya-Kay diffuse sin(theta)/pi^2 + gaussian
+    longitudinal specular cone / (2 pi norm)."""
+    t, _, _, ci = _hair_frame(sp, wi)
+    co = dot(t, wo)
+    sin_o = torch.sqrt(torch.clamp(1.0 - co * co, min=1e-12))
+    beta = torch.clamp(sp.roughness, min=_HAIR_BETA_MIN)
+    s_d = sp.rd * (sin_o / (math.pi ** 2))[..., None]
+    g = _hair_gauss(co, ci, beta)
+    s_s = sp.rg * (g / (_hair_spec_norm(ci, beta) * 2.0 * math.pi))[..., None]
+    return s_d + s_s
+
+
+def hair_pdf_w(sp, wi, wo):
+    """Solid-angle pdf of hair_sample's lobe mixture."""
+    t, _, _, ci = _hair_frame(sp, wi)
+    co = dot(t, wo)
+    beta = torch.clamp(sp.roughness, min=_HAIR_BETA_MIN)
+    p_d, p_s = _hair_lobes(sp)
+    pdf_diff = 1.0 / (4.0 * math.pi)
+    pdf_spec = _hair_gauss(co, ci, beta) / \
+        (_hair_spec_norm(ci, beta) * 2.0 * math.pi)
+    return p_d * pdf_diff + p_s * pdf_spec
+
+
+def hair_eval_pdf(sp, wi, wo):
+    """(f, pdf_proj) in the surface convention: the pipeline multiplies
+    |cos(n, wo)| into NEE and extension, so f = S/|cos| and
+    pdf_proj = pdf_w/|cos| keep the fibre distribution intact."""
+    cos_n = torch.clamp(torch.abs(dot(sp.n, wo)), min=1e-4)
+    f = hair_S(sp, wi, wo) / cos_n[..., None]
+    pdf_proj = hair_pdf_w(sp, wi, wo) / cos_n
+    return f, pdf_proj[..., None].expand(f.shape)
+
+
+def hair_sample(sp, wi, r1, r2, r_mode):
+    """Sample the lobe mixture; returns (wo, pdf_proj[MF], w[MF]) with
+    w = S/pdf_w (the f |cos| / pdf convention of the other kinds)."""
+    t, u, v, ci = _hair_frame(sp, wi)
+    beta = torch.clamp(sp.roughness, min=_HAIR_BETA_MIN)
+    _, p_s = _hair_lobes(sp)
+    phi = 2.0 * math.pi * r2
+    co_d = 2.0 * r1 - 1.0                       # diffuse: uniform sphere
+    # specular: truncated gaussian around ci by its inverse CDF
+    s = beta * math.sqrt(2.0)
+    lo = torch.erf((-1.0 - ci) / s)
+    hi = torch.erf((1.0 - ci) / s)
+    co_s = ci + s * torch.erfinv(torch.clamp(lo + r1 * (hi - lo),
+                                             -1 + 1e-7, 1 - 1e-7))
+    use_s = r_mode < p_s
+    co = torch.clamp(torch.where(use_s, co_s, co_d), -1.0 + 1e-6, 1.0 - 1e-6)
+    sin_o = torch.sqrt(1.0 - co * co)
+    wo = normalize(co[..., None] * t
+                   + (sin_o * torch.cos(phi))[..., None] * u
+                   + (sin_o * torch.sin(phi))[..., None] * v)
+    pdf_w = hair_pdf_w(sp, wi, wo)
+    w = hair_S(sp, wi, wo) / torch.clamp(pdf_w, min=1e-12)[..., None]
+    cos_n = torch.clamp(torch.abs(dot(sp.n, wo)), min=1e-4)
+    pdf_proj = (pdf_w / cos_n)[..., None].expand(w.shape)
+    return wo, pdf_proj, w
+
+
 # --- dispatch --------------------------------------------------------------
 
 def bsdf_sample(sp: ShadingPoint, wi, r1, r2, r_mode, kinds=ALL_KINDS):
     """Sample the lobes of the kinds the scene uses and select per lane.
 
     Returns (wo, pdf_proj[MF], weight[MF], mode_bits[int64])."""
-    _check_kinds(kinds)
     wo = wi
     pdf = torch.zeros_like(sp.rd)
     w = torch.zeros_like(sp.rd)
@@ -538,6 +627,13 @@ def bsdf_sample(sp: ShadingPoint, wi, r1, r2, r_mode, kinds=ALL_KINDS):
                               torch.where(trans_s, MODE_DIFFUSE, MODE_GLOSSY))
                   | torch.where(trans_s, MODE_TRANSMIT, MODE_REFLECT))
         mode = torch.where(is_s, s_mode, mode)
+    if HAIR in kinds:
+        wo_f, pdf_f, w_f = hair_sample(sp, wi, r1, r2, r_mode)
+        is_f = sp.kind == HAIR
+        wo = torch.where(is_f[..., None], wo_f, wo)
+        pdf = torch.where(is_f[..., None], pdf_f, pdf)
+        w = torch.where(is_f[..., None], w_f, w)
+        mode = torch.where(is_f, MODE_GLOSSY | MODE_REFLECT, mode)
     if NULL in kinds:
         is_n = sp.kind == NULL
         wo = torch.where(is_n[..., None], wi, wo)
@@ -566,7 +662,6 @@ def bsdf_sample(sp: ShadingPoint, wi, r1, r2, r_mode, kinds=ALL_KINDS):
 def bsdf_eval_pdf(sp: ShadingPoint, wi, wo, kinds=ALL_KINDS):
     """f and pdf of a connection direction (NEE / MIS); specular lobes
     return 0."""
-    _check_kinds(kinds)
     f = torch.zeros_like(sp.rd)
     pdf = torch.zeros_like(sp.rd)
     if DIFFUSE in kinds:
@@ -588,4 +683,9 @@ def bsdf_eval_pdf(sp: ShadingPoint, wi, wo, kinds=ALL_KINDS):
         f_s, p_s = diffdiel_eval_pdf(sp, wi, wo)
         f = torch.where(is_s, f_s, f)
         pdf = torch.where(is_s, p_s, pdf)
+    if HAIR in kinds:
+        is_f = (sp.kind == HAIR)[..., None]
+        f_f, p_f = hair_eval_pdf(sp, wi, wo)
+        f = torch.where(is_f, f_f, f)
+        pdf = torch.where(is_f, p_f, pdf)
     return f, pdf

@@ -2,8 +2,11 @@
 
 Given a Hit wavefront: gather the primitive data, compute geometric and
 shading normals and texture coordinates, fetch the material row and
-evaluate all spectral slots at the path wavelengths.  Image textures and
-line prims raise NotImplementedError.
+evaluate all spectral slots at the path wavelengths.  Triangles, spheres
+and lines (truncated cones, whose axis becomes the HAIR fibre tangent) are
+shaded; materials with an image texture fetch the nearest texel of the
+scene's spectral-coefficient atlas.  Moving prims are shaded from their
+shutter-open data, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +57,24 @@ def _sphere_geo(geom, local, x):
     return n, n, torch.stack([su, sv], dim=-1)
 
 
+def _line_geo(geom, local, x, y_frac):
+    """Normal (tilted to the cone surface), st = (axial fraction, 0) and
+    the unit axis of line hits."""
+    v0 = geom.line_v0[local]
+    v1 = geom.line_v1[local]
+    r0 = geom.line_r0[local]
+    r1 = geom.line_r1[local]
+    axis = v1 - v0
+    length = torch.sqrt(torch.clamp(torch.sum(axis * axis, dim=-1),
+                                    min=1e-20))
+    d = axis / length[..., None]
+    o = x - v0
+    ya = torch.sum(o * d, dim=-1)
+    radial = normalize(o - ya[..., None] * d)
+    n = normalize(radial - d * ((r1 - r0) / length)[..., None])
+    return n, n, torch.stack([y_frac, torch.zeros_like(y_frac)], dim=-1), d
+
+
 def checker_albedo(spectra, st, lam):
     """IT8 chart reflectance from texture coords at wavelengths lam:
     14x10 patches with a 10% flat-grey border grid."""
@@ -79,14 +100,11 @@ def prepare(scene, hit, x, wi, lam) -> ShadingPoint:
     x: hit positions [N,3]; wi: propagation direction into the vertex;
     lam: [N, MF] wavelengths.  Invalid hits get absorbing defaults."""
     geom = scene.geom
-    if geom.n_lines:
-        raise NotImplementedError('line prims are not ported yet')
-    if scene.has_textures:
-        raise NotImplementedError('image textures are not ported yet')
     prim = torch.clamp(hit.prim, min=0)
     n_t = geom.n_tris
     n_s = geom.n_spheres
     is_sph = (prim >= n_t) & (prim < n_t + n_s)
+    is_line = prim >= n_t + n_s
 
     gn, n, st, mat = _tri_geo(geom, hit.slot, hit.u, hit.v)
     if n_s:
@@ -97,6 +115,14 @@ def prepare(scene, hit, x, wi, lam) -> ShadingPoint:
         st = torch.where(is_sph[..., None], st_s, st)
         mat = torch.where(is_sph, geom.sph_shader[local], mat)
     tangent = build_onb(n)[0]   # fiber frame fallback for non-line prims
+    if geom.n_lines:
+        local = torch.where(is_line, prim - n_t - n_s, 0)
+        gn_l, n_l, st_l, tan_l = _line_geo(geom, local, x, hit.u)
+        gn = torch.where(is_line[..., None], gn_l, gn)
+        n = torch.where(is_line[..., None], n_l, n)
+        st = torch.where(is_line[..., None], st_l, st)
+        tangent = torch.where(is_line[..., None], tan_l, tangent)
+        mat = torch.where(is_line, geom.line_shader[local], mat)
 
     # hit from behind the geometric normal (shader.c:500)
     inside = torch.sum(wi * gn, dim=-1) > 0.0
@@ -114,6 +140,28 @@ def prepare(scene, hit, x, wi, lam) -> ShadingPoint:
     em = m.e_mul[mat, None] * rgb2spec.eval_coeff(m.e_coeff[mat][..., None, :],
                                                   lam)
     rough = m.roughness[mat]
+
+    if scene.has_textures:
+        # nearest texel of the spectral-coefficient atlas at the st coords,
+        # evaluated at the path wavelengths
+        ti = m.tex_idx[mat]
+        has_t = ti >= 0
+        tis = torch.clamp(ti, min=0)
+        dims = scene.tex_dims[tis]                    # [N, 2] (h, w)
+        texel_of = lambda s, size: torch.minimum(
+            torch.clamp(torch.remainder(s, 1.0) * size, min=0.0),
+            (size - 1).to(s.dtype)).to(torch.int64)
+        tx = texel_of(st[..., 0], dims[..., 1])
+        ty = texel_of(st[..., 1], dims[..., 0])
+        texel = scene.tex_atlas[tis, ty, tx]          # [N, 4] coeffs + mul
+        val = (m.tex_mul[mat] * texel[..., 3])[..., None] * \
+            rgb2spec.eval_coeff(texel[..., None, :3], lam)
+        slot = m.tex_slot[mat]
+        rd = torch.where((has_t & (slot == 0))[..., None],
+                         torch.clamp(val, 0.0, 1.0), rd)
+        rg = torch.where((has_t & (slot == 1))[..., None],
+                         torch.clamp(val, 0.0, 1.0), rg)
+        em = torch.where((has_t & (slot == 2))[..., None], val, em)
 
     # dielectric spectral IOR (Cauchy from Abbe); n1/n2 along propagation
     eta = _eta_from_abbe_batched(m.ior_nd[mat], m.ior_abbe[mat], lam)

@@ -152,6 +152,22 @@ def build_bvh(prim_min: np.ndarray, prim_max: np.ndarray) -> FlatBVH:
                    n_prims=n)
 
 
+def flat_from_nodes(nodes: np.ndarray, leaf_prims: np.ndarray) -> FlatBVH:
+    """The FlatBVH behind uploaded arrays: ``nodes`` [N, 8] f32 (min3, max3,
+    skip and first as int32 bits) and ``leaf_prims``.  The right child of
+    an inner node is where its left child (the next node) skips to."""
+    nodes = np.ascontiguousarray(nodes, np.float32)
+    skip = nodes[:, 6].copy().view(np.int32)
+    first = nodes[:, 7].copy().view(np.int32)
+    right = np.full(len(nodes), -1, np.int32)
+    inner = np.nonzero(first < 0)[0]
+    right[inner] = skip[inner + 1]
+    prims = np.asarray(leaf_prims).astype(np.int32)
+    return FlatBVH(node_min=nodes[:, 0:3].copy(), node_max=nodes[:, 3:6].copy(),
+                   node_skip=skip, node_first=first, node_right=right,
+                   leaf_prims=prims, n_prims=int((prims >= 0).sum()))
+
+
 def collapse8(b: FlatBVH):
     """Collapse the binary BVH into the 8-wide tree of the traversal kernel.
 

@@ -1,14 +1,21 @@
 """Wavefront ray intersection on the device (corona13_tpu/ops/trace.py).
 
-Triangles go through the BVH8 traversal kernel (``trace_cuda``: CUDA on
-the card, its plain torch version on the CPU).  Spheres and lines up to
-``BRUTE_FORCE_MAX`` prims take the dense all-candidates test.  Global prim
-ids: [0, T) triangles, [T, T+S) spheres, [T+S, T+S+L) lines.
+Every prim kind goes through ``trace_cuda``: CUDA kernels on the card,
+their plain torch versions (``trace_plain``) on the CPU.  Static triangles
+take the BVH8 traversal kernel that replaces the TPU's; what the JAX
+package serves with XLA's lockstep ``_traverse`` takes further forms of
+the same kernel: triangles lerped at the ray ``time`` on a moving scene,
+sphere and line BVHs above ``BRUTE_FORCE_MAX`` prims, the dense
+all-candidates test of a shorter sphere or line list, and the skip-link
+walk of a tree too deep for the kernel's stack.  One ``intersect`` or
+``occluded`` call launches at most one kernel per non-empty prim kind,
+triangles, then spheres, then lines, each starting from the best hit so
+far, and no torch pass between them.  Global prim ids: [0, T) triangles,
+[T, T+S) spheres, [T+S, T+S+L) lines.
 
-Not ported yet (they raise NotImplementedError): the skip-link traversal
-that serves sphere and line BVHs above ``BRUTE_FORCE_MAX`` prims and
-trees too deep for the kernel's stack, lines in general, and the per-ray
-time lerp of motion-blurred triangles.
+As in the JAX package, sphere centres are lerped in time only in the dense
+list (more than ``BRUTE_FORCE_MAX`` spheres are static in the leaf test),
+and the dense list consults no bounds.
 """
 
 from __future__ import annotations
@@ -20,10 +27,13 @@ import torch
 
 from . import bvh as bvh_mod
 from . import trace_cuda
+from .trace_plain import (_closest_select, ray_cone_intersect,  # noqa: F401
+                          ray_sphere_intersect, ray_tri_intersect_packed)
 
 INVALID_PRIM = -1
 MAX_DIST = 3.4e38
-BRUTE_FORCE_MAX = 64
+BRUTE_FORCE_MAX = trace_cuda.DENSE_MAX   # longest list the dense form takes
+_KIND_OF_WIDTH = {9: 'tri', 4: 'sphere', 8: 'line'}
 
 
 @dataclasses.dataclass
@@ -32,16 +42,18 @@ class DeviceBVH:
     leaf_prims: torch.Tensor  # [slots] int64 prim ids, padded with -1
     leaf_data: torch.Tensor   # [slots, D] packed per-prim intersection data
     leaf_shade: torch.Tensor  # [slots, 17] vn(9), uv(6), shader, quad_half
-    # wide (BVH8) layout for the traversal kernel (triangles only; None
-    # when the tree is too deep for the kernel's stack)
+    # wide (BVH8) layout for the traversal kernel (None when the tree is
+    # empty or too deep for the kernel's stack); leaf_packed: triangles only
     wbounds: torch.Tensor | None = None      # [Wn, 8, 8] f32
     wlinks: torch.Tensor | None = None       # [Wn*8] i32
     leaf_packed: torch.Tensor | None = None  # [n_leaves, 8, 16] f32
     leaf_data_t1: torch.Tensor | None = None  # [slots, D] shutter close
-    # the CUDA kernel's own repack of the wide layout
-    # (trace_cuda.pack_kernel_layout) and the stack entries a thread needs
+    # the CUDA kernel's own records (trace_cuda.pack_nodes, pack_leaf_rows)
+    # and the stack entries a thread needs; kleaves also serve the deep-tree
+    # walk, which reads ``nodes``
     knodes: torch.Tensor | None = None       # [Wn, 8, 8] f32, link in [.., 7]
-    kleaves: torch.Tensor | None = None      # [n_leaves, 8, 12] f32
+    kleaves: torch.Tensor | None = None      # [n_leaves, 8, ROW] f32
+    kleaves_t1: torch.Tensor | None = None   # [n_leaves, 8, ROW] shutter close
     stack_depth: int = 0
 
     @classmethod
@@ -56,45 +68,43 @@ class DeviceBVH:
         if leaf_shade is None:
             leaf_shade = np.zeros((len(b.leaf_prims), 17), np.float32)
         dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-        wbounds = wlinks = leaf_packed = None
-        kernel = {}
-        if leaf_data.shape[-1] == 9 and len(b.leaf_prims):
+        kind = _KIND_OF_WIDTH[leaf_data.shape[-1]]
+        fields = {}
+        if len(b.leaf_prims) and (kind == 'tri' or b.n_prims):
+            fields['kleaves'] = dev(trace_cuda.pack_leaf_rows(
+                kind, leaf_data, b.leaf_prims))
+            if leaf_data_t1 is not None:
+                fields['kleaves_t1'] = dev(trace_cuda.pack_leaf_rows(
+                    kind, leaf_data_t1, b.leaf_prims))
             wb, wl, wdepth = bvh_mod.collapse8(b)
-            n_leaves = len(b.leaf_prims) // bvh_mod.LEAF_SIZE
-            lp = np.zeros((n_leaves, bvh_mod.LEAF_SIZE, 16), np.float32)
-            lp[:, :, 0:9] = leaf_data.reshape(n_leaves, bvh_mod.LEAF_SIZE, 9)
-            lp[:, :, 9] = b.leaf_prims.reshape(
-                n_leaves, bvh_mod.LEAF_SIZE).astype(np.float32)
-            # stack guard: each inner pop nets at most +7 entries, so the
-            # worst case is wdepth*7 + 8; a deeper tree gets no wide layout
-            # and intersect/occluded refuse it
+            # stack guard: each inner pop nets at most +7, so the worst
+            # case is wdepth*7 + 8; a deeper tree gets no wide layout and
+            # is walked by its skip links
             if trace_cuda.stack_depth(wdepth) is not None:
-                wbounds = dev(wb)
-                wlinks = dev(wl.astype(np.int32))
-                leaf_packed = dev(lp)
-                kernel = kernel_layout(wb, wl, lp, wdepth, device)
+                fields.update(
+                    wbounds=dev(wb), wlinks=dev(wl.astype(np.int32)),
+                    knodes=dev(trace_cuda.pack_nodes(wb, wl)),
+                    stack_depth=trace_cuda.stack_depth(wdepth))
+                if kind == 'tri':
+                    n_leaves = len(b.leaf_prims) // bvh_mod.LEAF_SIZE
+                    lp = np.zeros((n_leaves, bvh_mod.LEAF_SIZE, 16),
+                                  np.float32)
+                    lp[:, :, 0:9] = leaf_data.reshape(
+                        n_leaves, bvh_mod.LEAF_SIZE, 9)
+                    lp[:, :, 9] = b.leaf_prims.reshape(
+                        n_leaves, bvh_mod.LEAF_SIZE).astype(np.float32)
+                    fields['leaf_packed'] = dev(lp)
         return cls(nodes=dev(packed),
                    leaf_prims=dev(b.leaf_prims.astype(np.int64)),
                    leaf_data=dev(leaf_data.astype(np.float32)),
                    leaf_shade=dev(leaf_shade.astype(np.float32)),
-                   wbounds=wbounds, wlinks=wlinks, leaf_packed=leaf_packed,
                    leaf_data_t1=(dev(leaf_data_t1.astype(np.float32))
                                  if leaf_data_t1 is not None else None),
-                   **kernel)
+                   **fields)
 
     @property
     def n_nodes(self):
         return self.nodes.shape[0]
-
-
-def kernel_layout(wbounds: np.ndarray, wlinks: np.ndarray,
-                  leaf_packed: np.ndarray, wdepth: int, device) -> dict:
-    """DeviceBVH's kernel fields (knodes, kleaves, stack_depth) from the
-    host's wide layout, uploaded to ``device``."""
-    kn, kl = trace_cuda.pack_kernel_layout(wbounds, wlinks, leaf_packed)
-    return dict(knodes=torch.as_tensor(kn, device=device),
-                kleaves=torch.as_tensor(kl, device=device),
-                stack_depth=trace_cuda.stack_depth(wdepth))
 
 
 @dataclasses.dataclass
@@ -249,142 +259,88 @@ class Hit:
         return self.prim >= 0
 
 
-def ray_tri_intersect_packed(rows, org, direction):
-    """Moeller-Trumbore over packed candidate rows [N, K, 9] = (v0, e1, e2).
-    Returns (t, u, v, hit_mask) each [N, K]; u weights vertex 2, v vertex 1."""
-    from ..utils.math import cross
-    v0 = rows[..., 0:3]
-    e1 = rows[..., 3:6]
-    e2 = rows[..., 6:9]
-    d = direction[..., None, :]
-    o = org[..., None, :]
-    pvec = cross(d, e2)
-    det = torch.sum(e1 * pvec, dim=-1)
-    inv_det = torch.where(torch.abs(det) < 1e-20, 0.0, 1.0 / det)
-    tvec = o - v0
-    bv = torch.sum(tvec * pvec, dim=-1) * inv_det
-    qvec = cross(tvec, e1)
-    bu = torch.sum(d * qvec, dim=-1) * inv_det
-    t = torch.sum(e2 * qvec, dim=-1) * inv_det
-    ok = (bv >= 0.0) & (bv <= 1.0) & (bu >= 0.0) & (bu + bv <= 1.0) & (t > 0.0)
-    return t, bu, bv, ok
-
-
-def ray_sphere_intersect(c, r, org, direction):
-    """[N, K] candidates; returns the nearest positive root and its mask."""
-    o = org[..., None, :] - c
-    b = torch.sum(o * direction[..., None, :], dim=-1)
-    cc = torch.sum(o * o, dim=-1) - r * r
-    disc = b * b - cc
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    t0 = -b - sq
-    t1 = -b + sq
-    t = torch.where(t0 > 0.0, t0, t1)
-    ok = (disc > 0.0) & (t > 0.0)
-    return t, ok
-
-
-def _closest_select(tt, ok, t, prim, u, v, cand):
-    """Reduce [N, K] candidate hits into the per-lane best (u, v and slot
-    of the previous winner stay, as in the JAX package)."""
-    tt = torch.where(ok, tt, MAX_DIST)
-    best = torch.argmin(tt, dim=-1, keepdim=True)
-    tbest = torch.gather(tt, -1, best)[..., 0]
-    win = tbest < t
-    return (torch.where(win, tbest, t),
-            torch.where(win, torch.gather(cand, -1, best)[..., 0], prim),
-            u, v)
-
-
-def _checked_tri_bvh(geom: DeviceGeometry, time):
-    if geom.n_lines:
-        raise NotImplementedError('line prims are not ported yet')
-    if geom.has_motion and time is not None:
-        raise NotImplementedError('motion-blurred leaf tests are not ported yet')
-    if geom.n_spheres > BRUTE_FORCE_MAX:
-        raise NotImplementedError(
-            f'sphere BVH traversal (> {BRUTE_FORCE_MAX} spheres) is not '
-            'ported yet')
-    b = geom.tri_bvh
-    if geom.n_tris and b.wbounds is None:
-        raise NotImplementedError(
-            'triangle BVH too deep for the kernel stack; the skip-link '
-            'traversal is not ported yet')
-    return b
-
-
 def _segment_ends(t_max, n, dev) -> torch.Tensor:
     """t_max (a number or a tensor) as a detached contiguous [n] f32."""
     t = torch.as_tensor(t_max, device=dev).detach()
     return torch.broadcast_to(t, (n,)).to(torch.float32).contiguous()
 
 
+def _kinds(geom: DeviceGeometry, moving: bool):
+    """The non-empty prim kinds of a call in the order they are traced:
+    (target, kind, prim_offset) as ``trace_cuda.closest_hit`` takes them;
+    a short sphere or line list is its own dense target."""
+    out = []
+    if geom.n_tris:
+        lerped = moving and geom.tri_bvh.leaf_data_t1 is not None
+        out.append((geom.tri_bvh, 'moving' if lerped else 'tri', 0))
+    if geom.n_spheres:
+        dense = (geom.sph_c, geom.sph_r, geom.sph_c_t1 if moving else None)
+        out.append((dense if geom.n_spheres <= BRUTE_FORCE_MAX
+                    else geom.sph_bvh, 'sphere', geom.n_tris))
+    if geom.n_lines:
+        dense = (geom.line_v0, geom.line_v1, geom.line_r0, geom.line_r1)
+        out.append((dense if geom.n_lines <= BRUTE_FORCE_MAX
+                    else geom.line_bvh, 'line', geom.n_tris + geom.n_spheres))
+    return out
+
+
+def _contiguous(x):
+    return None if x is None else x.detach().contiguous()
+
+
 def intersect(geom: DeviceGeometry, org, direction, ignore_prim=None,
               t_max=None, time=None) -> Hit:
     """Closest hit for a wavefront of rays.  org/dir: [N, 3].
 
+    ``time`` [N] in [0, 1]: shutter-relative ray times on a moving scene
+    (``geom.has_motion``): the leaf tests lerp triangle vertices and the
+    dense list sphere centres per ray; ignored on a static scene.
     ``ignore_prim`` excludes one prim per ray (self-intersection).  The
     traversal is detached: gradients flow through the shading math around
     the hits, not through hit distances or ids."""
-    b = _checked_tri_bvh(geom, time)
-    org = org.detach()
-    direction = direction.detach()
+    org = org.detach().contiguous()
+    direction = direction.detach().contiguous()
     n = org.shape[0]
     dev = org.device
     t_max = MAX_DIST if t_max is None else _segment_ends(t_max, n, dev)
+    ig = _contiguous(ignore_prim)
+    moving = geom.has_motion and time is not None
+    tm = _contiguous(time) if moving else None
 
-    if geom.n_tris:
-        # the kernel allocates and writes all five outputs, int64 ids
-        t, prim, u, v, hslot = trace_cuda.traverse_tris(
-            b, org.contiguous(), direction.contiguous(), t_max,
-            None if ignore_prim is None else ignore_prim.contiguous())
-    else:
+    hit = None
+    for target, kind, offset in _kinds(geom, moving):
+        # the first launch allocates and writes all five outputs, the
+        # later ones update them
+        hit = trace_cuda.closest_hit(target, kind, org, direction, t_max, ig,
+                                     time=tm, prim_offset=offset, carry=hit)
+    if hit is None:
         t = torch.broadcast_to(torch.as_tensor(
             t_max, dtype=torch.float32, device=dev), (n,))
-        prim = torch.full((n,), INVALID_PRIM, dtype=torch.int64, device=dev)
-        u = torch.zeros(n, dtype=torch.float32, device=dev)
-        v = torch.zeros(n, dtype=torch.float32, device=dev)
-        hslot = prim
-
-    if geom.n_spheres:
-        gid = torch.arange(geom.n_spheres, device=dev) + geom.n_tris
-        tt, ok = ray_sphere_intersect(geom.sph_c[None], geom.sph_r[None],
-                                      org, direction)
-        ok = ok & (tt <= t[..., None])
-        if ignore_prim is not None:
-            ok = ok & (gid[None] != ignore_prim[..., None])
-        t, prim, u, v = _closest_select(tt, ok, t, prim, u, v,
-                                        gid.expand(tt.shape))
-    return Hit(t=t, prim=prim, u=u, v=v, slot=hslot)
+        none = torch.full((n,), INVALID_PRIM, dtype=torch.int64, device=dev)
+        zero = torch.zeros(n, dtype=torch.float32, device=dev)
+        hit = (t, none, zero, zero, none)
+    return Hit(*hit)
 
 
 def occluded(geom: DeviceGeometry, org, direction, t_max, ignore_prim=None,
              ignore_prim2=None, time=None) -> torch.Tensor:
     """Shadow-ray test: True where the segment [0, t_max) is blocked.
-    Both endpoints' prims can be excluded; detached like intersect."""
-    b = _checked_tri_bvh(geom, time)
-    org = org.detach()
-    direction = direction.detach()
+    Both endpoints' prims can be excluded; ``time`` as in ``intersect``;
+    detached like it.  A lane that one prim kind blocks does no work in
+    the next."""
+    org = org.detach().contiguous()
+    direction = direction.detach().contiguous()
     n = org.shape[0]
-    dev = org.device
-    t = _segment_ends(t_max, n, dev)
+    t = _segment_ends(t_max, n, org.device)
+    ig, ig2 = _contiguous(ignore_prim), _contiguous(ignore_prim2)
+    moving = geom.has_motion and time is not None
+    tm = _contiguous(time) if moving else None
 
-    if geom.n_tris:
-        # the kernel allocates and writes the answer
-        blocked = trace_cuda.occluded_tris(
-            b, org.contiguous(), direction.contiguous(), t,
-            None if ignore_prim is None else ignore_prim.contiguous(),
-            None if ignore_prim2 is None else ignore_prim2.contiguous())
-    else:
-        blocked = torch.zeros(n, dtype=torch.bool, device=dev)
-
-    if geom.n_spheres:
-        gid = torch.arange(geom.n_spheres, device=dev) + geom.n_tris
-        tt, ok = ray_sphere_intersect(geom.sph_c[None], geom.sph_r[None],
-                                      org, direction)
-        ok = ok & (tt < t[..., None])
-        for ig in (ignore_prim, ignore_prim2):
-            if ig is not None:
-                ok = ok & (gid[None] != ig[..., None])
-        blocked = blocked | ok.any(dim=-1)
+    blocked = None
+    for target, kind, offset in _kinds(geom, moving):
+        blocked = trace_cuda.any_hit(target, kind, org, direction, t, ig, ig2,
+                                     time=tm, prim_offset=offset,
+                                     carry=blocked)
+    if blocked is None:
+        blocked = torch.zeros(n, dtype=torch.bool, device=org.device)
     return blocked

@@ -11,8 +11,9 @@ primary-sample replay), with or without participating media
 (``cfg.media``: free flight through homogeneous interiors and the
 heterogeneous grid, its blackbody emission, HG phase NEE and extension,
 the interior priority stack; ``cfg.equiangular``: equiangular volume
-NEE).  ``cfg.compact``, envmap and daylight skies and image textures
-raise NotImplementedError.
+NEE).  Moving scenes hand every trace call the path's shutter time;
+image textures are fetched in ``shading.prepare``.  ``cfg.compact`` and
+envmap and daylight skies raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,8 +75,6 @@ def _check(scene, cfg: PTConfig):
         raise NotImplementedError('cfg.compact is not ported yet')
     if scene.has_envmap or scene.has_daylight:
         raise NotImplementedError('envmap and daylight skies are not ported yet')
-    if scene.has_textures:
-        raise NotImplementedError('image textures are not ported yet')
 
 
 def sample_paths(scene, cfg: PTConfig, sample_idx, pixel_idx):

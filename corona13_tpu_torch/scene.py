@@ -7,10 +7,10 @@ pre-shader chains collapse into slot assignments) and the BSDF host
 becomes an enum dispatched on the device.  Spectral albedos are fitted to
 sigmoid-polynomial coefficients at load.
 
-``load_scene`` reads texture lines, ``daylight`` skies and the
-heterogeneous grid into the same flags and tables as the JAX package;
-textures and daylight raise NotImplementedError when rendered (the texture
-atlas itself is not built).
+``load_scene`` reads texture lines (into a spectral-coefficient atlas),
+``daylight`` skies and the heterogeneous grid into the same flags and
+tables as the JAX package; daylight raises NotImplementedError when
+rendered.
 """
 
 from __future__ import annotations
@@ -22,8 +22,10 @@ import numpy as np
 import torch
 
 from .io import cam as cam_io
+from .io import fb as fb_io
 from .io import geo as geo_io
 from .io import nra2 as nra2_io
+from .io import pfm as pfm_io
 from .models.bsdf import DIELECTRIC, DIFFDIEL, DIFFUSE, HAIR, METAL, NULL  # noqa: F401
 from .models.medium_hete import VolGrid
 from .ops.trace import DeviceGeometry, make_device_geometry
@@ -118,6 +120,10 @@ class Scene:
     exterior_med: int = -1
     has_textures: bool = False
     vol: VolGrid | None = None  # heterogeneous medium grid (medium_hete)
+    # image textures as spectral coefficients: [n_tex, H, W, 4] (c0..c2,
+    # mul), padded to the largest; tex_dims [n_tex, 2] int64 (h, w)
+    tex_atlas: torch.Tensor | None = None
+    tex_dims: torch.Tensor | None = None
 
     @property
     def device(self):
@@ -281,6 +287,18 @@ def _fit(rgbs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return coeff.astype(np.float32), mul.astype(np.float32)
 
 
+def _texture_coeffs(path: str) -> np.ndarray:
+    """One texture file as [H, W, 4] spectral coefficients and multiplier."""
+    if path.endswith('.fb'):
+        c3 = fb_io.Framebuffer.load(path).data.astype(np.float32)
+        return np.concatenate(
+            [c3[..., :3], np.ones(c3.shape[:2] + (1,), np.float32)], axis=-1)
+    rgb = pfm_io.read_pfm(path).astype(np.float32)
+    c, mul = _fit(rgb.reshape(-1, 3))
+    return np.concatenate([c, mul[:, None]],
+                          axis=-1).reshape(rgb.shape[:2] + (4,))
+
+
 def fit_film(scene: Scene, width: int, height: int) -> Scene:
     """Refit the camera film back to the render aspect: the 35mm back
     scaled by 1/crop_factor, the other side following the pixel aspect
@@ -439,8 +457,8 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
     t = lambda a, dtype=None: _tensor(a, device, dtype)
     f0 = lambda x: torch.tensor(float(x), dtype=torch.float32, device=device)
 
-    # textures: the same material-to-texture index as the JAX package's
-    # atlas (the atlas itself is not ported: shading refuses textures)
+    # texture atlas: .pfm (RGB, fitted to coefficients here) or .fb
+    # (coefficient framebuffers already fitted) in one padded array
     tex_files = []
     tex_idx = np.full(len(mats), -1, i32)
     for mi, m in enumerate(mats):
@@ -455,6 +473,17 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
         if tp not in tex_files:
             tex_files.append(tp)
         tex_idx[mi] = tex_files.index(tp)
+    tex_atlas = tex_dims = None
+    if tex_files:
+        imgs = [_texture_coeffs(tp) for tp in tex_files]
+        atlas = np.zeros((len(imgs), max(i.shape[0] for i in imgs),
+                          max(i.shape[1] for i in imgs), 4), f32)
+        dims = np.zeros((len(imgs), 2), i32)
+        for k, img in enumerate(imgs):
+            atlas[k, :img.shape[0], :img.shape[1]] = img
+            dims[k] = img.shape[:2]
+        tex_atlas = t(atlas)
+        tex_dims = t(dims, np.int64)
 
     materials = material_table(mats, tex_idx, device=device)
     lights = light_table(tri_v, tri_sh, len(prim_shader), materials)
@@ -514,7 +543,8 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
         kinds_used=tuple(sorted({m.kind for m in mats})),
         has_daylight=sky_kind == SKY_DAYLIGHT, has_hete=vol_grid is not None,
         has_vol_emission=has_vol_emission, exterior_med=_exterior_med(desc),
-        has_textures=bool(tex_files), vol=vol_grid)
+        has_textures=bool(tex_files), vol=vol_grid,
+        tex_atlas=tex_atlas, tex_dims=tex_dims)
     return scene, cd
 
 

@@ -28,7 +28,8 @@ def _quad(p0, p1, p2, p3):
 
 def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
                    sky_rgb=(0.0, 0.0, 0.0), sph_c=None, sph_r=None,
-                   sph_sh=None, device='cuda') -> scene_mod.Scene:
+                   sph_sh=None, line_vtx=None, line_radii=None,
+                   line_sh=None, device='cuda') -> scene_mod.Scene:
     """Build a Scene on ``device`` (the card unless ``device='cpu'`` is
     passed) from triangle soup + resolved materials.
 
@@ -48,10 +49,17 @@ def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
              else np.asarray(sph_r, np.float32))
     sph_sh = (np.zeros((0,), np.int32) if sph_sh is None
               else np.asarray(sph_sh, np.int32))
+    line_vtx = (np.zeros((0, 2, 3), np.float32) if line_vtx is None
+                else np.asarray(line_vtx, np.float32))
+    line_radii = (np.zeros((0, 2), np.float32) if line_radii is None
+                  else np.asarray(line_radii, np.float32))
+    line_sh = (np.zeros((0,), np.int32) if line_sh is None
+               else np.asarray(line_sh, np.int32))
     geom = make_device_geometry(tri_v=tri_v, tri_vn=tri_n, tri_shader=tri_sh,
                                 sph_c=sph_c, sph_r=sph_r, sph_shader=sph_sh,
-                                device=device)
-    prim_shader = np.concatenate([tri_sh, sph_sh])
+                                line_vtx=line_vtx, line_radii=line_radii,
+                                line_shader=line_sh, device=device)
+    prim_shader = np.concatenate([tri_sh, sph_sh, line_sh])
 
     materials = scene_mod.material_table(mats, np.full(len(mats), -1),
                                          device=device)

@@ -5,7 +5,8 @@
 Times the two calls the sampler makes, wrapper and kernel together, on
 chip_smoke.py's rays (589,824 a call) over three triangles-only BVHs: the
 cornell box without its sphere, the 8198-triangle plane scene and a
-2^17-triangle random soup.  intersect gets the bounce rays with a tensor
+2^17-triangle random soup; and on the cornell box with its sphere, whose
+call adds the sphere test to the triangle walk.  intersect gets the bounce rays with a tensor
 t_max (3.4e38 on every lane, as the sampler passes it), occluded the
 shadow segments.  The timer is chip_smoke.py's: CUDA events behind a spin
 kernel that outlasts the host's enqueueing, mean of 20 calls over two
@@ -49,8 +50,12 @@ def main():
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), cs.W, cs.H)
     soup = trace_mod.make_device_geometry(tri_v=cs._soup(1 << 17, 7),
                                           device=dev)
+    ball = scene_mod.fit_film(testing.cornell_scene(sphere='diffuse',
+                                                    device=dev), cs.W, cs.H)
     sets = {'cornell': (cornell.geom, [cs._ray_sets(cornell.geom, cornell, dev, s)
                                        for s in (1, 2)]),
+            'cornell+sphere': (ball.geom, [cs._ray_sets(ball.geom, ball, dev, s)
+                                           for s in (1, 2)]),
             'plane': (plane.geom, [cs._ray_sets(plane.geom, plane, dev, s)
                                    for s in (3, 4)]),
             'soup': (soup, [cs._soup_sets(dev, s) for s in (5, 6)])}

@@ -193,3 +193,205 @@ def test_kernel_counters_match_plain(cuda, any_hit):
     assert (k[1] == p[1]).mean() >= 0.999
     plain5 = trace_cuda.traverse_tris(b, org, d, t0, ig, any_hit=any_hit)
     np.testing.assert_array_equal(plain5[1].cpu().numpy(), k[1])
+
+
+# --- the forms that replace XLA's skip-link _traverse ------------------------
+
+def _mixed_geometry(dev, n, seed):
+    """n moving triangles, n spheres and n lines in one [-10, 10]^3 box."""
+    g = np.random.default_rng(seed)
+    tri = _soup(n, seed)
+    a = g.uniform(-10, 10, (n, 3)).astype(np.float32)
+    return ttrace.make_device_geometry(
+        tri_v=tri,
+        tri_v_t1=tri + g.uniform(-1, 1, (n, 1, 3)).astype(np.float32),
+        sph_c=g.uniform(-10, 10, (n, 3)).astype(np.float32),
+        sph_r=g.uniform(0.05, 0.4, n).astype(np.float32),
+        line_vtx=np.stack([a, a + g.uniform(-2, 2, (n, 3)).astype(np.float32)],
+                          axis=1),
+        line_radii=g.uniform(0.02, 0.2, (n, 2)).astype(np.float32),
+        device=dev)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _form_vs_plain(target, kind, key, dev, offset, any_hit, n=40000):
+    """One form against its plain version on the card: closest-hit (or
+    any-hit) with dead lanes, bounded segments, ignore ids taken from a
+    first pass, ray times and a carried-in running hit; prim (blocked)
+    equal on >= 99.9% of rays and t within rtol 1e-6 where prim agrees
+    (both sides round the same expressions, -fmad=false; a difference is
+    an exact-t tie between leaves visited in another order); two launches
+    bit-identical; only this form's launch count moves."""
+    org, d = _rays(n, 17, dev)
+    g = torch.Generator().manual_seed(3)
+    time = torch.rand(n, generator=g).to(dev)
+    t0 = torch.full((n,), 3.0e38, device=dev)
+    t0[::5] = 8.0
+    t0[:64] = 0.0
+    first = trace_cuda.closest_hit_plain(target, kind, org, d, t0, time=time,
+                                         prim_offset=offset)
+    assert (first[1] >= 0).float().mean() > 0.05
+    ig = torch.where(torch.arange(n, device=dev) % 3 == 0, first[1], -1)
+    kw = dict(time=time, prim_offset=offset)
+    before = dict(trace_cuda.launches)
+    if any_hit:
+        carry = (torch.rand(n, generator=g) < 0.2).to(dev)
+        runs = [trace_cuda.any_hit(target, kind, org, d, t0, ig, ig,
+                                   carry=c, **kw)
+                for c in (None, None, carry.clone(), carry.clone())]
+        plain = [trace_cuda.any_hit_plain(target, kind, org, d, t0, ig, ig,
+                                          carry=c, **kw)
+                 for c in (None, carry)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[2], runs[3])
+        for k, p in zip(runs[::2], plain):
+            assert k.dtype == torch.bool and p.any()
+            assert (k == p).float().mean() >= 0.999
+        assert not runs[0][:64].any()       # dead lanes
+        assert (runs[2] | ~carry).all()     # a blocked lane stays blocked
+    else:
+        f32 = dict(dtype=torch.float32, device=dev)
+        carry = (torch.where(torch.rand(n, generator=g).to(dev) < 0.5,
+                             torch.rand(n, generator=g).to(dev) * 20.0, t0),
+                 torch.full((n,), 7, dtype=torch.int64, device=dev),
+                 torch.full((n,), 0.25, **f32), torch.full((n,), 0.5, **f32),
+                 torch.full((n,), 3, dtype=torch.int64, device=dev))
+        clone = lambda c: tuple(x.clone() for x in c)
+        runs = [trace_cuda.closest_hit(target, kind, org, d, t0, ig, carry=c,
+                                       **kw)
+                for c in (None, None, clone(carry), clone(carry))]
+        plain = [trace_cuda.closest_hit_plain(target, kind, org, d, t0, ig,
+                                              carry=c, **kw)
+                 for c in (None, carry)]
+        torch.cuda.synchronize()
+        for a, b in ((runs[0], runs[1]), (runs[2], runs[3])):
+            assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+        for k, p in zip(runs[::2], plain):
+            same = k[1] == p[1]
+            assert same.float().mean() >= 0.999
+            torch.testing.assert_close(k[0][same], p[0][same], rtol=1e-6,
+                                       atol=0)
+            for x, y in zip(k[2:], p[2:]):          # u, v, slot
+                assert (x[same] == y[same]).float().mean() >= 0.999
+        k = runs[0]
+        assert (k[1][:64] == -1).all() and (k[0][:64] == 0).all()
+        hit = k[1] >= 0
+        assert (k[1][hit] >= offset).all() and not (k[1] == ig)[hit].any()
+        # lanes the carried hit already wins keep all five of its values
+        kept = runs[2][0] == carry[0]
+        assert (runs[2][1][kept] == 7).all() and (runs[2][4][kept] == 3).all()
+    moved = {k for k in before if trace_cuda.launches[k] != before[k]}
+    assert moved == {key} and trace_cuda.launches[key] == before[key] + 4
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+@pytest.mark.parametrize('kind', ['tri', 'moving', 'sphere', 'line'])
+def test_wide_forms_match_plain(cuda, kind, any_hit):
+    """The wide walk with each leaf policy; the static triangles ('tri')
+    count as the TPU kernel's 'closest' / 'any'."""
+    geom = _mixed_geometry(cuda, 20000, 21)
+    target, offset = {'tri': (geom.tri_bvh, 0), 'moving': (geom.tri_bvh, 0),
+                      'sphere': (geom.sph_bvh, 20000),
+                      'line': (geom.line_bvh, 40000)}[kind]
+    assert target.knodes is not None
+    mode = 'any' if any_hit else 'closest'
+    _form_vs_plain(target, kind, mode if kind == 'tri' else f'{kind}_{mode}',
+                   cuda, offset, any_hit)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+@pytest.mark.parametrize('kind', ['tri', 'moving', 'sphere', 'line'])
+def test_deep_form_matches_plain(cuda, monkeypatch, kind, any_hit):
+    """A tree without a wide layout (the stack limit patched down to 8
+    entries at upload) is walked by its skip links."""
+    monkeypatch.setattr(trace_cuda, 'MAX_STACK', 8)
+    geom = _mixed_geometry(cuda, 5000, 22)
+    target, offset = {'tri': (geom.tri_bvh, 0), 'moving': (geom.tri_bvh, 0),
+                      'sphere': (geom.sph_bvh, 5000),
+                      'line': (geom.line_bvh, 10000)}[kind]
+    assert target.knodes is None and target.wbounds is None
+    _form_vs_plain(target, kind, f'deep_{"any" if any_hit else "closest"}',
+                   cuda, offset, any_hit)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+@pytest.mark.parametrize('kind', ['sphere', 'moving sphere', 'line'])
+def test_dense_forms_match_plain(cuda, kind, any_hit):
+    """The dense list of at most 64 prims: the geometry's own arrays, no
+    tree; sphere centres lerped at the ray time when c_t1 is given."""
+    g = np.random.default_rng(5)
+    T = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    c = g.uniform(-8, 8, (64, 3))
+    if kind == 'line':
+        target = (T(c), T(c + g.uniform(-3, 3, (64, 3))),
+                  T(g.uniform(0.2, 1, 64)), T(g.uniform(0.2, 1, 64)))
+    else:
+        target = (T(c), T(g.uniform(0.5, 2, 64)),
+                  T(c + g.uniform(-2, 2, (64, 3))) if 'moving' in kind
+                  else None)
+    kind = kind.split()[-1]
+    _form_vs_plain(target, kind,
+                   f'dense_{kind}_{"any" if any_hit else "closest"}', cuda,
+                   1000, any_hit)
+
+
+def test_forms_reject_bad_inputs(cuda):
+    import dataclasses
+    geom = _mixed_geometry(cuda, 200, 23)
+    org, d = _rays(64, 2, cuda)
+    time = torch.rand(64, device=cuda)
+    t0 = torch.full((64,), 1e30, device=cuda)
+    hit = trace_cuda.closest_hit(geom.sph_bvh, 'sphere', org, d, t0)
+    dense = (geom.sph_c[:64].contiguous(), geom.sph_r[:64].contiguous(), None)
+    with pytest.raises(ValueError):      # moving triangles without a time
+        trace_cuda.closest_hit(geom.tri_bvh, 'moving', org, d, t0)
+    with pytest.raises(TypeError):
+        trace_cuda.closest_hit(geom.tri_bvh, 'moving', org, d, t0,
+                               time=time.double())
+    with pytest.raises(ValueError):      # the rows of another kind
+        trace_cuda.closest_hit(geom.sph_bvh, 'line', org, d, t0)
+    with pytest.raises(ValueError):      # a BVH without the kernel's rows
+        trace_cuda.any_hit(dataclasses.replace(geom.line_bvh, kleaves=None),
+                           'line', org, d, t0)
+    with pytest.raises(ValueError):      # a list too long for the dense form
+        trace_cuda.closest_hit((geom.sph_c[:65].contiguous(),
+                                geom.sph_r[:65].contiguous(), None), 'sphere',
+                               org, d, t0)
+    with pytest.raises(ValueError):      # a running hit of another length
+        trace_cuda.closest_hit(dense, 'sphere', org, d, t0,
+                               carry=tuple(x[:32] for x in hit))
+    with pytest.raises(TypeError):       # blocked flags that are not bool
+        trace_cuda.any_hit(dense, 'sphere', org, d, t0,
+                           carry=torch.zeros(64, device=cuda))
+    with pytest.raises(ValueError):      # list arrays on another device
+        trace_cuda.any_hit((dense[0].cpu(), dense[1], None), 'sphere', org, d,
+                           t0)
+
+
+def test_intersect_mixed_scene_on_the_card(cuda):
+    """trace.intersect / occluded on triangles, spheres and lines at once:
+    the card's kernels against the CPU's plain versions of the same
+    geometry (prim and blocked equal on >= 99.9% of rays), one launch a
+    prim kind."""
+    geoms = [_mixed_geometry(dev, 3000, 24) for dev in (cuda, 'cpu')]
+    org, d = _rays(30000, 9, cuda)
+    time = torch.rand(30000, device=cuda)
+    t_max = torch.full((30000,), 12.0, device=cuda)
+    before = dict(trace_cuda.launches)
+    hk = ttrace.intersect(geoms[0], org, d, time=time)
+    bk = ttrace.occluded(geoms[0], org, d, t_max, time=time)
+    torch.cuda.synchronize()
+    moved = {k: trace_cuda.launches[k] - before[k] for k in before
+             if trace_cuda.launches[k] != before[k]}
+    assert moved == {f'{k}_{m}': 1 for k in ('moving', 'sphere', 'line')
+                     for m in ('closest', 'any')}
+    hp = ttrace.intersect(geoms[1], org.cpu(), d.cpu(), time=time.cpu())
+    bp = ttrace.occluded(geoms[1], org.cpu(), d.cpu(), t_max.cpu(),
+                         time=time.cpu())
+    assert (hk.prim.cpu() == hp.prim).float().mean() >= 0.999
+    assert (bk.cpu() == bp).float().mean() >= 0.999
+    for lo, hi in ((0, 3000), (3000, 6000), (6000, 9000)):   # every kind hit
+        assert ((hp.prim >= lo) & (hp.prim < hi)).any()

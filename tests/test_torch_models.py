@@ -11,6 +11,10 @@ at the lobe's peak (ulp differences grow by up to ~2/roughness^2) and
 1/|cos| blows up at grazing angles.  There >= 99% of the lanes hold
 rtol 1e-3 and every lane rtol 2e-2; the JAX suite's own battle test
 (tests/test_bsdf.py) bounds sample-vs-eval pdf agreement at 3%.
+
+HAIR lanes have a bar of their own, between the two (_close_hair): float32
+does not carry 1e-5 through erfinv and the gaussian cone on every lane, on
+either side, which test_hair_rounding_noise measures against float64.
 """
 
 import dataclasses
@@ -199,15 +203,152 @@ def test_bsdf_sample_and_eval(kind):
         _close_bsdf(j, t, rough)
 
 
+def _hair_points(seed, kinds=(jbsdf.HAIR,)):
+    """Shading points of the given kinds (lane i gets kinds[i % len]) with
+    random unit fibre tangents."""
+    jsp, tsp, wi = _shading_points(kinds[0], seed)
+    g = np.random.default_rng(seed + 100)
+    tan = g.normal(size=(N, 3)).astype(np.float32)
+    tan /= np.linalg.norm(tan, axis=-1, keepdims=True)
+    kind = np.asarray(kinds, np.int32)[np.arange(N) % len(kinds)]
+    jsp = jsp.replace(tangent=jnp.asarray(tan), kind=jnp.asarray(kind))
+    tsp = dataclasses.replace(tsp, tangent=torch.as_tensor(tan),
+                              kind=torch.as_tensor(kind).long())
+    return jsp, tsp, wi
+
+
+def _hair_err(j, t):
+    """|t - j| / (|j| + 1e-3) per lane, the largest over a lane's values."""
+    j, t = np.asarray(j, np.float64), np.asarray(t, np.float64)
+    return (np.abs(t - j) / (np.abs(j) + 1e-3)).reshape(len(j), -1).max(axis=-1)
+
+
+def _close_hair(j, t):
+    """The HAIR bar: |port - jax| / (|jax| + 1e-3) per lane is at most
+    1e-5 on >= 97.5% of the lanes, 1e-4 on >= 99.8% and 2e-3 on every lane.
+    Not 1e-5 on every lane: float32 does not carry it, on either side.
+    Held against the port evaluated in float64, hair_sample in the JAX
+    package's own float32 is above 1e-5 on 2.3% of the lanes for wo and
+    1.7% for pdf_proj, the port's float32 on 2.4% and 1.4%
+    (test_hair_rounding_noise measures and holds this), at every
+    roughness from 0.02 to 1.0: the noise enters through erfinv, through
+    co - ci over beta, through sqrt(1 - co^2) and through 1/|cos|, not
+    through 1/beta^2 alone.  A wrong lobe or a wrong normalisation moves a
+    lane by 1e-1 and more, so the bound on every lane catches it; the
+    worst lane measured is 1.1e-3 (co = -0.99993, where 1 - co^2
+    cancels)."""
+    err = _hair_err(j, t.numpy())
+    assert (err <= 1e-5).mean() >= 0.975
+    assert (err <= 1e-4).mean() >= 0.998
+    assert err.max() <= 2e-3
+
+
+def _double(sp):
+    """A torch ShadingPoint with its float fields in float64."""
+    return dataclasses.replace(sp, **{
+        f.name: getattr(sp, f.name).double()
+        for f in dataclasses.fields(sp)
+        if isinstance(getattr(sp, f.name), torch.Tensor)
+        and getattr(sp, f.name).is_floating_point()})
+
+
+def test_hair_rounding_noise():
+    """Why the HAIR bar is not 1e-5 on every lane: the port in float64 is
+    the yardstick, and the JAX package's float32 hair_sample strays from it
+    as far and as often as the port's float32 does.  Both stay inside the
+    HAIR bar against the yardstick, so the two float32 versions compute one
+    formula and differ by rounding; the shares are printed (pytest -s) per
+    output and per roughness."""
+    jsp, tsp, wi = _hair_points(60)
+    r1, r2, rm = _u(61, N), _u(62, N), _u(63, N)
+    J, T = jnp.asarray, torch.as_tensor
+    D = lambda x: torch.as_tensor(x).double()
+    jo = jbsdf.hair_sample(jsp, J(wi), J(r1), J(r2), J(rm))
+    to = tbsdf.hair_sample(tsp, T(wi), T(r1), T(r2), T(rm))
+    do = tbsdf.hair_sample(_double(tsp), D(wi), D(r1), D(r2), D(rm))
+    beta = np.maximum(np.asarray(jsp.roughness), 0.02)
+    for name, j, t, d in zip(('wo', 'pdf_proj', 'w'), jo, to, do):
+        assert d.dtype == torch.float64
+        e_j, e_t = _hair_err(d.numpy(), j), _hair_err(d.numpy(), t.numpy())
+        e = _hair_err(j, t.numpy())
+        print(f'hair_sample {name}: lanes above 1e-5: jax f32 against '
+              f'port f64 {(e_j > 1e-5).mean():.4f} (max {e_j.max():.3g}), '
+              f'port f32 against port f64 {(e_t > 1e-5).mean():.4f} (max '
+              f'{e_t.max():.3g}), port f32 against jax f32 '
+              f'{(e > 1e-5).mean():.4f} (max {e.max():.3g}); by beta: '
+              + ', '.join(f'{b:g}: {(e[beta == b] > 1e-5).mean():.4f}'
+                          for b in np.unique(beta)))
+        for err in (e_j, e_t):
+            assert (err <= 1e-5).mean() >= 0.975
+            assert (err <= 1e-4).mean() >= 0.998
+            assert err.max() <= 2e-3
+        # the noise is no smaller on the JAX side than a third of the
+        # port's: it is float32's, not the port's own
+        assert (e_j > 1e-5).mean() >= (e_t > 1e-5).mean() / 3
+
+
 def test_unported_kinds_raise():
-    _, tsp, wi = _shading_points(jbsdf.DIFFUSE, 1)
-    r = torch.as_tensor(_u(2, N))
-    with pytest.raises(NotImplementedError):
-        tbsdf.bsdf_sample(tsp, torch.as_tensor(wi), r, r, r,
-                          kinds=(tbsdf.DIFFUSE, tbsdf.HAIR))
-    with pytest.raises(NotImplementedError):
-        tbsdf.bsdf_eval_pdf(tsp, torch.as_tensor(wi), torch.as_tensor(wi),
-                            kinds=(tbsdf.HAIR,))
+    """No kind is left unported: HAIR, which used to raise, samples and
+    evaluates as the JAX package's (hair_sample, hair_eval_pdf, hair_pdf_w
+    and hair_S elementwise), through the dispatch as well."""
+    jsp, tsp, wi = _hair_points(60)
+    r1, r2, rm = _u(61, N), _u(62, N), _u(63, N)
+    J, T = jnp.asarray, torch.as_tensor
+    jo = jbsdf.hair_sample(jsp, J(wi), J(r1), J(r2), J(rm))
+    to = tbsdf.hair_sample(tsp, T(wi), T(r1), T(r2), T(rm))
+    for j, t in zip(jo, to):
+        _close_hair(j, t)
+    wo = np.random.default_rng(64).normal(size=(N, 3)).astype(np.float32)
+    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
+    for name in ('hair_S', 'hair_pdf_w'):
+        _close_hair(getattr(jbsdf, name)(jsp, J(wi), J(wo)),
+                    getattr(tbsdf, name)(tsp, T(wi), T(wo)))
+    jf = jbsdf.hair_eval_pdf(jsp, J(wi), J(wo))
+    tf = tbsdf.hair_eval_pdf(tsp, T(wi), T(wo))
+    assert (np.asarray(jf[0]) > 0).all()
+    for j, t in zip(jf, tf):
+        _close_hair(j, t)
+    kinds = (tbsdf.DIFFUSE, tbsdf.HAIR)
+    jd = jbsdf.bsdf_sample(jsp, J(wi), J(r1), J(r2), J(rm), kinds=kinds)
+    td = tbsdf.bsdf_sample(tsp, T(wi), T(r1), T(r2), T(rm), kinds=kinds)
+    np.testing.assert_array_equal(td[3].numpy(), np.asarray(jd[3]))
+    assert (td[3] == (tbsdf.MODE_GLOSSY | tbsdf.MODE_REFLECT)).all()
+    for j, t in zip(jd[:3], td[:3]):
+        _close_hair(j, t)
+
+
+def test_bsdf_dispatch_mixed_kinds_with_hair():
+    """One wavefront with DIFFUSE, METAL, HAIR and NULL lanes: the dispatch
+    selects each lane's kind as the JAX package's does (mode bits equal,
+    values at the bar of each lane's lobe)."""
+    kinds = (jbsdf.DIFFUSE, jbsdf.METAL, jbsdf.HAIR, jbsdf.NULL)
+    jsp, tsp, wi = _hair_points(70, kinds)
+    r1, r2, rm = _u(71, N), _u(72, N), _u(73, N)
+    J, T = jnp.asarray, torch.as_tensor
+    jo = jbsdf.bsdf_sample(jsp, J(wi), J(r1), J(r2), J(rm), kinds=kinds)
+    to = tbsdf.bsdf_sample(tsp, T(wi), T(r1), T(r2), T(rm), kinds=kinds)
+    np.testing.assert_array_equal(to[3].numpy(), np.asarray(jo[3]))
+    kind = np.asarray(jsp.kind)
+    for k in kinds:
+        assert (np.asarray(jo[3])[kind == k] != 0).mean() > 0.3
+    # each lane at its kind's bar: DIFFUSE and NULL rtol 1e-5, METAL the
+    # glossy bar of the module docstring, HAIR the HAIR bar
+    rough = np.where(kind == jbsdf.METAL, 1.0, 0.0)
+    hair = kind == jbsdf.HAIR
+
+    def close(j, t):
+        _close_bsdf(np.asarray(j)[~hair], t[~hair], rough[~hair])
+        _close_hair(np.asarray(j)[hair], t[hair])
+    for j, t in zip(jo[:3], to[:3]):
+        close(j, t)
+    wo = np.random.default_rng(74).normal(size=(N, 3)).astype(np.float32)
+    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
+    jf = jbsdf.bsdf_eval_pdf(jsp, J(wi), J(wo), kinds=kinds)
+    tf = tbsdf.bsdf_eval_pdf(tsp, T(wi), T(wo), kinds=kinds)
+    for j, t in zip(jf, tf):
+        close(j, t)
+    assert (tf[0][kind == jbsdf.HAIR] > 0).all()
+    assert (tf[0][kind == jbsdf.NULL] == 0).all()
 
 
 # --- the DIFFDIEL battle test of tests/test_bsdf.py:138-164 ----------------

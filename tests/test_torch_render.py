@@ -181,14 +181,22 @@ def test_alive_profile_and_fit_film(cornell):
 
 
 def test_unported_configs_raise(cornell):
-    """cfg.compact, daylight and envmap skies and image textures raise."""
+    """cfg.compact and daylight and envmap skies raise; image textures no
+    longer do: a scene that carries an atlas none of its materials uses
+    traces the paths of the scene without it."""
     import dataclasses
     n = 16
     pix = torch.arange(n)
     cfg = pt_mod.PTConfig(width=4, height=4, max_verts=3)
     cases = [(cornell, cfg.replace(compact=(1.0, 0.5)))] + [
         (dataclasses.replace(cornell, **{flag: True}), cfg)
-        for flag in ('has_daylight', 'has_envmap', 'has_textures')]
+        for flag in ('has_daylight', 'has_envmap')]
     for sc, c in cases:
         with pytest.raises(NotImplementedError):
             pt_mod.sample_paths(sc, c, 0, pix)
+    textured = dataclasses.replace(
+        cornell, has_textures=True, tex_atlas=torch.zeros(1, 2, 2, 4),
+        tex_dims=torch.tensor([[2, 2]]))
+    plain = pt_mod.sample_paths(cornell, cfg, 0, pix)[0]
+    assert plain.sum() > 0
+    assert torch.equal(pt_mod.sample_paths(textured, cfg, 0, pix)[0], plain)

@@ -149,16 +149,87 @@ def test_host_bvh_build_matches_jax(kind, n):
 
 
 def test_deep_tree_is_refused(monkeypatch):
-    """A tree whose worst-case stack (wdepth*7 + 8) exceeds the kernel's
-    gets no wide layout, and the query raises instead of overflowing."""
+    """A tree whose worst-case stack (wdepth*7 + 8) exceeds the kernel's is
+    refused a wide layout, not a query: intersect and occluded walk it by
+    its skip links and answer as the stack walk of the same triangles does
+    (prim and blocked equal on >= 99.9% of rays, t within rtol 1e-6; the
+    two walks visit leaves in different orders and pick the winner inside
+    a leaf by different rules, so only exact-t ties may differ)."""
     tri_v = _random_tris(300, seed=3)
-    assert ttrace.make_device_geometry(
-        tri_v=tri_v, device='cpu').tri_bvh.wbounds is not None
+    wide = ttrace.make_device_geometry(tri_v=tri_v, device='cpu')
+    assert wide.tri_bvh.wbounds is not None
+    n = 1500
+    org, d = (torch.as_tensor(x) for x in _rays(n, 31))
+    ig = torch.full((n,), -1, dtype=torch.int64)
+    first = ttrace.intersect(wide, org, d)
+    ig[::3] = first.prim[::3]
+    t_max = torch.full((n,), 3.0e38)
+    t_max[::5] = 9.0
+    t_max[:20] = 0.0
+    hw = ttrace.intersect(wide, org, d, ignore_prim=ig, t_max=t_max)
+    bw = ttrace.occluded(wide, org, d, t_max, ignore_prim=ig, ignore_prim2=ig)
     monkeypatch.setattr(trace_cuda, 'MAX_STACK', 8)
     g = ttrace.make_device_geometry(tri_v=tri_v, device='cpu')
-    assert g.tri_bvh.wbounds is None
-    with pytest.raises(NotImplementedError):
-        ttrace.intersect(g, torch.zeros(4, 3), torch.ones(4, 3))
+    assert g.tri_bvh.wbounds is None and g.tri_bvh.knodes is None
+    assert g.tri_bvh.kleaves is not None
+    hd = ttrace.intersect(g, org, d, ignore_prim=ig, t_max=t_max)
+    assert (hd.prim >= 0).float().mean() > 0.2
+    assert (hd.prim == hw.prim).float().mean() >= 0.999
+    assert (hd.slot == hw.slot).float().mean() >= 0.999
+    same = hd.prim == hw.prim
+    torch.testing.assert_close(hd.t[same], hw.t[same], rtol=1e-6, atol=0)
+    torch.testing.assert_close(hd.u[same], hw.u[same], rtol=0, atol=1e-6)
+    assert (hd.prim[:20] == -1).all() and (hd.t[:20] == 0).all()
+    bd = ttrace.occluded(g, org, d, t_max, ignore_prim=ig, ignore_prim2=ig)
+    assert bd.any() and (bd == bw).float().mean() >= 0.999
+
+
+def test_static_wide_triangles_take_a_running_hit(monkeypatch):
+    """closest_hit / any_hit serve the static triangles of a wide tree too
+    (the TPU kernel's specialisations): from a carried running hit they
+    answer as the skip-link walk of the same triangles does from the same
+    hit (prim, slot and blocked equal on >= 99.9% of rays, t within rtol
+    1e-6 where prim agrees), lanes the carried hit wins keep all five of
+    its values, a blocked lane stays blocked, and ``carry`` itself is not
+    modified on the CPU."""
+    tri_v = _random_tris(300, seed=5)
+    wide = ttrace.make_device_geometry(tri_v=tri_v, device='cpu').tri_bvh
+    with monkeypatch.context() as m:       # no wide layout: skip links
+        m.setattr(trace_cuda, 'MAX_STACK', 8)
+        deep = ttrace.make_device_geometry(tri_v=tri_v, device='cpu').tri_bvh
+    assert trace_cuda._form_of(wide, 'tri') == 'wide'
+    assert trace_cuda._form_of(deep, 'tri') == 'deep'
+    assert trace_cuda._count_key('wide', 'tri', False) == 'closest'
+    assert trace_cuda._count_key('wide', 'tri', True) == 'any'
+    n = 1500
+    org, d = (torch.as_tensor(x) for x in _rays(n, 32))
+    g = torch.Generator().manual_seed(6)
+    t0 = torch.full((n,), 3.0e38)
+    t0[:20] = 0.0
+    t_run = torch.where(torch.rand(n, generator=g) < 0.5,
+                        torch.rand(n, generator=g) * 12.0, t0)
+    carry = (t_run, torch.full((n,), 7), torch.full((n,), 0.25),
+             torch.full((n,), 0.5), torch.full((n,), 3))
+    kept = tuple(x.clone() for x in carry)
+    hw = trace_cuda.closest_hit(wide, 'tri', org, d, t0, carry=carry)
+    hd = trace_cuda.closest_hit(deep, 'tri', org, d, t0, carry=carry)
+    assert all(torch.equal(a, b) for a, b in zip(carry, kept))
+    improved = hw[0] != t_run
+    assert improved.float().mean() > 0.1 and (~improved).float().mean() > 0.3
+    assert (hw[0][improved] < t_run[improved]).all()
+    for x, y in zip(hw, kept):
+        assert torch.equal(x[~improved], y[~improved])
+    same = hw[1] == hd[1]
+    assert same.float().mean() >= 0.999
+    assert (hw[4] == hd[4]).float().mean() >= 0.999
+    torch.testing.assert_close(hw[0][same], hd[0][same], rtol=1e-6, atol=0)
+    blocked = torch.rand(n, generator=g) < 0.2
+    t_seg = torch.full((n,), 9.0)
+    bw = trace_cuda.any_hit(wide, 'tri', org, d, t_seg, carry=blocked)
+    bd = trace_cuda.any_hit(deep, 'tri', org, d, t_seg, carry=blocked)
+    fresh = trace_cuda.any_hit(wide, 'tri', org, d, t_seg)
+    assert torch.equal(bw, blocked | fresh) and (bw & ~blocked).any()
+    assert (bw == bd).float().mean() >= 0.999
 
 
 @pytest.fixture(scope='module')
