@@ -51,7 +51,29 @@ Phases (each prints its results; any failure exits non-zero):
      fibres as thin as real hair;
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
- 10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp.
+ 10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp;
+ 11. sky: the plane scene under a 1024x2048 gradient sky with a sun disk
+     (EnvMap.build timed with its fit on the card): a 1024x576 frame with
+     envmap NEE (5 closest-hit and 10 any-hit launches), its peak memory
+     (no [N, W] gather of CDF rows), one torch.profiler pass, the paths on
+     the card against the CPU at 64x36 on the same tables, envmap.sample
+     against envmap.pdf by the estimator of tests/test_envmap.py; the same
+     scene under daylight.build((0.3, 0.2, 0.9), 2.5);
+ 12. compact: the plane scene with capacities from pt.alive_profile: with
+     capacities 1.0 and with a 1.25 margin over the profile the image
+     equals the dense one; with half the profile the energy holds within
+     5% over 4 progressions; closest-hit and any-hit are launched at the
+     capacities' ray counts and a progression, dense or compacted, makes no
+     synchronizing call; dense and compacted frames timed in turns;
+ 13. grad: cornell at 1024x576: backward() of the frame mean for e_mul and
+     d_mul against central differences (2e-3), its seconds and peak
+     memory; the nonlinear parameters of tests/test_grad.py finite, ior_nd
+     non-zero; gradients on the card against the CPU at 64x36;
+ 14. --dbor and --sampler vis through the CLI on 0002_mb; the cascade
+     itself on the sky frame of 11, whose luminance spans the levels: at
+     least two levels above 0 filled, their sum against the plain splat
+     (1e-4), the card's levels and merge against the CPU's on the same
+     samples (1e-5).
 The line before the last is a JSON record of the kernels, each with its
 bound on this card: the larger of its bytes (inputs once, outputs once,
 dead lanes only their t_init) over 3.35 TB/s and its float operations (the
@@ -827,10 +849,11 @@ def counters_phase(cases, kres, card):
 # --- phase 4/5: the main path ----------------------------------------------
 
 def render_phase(name, scene, spp, gpu_name, max_verts=6,
-                 forms=('closest', 'any'), **kw):
+                 forms=('closest', 'any'), per_bounce=None, **kw):
     """One render through render.render with the launch counts zeroed just
     before and read just after: every form in ``forms`` must have been
-    launched once a bounce, and no other."""
+    launched once a bounce (``per_bounce[form]`` times where given), and no
+    other."""
     from corona13_tpu_torch import render as render_mod
     from corona13_tpu_torch.ops import trace_cuda
     from corona13_tpu_torch.samplers import pt as pt_mod
@@ -852,11 +875,10 @@ def render_phase(name, scene, spp, gpu_name, max_verts=6,
     check(np.isfinite(img).all(), 'non-finite pixels')
     check(img.mean() > 0, 'black image')
     per = spp * (cfg.max_verts - 1)
+    expect = {k: per * (per_bounce or {}).get(k, 1) for k in forms}
     moved = {k: v for k, v in launches.items() if v}
-    print(f'kernel launches {moved} (expected {per} each of '
-          f'{", ".join(forms)})', flush=True)
-    check(moved == {k: per for k in forms},
-          f'launch counts {moved}, expected {per} each of {forms}')
+    print(f'kernel launches {moved} (expected {expect})', flush=True)
+    check(moved == expect, f'launch counts {moved}, expected {expect}')
     rays = 0
     pix = torch.arange(W * H, device=scene.device)
     for s in range(spp):
@@ -1071,6 +1093,467 @@ def cli_phase():
     return float(img.mean())
 
 
+# --- phases 11-14: skies, compaction, gradients, dbor and vis ---------------
+
+SUN_DIR = (0.3, 0.2, 0.9)
+GB = 1e9
+
+
+def _moved(obj, dev):
+    """A dataclass of tensors with every tensor field on ``dev``."""
+    import dataclasses
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
+        if torch.is_tensor(getattr(obj, f.name))})
+
+
+def _zero_launches():
+    from corona13_tpu_torch.ops import trace_cuda
+    for k in trace_cuda.launches:
+        trace_cuda.launches[k] = 0
+
+
+def _read_launches():
+    from corona13_tpu_torch.ops import trace_cuda
+    return {k: v for k, v in trace_cuda.launches.items() if v}
+
+
+def _profile_frame(name, scene, cfg, card):
+    """One progression under torch.profiler: the unprofiled wall time of the
+    same progression, the profiled device time, their ratio and the
+    number of launches on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    frame = lambda s: pt_mod.render_sample(scene, cfg, s)
+    with torch.no_grad():
+        frame(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            frame(2)
+            torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.device_time_total for e in events) * 1e-6
+    check(device_s > 0, f'{name}: the profile shows no device time')
+    print(f'{name} profile: wall {wall * 1e3:.1f} ms unprofiled, device time '
+          f'{device_s * 1e3:.1f} ms, busy share {device_s / wall:.2f}, '
+          f'{len(events)} launches on {card}', flush=True)
+    return dict(wall_ms=wall * 1e3, device_ms=device_s * 1e3,
+                busy_share=device_s / wall, launches=len(events))
+
+
+def sky_phase(dev, card):
+    import dataclasses
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.models import daylight, envmap
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    out = {}
+    phase(f'sky: envmap 1024x2048 (gradient sky, sun {SUN_DIR} at radiance '
+          f'200) over the plane scene, on {card}')
+    plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
+    rgb = envmap.make_gradient_sky(sun_dir=SUN_DIR, sun_radiance=200.0,
+                                   res=(1024, 2048))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sky = plane.with_envmap(rgb)
+    torch.cuda.synchronize()
+    out['envmap_build_s'] = time.time() - t0
+    env = sky.envmap
+    check(env.coeff.is_cuda and env.col_cdf.shape == (1024, 2048)
+          and bool(torch.isfinite(env.coeff).all()), 'envmap tables')
+    print(f'EnvMap.build (fit on the card): {out["envmap_build_s"]:.2f} s, '
+          f'tables {sum(getattr(env, f.name).numel() for f in dataclasses.fields(env)) * 4 / 1e6:.1f} MB',
+          flush=True)
+
+    # sample against pdf: E[g(d)] under importance sampling equals the
+    # uniform estimate of the integral of g * pdf over the sphere
+    n = 1 << 22
+    g = torch.Generator(device='cpu').manual_seed(21)
+    r1, r2 = (torch.rand(n, generator=g).to(dev) for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    d, pdf_s = envmap.sample(env, r1, r2)
+    sample_peak = torch.cuda.max_memory_allocated() / GB
+    gfun = lambda x: torch.exp(x[:, 2])
+    est_s = float(gfun(d).mean())
+    du = torch.randn(n, 3, generator=g).to(dev)
+    du = du / torch.linalg.norm(du, dim=-1, keepdim=True)
+    est_u = float((gfun(du) * envmap.pdf(env, du)).mean()) * 4 * np.pi
+    sun = torch.tensor(SUN_DIR, device=dev)
+    sun_share = float((d @ (sun / torch.linalg.norm(sun)) > 0.995).float().mean())
+    print(f'envmap.sample against envmap.pdf, {n} lanes: {est_s:.5f} sampled, '
+          f'{est_u:.5f} uniform (tolerance 5%); {sun_share:.3f} of the '
+          f'samples on the sun; pdf > 0 on {float((pdf_s > 0).float().mean()):.4f}; '
+          f'peak memory of sample() {sample_peak:.3f} GB (an [N, W] gather of '
+          f'rows would be {n * 2048 * 4 / GB:.1f} GB)', flush=True)
+    check(abs(est_s - est_u) <= 0.05 * est_u, 'envmap sample and pdf disagree')
+    check(sun_share > 0.1, 'envmap sampling misses the sun')
+    check(sample_peak < 2.0, f'envmap.sample peaked at {sample_peak} GB')
+
+    torch.cuda.reset_peak_memory_stats()
+    res, lit, launches, rays = render_phase(
+        'sky (plane under the envmap)', sky, 2, card,
+        per_bounce={'any': 2})
+    peak = torch.cuda.max_memory_allocated() / GB
+    gather = N_RAYS * 2048 * 4 / GB
+    print(f'sky frame peak memory {peak:.3f} GB (an [N, W] gather of CDF rows '
+          f'alone would be {gather:.2f} GB)', flush=True)
+    check(peak < gather, f'sky frame peaked at {peak} GB')
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    out['envmap'] = dict(frame_s=res.seconds / 2, rays=rays,
+                         mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
+                         mean=float(res.image_xyz.mean()), launches=launches,
+                         peak_gb=peak,
+                         profile=_profile_frame('sky frame', sky, cfg, card))
+    # the same tables on both devices: the CPU fits nothing
+    out['envmap']['paths_vs_cpu'] = paths_against_cpu(
+        'sky paths (envmap NEE)', lambda d: dataclasses.replace(
+            testing.plane_scene(device=d), envmap=_moved(env, d),
+            has_envmap=True), 64, 36, dev, max_verts=6)
+
+    day = dataclasses.replace(plane, has_daylight=True, daylight=daylight.build(
+        SUN_DIR, 2.5, device=dev))
+    res, lit, launches, rays = render_phase(
+        'daylight (plane under daylight.build((0.3, 0.2, 0.9), 2.5))', day, 2,
+        card)
+    out['daylight'] = dict(frame_s=res.seconds / 2, rays=rays,
+                           mrays_per_s=rays / res.seconds / 1e6,
+                           lit_share=lit, mean=float(res.image_xyz.mean()),
+                           paths_vs_cpu=paths_against_cpu(
+        'daylight paths', lambda d: dataclasses.replace(
+            testing.plane_scene(device=d), has_daylight=True,
+            daylight=daylight.build(SUN_DIR, 2.5, device=d)), 64, 36, dev,
+        max_verts=6))
+    return out, sky
+
+
+def _sync_warnings(fn):
+    """Where torch reports a synchronizing call while fn runs: a dict of
+    'file:line' of the Python line that made it to its count."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return dict(collections.Counter(
+        f'{os.path.relpath(w.filename, ROOT)}:{w.lineno}' for w in caught
+        if 'synchroniz' in str(w.message)))
+
+
+def compact_phase(dev, card):
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.ops import trace_cuda
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'compact: the plane scene, {W}x{H}, mf=4, max_verts=6, on {card}')
+    plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    pix = torch.arange(N_RAYS, device=dev)
+    margin = 1.25
+    with torch.no_grad():
+        prof = pt_mod.alive_profile(plane, cfg, 0).cpu().numpy() / N_RAYS
+        caps = lambda f: (1.0,) + tuple(
+            float(min(1.0, p * f)) for p in prof[1:])
+        roomy, tight = cfg.replace(compact=caps(margin)), \
+            cfg.replace(compact=caps(0.5))
+        print(f'alive shares {", ".join(f"{p:.4f}" for p in prof)}; '
+              f'capacities with a {margin} margin '
+              f'{pt_mod.capacities(roomy, N_RAYS)}, at half the profile '
+              f'{pt_mod.capacities(tight, N_RAYS)} lanes', flush=True)
+        dense = pt_mod.render_sample(plane, cfg, 0)
+        ones = pt_mod.render_sample(plane, cfg.replace(compact=(1.0,) * 5), 0)
+        _zero_launches()
+        # the ray counts both kernels are launched at
+        sizes = {'closest_hit': [], 'any_hit': []}
+        real = {k: getattr(trace_cuda, k) for k in sizes}
+
+        def counted(name):
+            def wrapper(target, kind, org, *a, **kw):
+                sizes[name].append(org.shape[0])
+                return real[name](target, kind, org, *a, **kw)
+            return wrapper
+        for k in sizes:
+            setattr(trace_cuda, k, counted(k))
+        try:
+            room = pt_mod.render_sample(plane, roomy, 0)
+        finally:
+            for k in sizes:
+                setattr(trace_cuda, k, real[k])
+        launches = _read_launches()
+        scale = float(dense.abs().max())
+        err1 = float((ones - dense).abs().max()) / scale
+        err2 = float((room - dense).abs().max()) / scale
+        print(f'image at capacities 1.0 against dense: max |diff| {err1:.3g} '
+              f'of the largest pixel; with the {margin} margin {err2:.3g} '
+              f'(tolerance 1e-5); closest-hit launched at '
+              f'{sizes["closest_hit"]} rays, any-hit at {sizes["any_hit"]}; '
+              f'launches {launches}', flush=True)
+        check(err1 <= 1e-5 and err2 <= 1e-5, 'compacted image differs')
+        for k, v in sizes.items():
+            check(v == pt_mod.capacities(roomy, N_RAYS),
+                  f'{k} launched at {v} rays')
+        check(launches == {'closest': 5, 'any': 5}, f'launches {launches}')
+        a = b = 0.0
+        for s in range(4):
+            a = a + pt_mod.render_sample(plane, cfg, s)
+            b = b + pt_mod.render_sample(plane, tight, s)
+        ratio = float(b.mean() / a.mean())
+        rays = {k: int(pt_mod.count_rays(plane, c, 0, pix)) for k, c in
+                (('dense', cfg), ('margin', roomy), ('tight', tight))}
+        print(f'energy under tight capacities over 4 progressions: '
+              f'{ratio:.4f} of dense (tolerance 5%); count_rays {rays}',
+              flush=True)
+        check(abs(ratio - 1.0) < 0.05, f'capping lost energy: {ratio}')
+        check(rays['margin'] == rays['dense'] and rays['tight'] < rays['dense'],
+              f'ray counts {rays}')
+        # no read-back in a progression, dense or compacted: torch's sync
+        # debug mode (it counts the upload of a Python scalar too) reports
+        # no synchronizing call at any line
+        syncs = [_sync_warnings(lambda c=c: pt_mod.render_sample(plane, c, 1))
+                 for c in (cfg, roomy)]
+        print(f'synchronizing calls a progression, by line: dense '
+              f'{sum(syncs[0].values())} {syncs[0]}; compacted '
+              f'{sum(syncs[1].values())} {syncs[1]}', flush=True)
+        check(not syncs[0] and not syncs[1],
+              f'a progression synchronizes at {syncs[0]} (dense), '
+              f'{syncs[1]} (compacted)')
+        def frame_s(c, s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt_mod.render_sample(plane, c, s)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        times = {'dense': [], 'compacted': []}
+        for r in range(4):       # in turns: dense, compacted, compacted, dense
+            for k in (('dense', 'compacted') if r % 2 == 0
+                      else ('compacted', 'dense')):
+                times[k].append(frame_s(cfg if k == 'dense' else roomy, 10 + r))
+    fmt = lambda v: (f'{np.median(v):.4f} s (min {min(v):.4f}, max '
+                     f'{max(v):.4f}, {len(v)} frames)')
+    print(f'frames in turns on {card}: dense {fmt(times["dense"])}; compacted '
+          f'(margin {margin}) {fmt(times["compacted"])}', flush=True)
+    return dict(alive=prof.tolist(), caps=pt_mod.capacities(roomy, N_RAYS),
+                energy_ratio=ratio, rays=rays, dense_s=times['dense'],
+                compacted_s=times['compacted'], syncs=syncs,
+                profile_dense=_profile_frame('dense plane frame', plane, cfg,
+                                             card),
+                profile_compacted=_profile_frame('compacted plane frame',
+                                                 plane, roomy, card))
+
+
+def grad_phase(dev, card):
+    import dataclasses
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'grad: cornell {W}x{H}, mf=4, max_verts=6, d mean(fb) / d theta by '
+          f'backward() on {card}')
+    scaled = lambda sc, table, leaf, t: dataclasses.replace(sc, **{
+        table: dataclasses.replace(getattr(sc, table), **{
+            leaf: getattr(getattr(sc, table), leaf) * t})})
+    cornell = scene_mod.fit_film(testing.cornell_scene(device=dev), W, H)
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    out = {}
+    # one untimed pass first: autograd's own start-up is not the frame's
+    warm = torch.tensor(1.0, device=dev, requires_grad=True)
+    pt_mod.render_sample(scaled(cornell, 'materials', 'e_mul', warm), cfg,
+                         1).mean().backward()
+    for leaf in ('e_mul', 'd_mul'):
+        f = lambda t: pt_mod.render_sample(
+            scaled(cornell, 'materials', leaf, t), cfg, 0).mean()
+        theta = torch.tensor(1.0, device=dev, requires_grad=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        value = f(theta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        value.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / GB
+        g = float(theta.grad)
+        eps = 1e-3
+        with torch.no_grad():
+            fd = (float(f(torch.tensor(1.0 + eps, device=dev)))
+                  - float(f(torch.tensor(1.0 - eps, device=dev)))) / (2 * eps)
+        rel = abs(g - fd) / max(abs(fd), 1e-6)
+        print(f'{leaf}: backward {g:.6g}, central differences {fd:.6g}, off by '
+              f'{rel:.2e} (tolerance 2e-3); forward with the graph '
+              f'{t1 - t0:.3f} s, backward {t2 - t1:.3f} s, peak memory '
+              f'{peak:.2f} GB in one piece (no pixel ranges); kernel '
+              f'launches {launches}', flush=True)
+        check(np.isfinite(g) and g != 0 and rel <= 2e-3,
+              f'{leaf}: gradient {g} against central differences {fd}')
+        check(launches == {k: 5 for k in ('closest', 'any',
+                                          'dense_sphere_closest',
+                                          'dense_sphere_any')},
+              f'gradient frame launches {launches}')
+        out[leaf] = dict(grad=g, fd=fd, forward_s=t1 - t0, backward_s=t2 - t1,
+                         peak_gb=peak)
+
+    # the nonlinear parameters of tests/test_grad.py:96-118 at its sizes
+    small = pt_mod.PTConfig(width=16, height=12, max_verts=4, mf=2)
+    media = small.replace(max_verts=8, media=True)
+    off = torch.tensor([0.3, 0.2, 0.5], device=dev)
+    cases = [
+        ('roughness', 'metal', small, lambda s, t: scaled(s, 'materials', 'roughness', t)),
+        ('ior_nd', 'dielectric', small, lambda s, t: scaled(s, 'materials', 'ior_nd', t)),
+        ('med_mut_mul', 'subsurf', media, lambda s, t: scaled(s, 'materials', 'med_mut_mul', t)),
+        ('med_g', 'subsurf', media, lambda s, t: scaled(s, 'materials', 'med_g', t)),
+        ('focus', 'diffuse', small, lambda s, t: scaled(s, 'camera', 'focus', t)),
+        ('cam_pos', 'diffuse', small, lambda s, t: dataclasses.replace(
+            s, camera=dataclasses.replace(
+                s.camera, pos=s.camera.pos + (t - 1.0) * off.to(t.device)))),
+        # the two linear ones again, small, for the card against the CPU
+        ('e_mul', 'diffuse', small.replace(width=64, height=36, max_verts=6, mf=4),
+         lambda s, t: scaled(s, 'materials', 'e_mul', t)),
+        ('d_mul', 'diffuse', small.replace(width=64, height=36, max_verts=6, mf=4),
+         lambda s, t: scaled(s, 'materials', 'd_mul', t)),
+    ]
+    grads = {}
+    for name, sphere, c, apply in cases:
+        pair = []
+        for d in (dev, torch.device('cpu')):
+            sc = scene_mod.fit_film(testing.cornell_scene(sphere=sphere,
+                                                          device=d),
+                                    c.width, c.height)
+            theta = torch.tensor(1.0, device=d, requires_grad=True)
+            pt_mod.render_sample(apply(sc, theta), c, 0).mean().backward()
+            pair.append(float(theta.grad))
+        grads[name] = pair
+        check(np.isfinite(pair[0]), f'{name}: gradient {pair[0]} on the card')
+    print('gradients card / CPU: ' + ', '.join(
+        f'{k} {v[0]:.6g} / {v[1]:.6g}' for k, v in grads.items()), flush=True)
+    check(grads['ior_nd'][0] != 0.0, 'the ior_nd gradient is zero')
+    for k in ('e_mul', 'd_mul'):
+        card_g, cpu_g = grads[k]
+        check(abs(card_g - cpu_g) <= 5e-3 * abs(cpu_g),
+              f'{k}: card {card_g} against CPU {cpu_g} at 64x36 (5e-3)')
+    out['card_vs_cpu'] = grads
+    return out
+
+
+def _dbor_cascade(sky, dev, card, spp=2):
+    """The DBOR cascade on a frame whose luminance spans its levels (the
+    plane under the sun envmap, exposed so that the median lit sample has
+    luminance 16, the middle of the cascade): the levels filled, their sum
+    against the plain splat, the CLI's loop against these samples, and the
+    card's cascade and merge against the CPU's on the same samples."""
+    import dataclasses
+    from corona13_tpu_torch import __main__ as cli
+    from corona13_tpu_torch.ops import splat as splat_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    from corona13_tpu_torch.spectral import cie
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    pix = torch.arange(N_RAYS, device=dev)
+    cpu = torch.device('cpu')
+    fbs = {d: torch.zeros((splat_mod.N_DBOR, H, W, 3), device=d)
+           for d in (dev, cpu)}
+    plain = torch.zeros((H, W, 3), device=dev)
+    with torch.no_grad():
+        accum, lam, _, _ = pt_mod.sample_paths(sky, cfg, 0, pix)
+        lum = cie.spectral_to_xyz(lam, pt_mod._finite(accum))[:, 1]
+        gain = 16.0 / float(lum[lum > 0].median())
+        sky = dataclasses.replace(sky, camera=dataclasses.replace(
+            sky.camera, exposure_time=sky.camera.exposure_time * gain))
+        for s in range(spp):
+            accum, lam, pi, pj = pt_mod.sample_paths(sky, cfg, s, pix)
+            xyz = cie.spectral_to_xyz(lam, pt_mod._finite(accum))
+            plain = splat_mod.splat(plain, pi, pj, xyz, 'box')
+            for d in fbs:
+                fbs[d] = splat_mod.splat_dbor(fbs[d], pi.to(d), pj.to(d),
+                                              xyz.to(d))
+        looped = cli._render_dbor(sky, cfg, 0, spp)
+        merged = {d: splat_mod.dbor_merge(fbs[d]) for d in fbs}
+    card_fbs, top = fbs[dev], float(plain.abs().max())
+    filled = [float((card_fbs[k][..., 1] > 0).float().mean())
+              for k in range(splat_mod.N_DBOR)]
+    sum_err = float((card_fbs.sum(0) - plain).abs().max()) / top
+    loop_err = float((looped - card_fbs).abs().max()) / top
+    lev_err = float((card_fbs.cpu() - fbs[cpu]).abs().max()) / top
+    mtop = float(merged[cpu].abs().max())
+    merge_err = float((merged[dev].cpu() - merged[cpu]).abs().max()) / mtop
+    kept = float(merged[dev].sum() / plain.sum())
+    print(f'dbor cascade on the sky frame exposed {gain:.4g} times, {spp} '
+          f'progressions of {W}x{H} on {card}: share of pixels filled by level '
+          f'{", ".join(f"{x:.4f}" for x in filled)}; sum of the levels against '
+          f'the plain splat {sum_err:.2e} of the largest pixel (tolerance '
+          f'1e-4); the CLI loop against these samples {loop_err:.2e} (1e-6); '
+          f'levels card against CPU {lev_err:.2e}, merged {merge_err:.2e} '
+          f'(1e-5); the merge keeps {kept:.4f} of the energy', flush=True)
+    check(sum(x > 0 for x in filled[1:]) >= 2,
+          f'the frame fills fewer than two levels above 0: {filled}')
+    check(sum_err <= 1e-4, f'the levels do not add up to the splat: {sum_err}')
+    check(loop_err <= 1e-6, f'the CLI loop differs: {loop_err}')
+    check(lev_err <= 1e-5 and merge_err <= 1e-5,
+          f'cascade on the card against the CPU: {lev_err}, {merge_err}')
+    check(bool(torch.isfinite(merged[dev]).all()) and 0 < kept <= 1.0 + 1e-5,
+          f'the merge keeps {kept} of the energy')
+    return dict(gain=gain, filled=filled, sum_err=sum_err, loop_err=loop_err,
+                levels_vs_cpu=lev_err, merged_vs_cpu=merge_err, kept=kept)
+
+
+def dbor_vis_phase(dev, sky, card):
+    """--dbor and --sampler vis through the CLI on 0002_mb, the plain
+    render for the comparison through render.render in this process; every
+    luminance of that scene lies below 1, in level 0, so the cascade itself
+    is held on the sky frame."""
+    from corona13_tpu_torch import render as render_mod
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.io import pfm as pfm_io
+    from corona13_tpu_torch.ops import splat as splat_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase('CLI: python -m corona13_tpu_torch 0002_mb --dbor, and --sampler vis')
+    size = ['-w', '256', '-h', '160']
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(*args):
+            p = subprocess.run(
+                [sys.executable, '-m', 'corona13_tpu_torch', 'data/golden/'
+                 'scenes/0002_mb/test.nra2', *size, *args], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            print(p.stdout.strip().splitlines()[-1], flush=True)
+            check(p.returncode == 0,
+                  f'CLI {args} exited {p.returncode}: {p.stderr[-2000:]}')
+        out = os.path.join(tmp, 'dbor')
+        run('-s', '4', '--max-verts', '6', '--dbor', '-x', out)
+        levels = [pfm_io.read_pfm(f'{out}_dbor{k:02d}.pfm')
+                  for k in range(splat_mod.N_DBOR)]
+        merged = pfm_io.read_pfm(out + '_fb00.pfm')
+        vis = os.path.join(tmp, 'vis')
+        run('--sampler', 'vis', '--aov', 'normals', '-x', vis)
+        normals = pfm_io.read_pfm(vis + '_fb00.pfm')
+    sc, _ = scene_mod.load_scene(_scene_path('0002_mb'), device=dev)
+    sc = scene_mod.fit_film(sc, 256, 160)
+    plain = render_mod.render(sc, pt_mod.PTConfig(
+        width=256, height=160, max_verts=6, mf=4), spp=4, batch=1).image_xyz
+    off = abs(merged.mean() - plain.mean()) / plain.mean()
+    print(f'dbor: {len(levels)} cascade files, level means '
+          f'{", ".join(f"{l.mean():.3g}" for l in levels)}; merged mean '
+          f'{merged.mean():.6g} against the plain render {plain.mean():.6g}, '
+          f'off by {off:.4f} (tolerance 5%); normals AOV {normals.shape}, '
+          f'mean {normals.mean():.4f}', flush=True)
+    check(all(l.shape == (160, 256, 3) and np.isfinite(l).all()
+              for l in levels), 'dbor cascade files')
+    check(np.isfinite(merged).all() and off < 0.05, f'dbor merged off by {off}')
+    check(normals.shape == (160, 256, 3) and np.isfinite(normals).all()
+          and 0 < normals.max() <= 1.0, 'normals AOV')
+    return dict(merged_off=float(off), normals_mean=float(normals.mean()),
+                cascade=_dbor_cascade(sky, dev, card))
+
+
 def main():
     smi = device_phase()
     from corona13_tpu_torch import scene as scene_mod
@@ -1106,6 +1589,10 @@ def main():
         media=True)
     prims = prims_phase(dev, gpu)
     cli_mean = cli_phase()
+    sky, sky_scene = sky_phase(dev, smi)
+    compact = compact_phase(dev, smi)
+    grad = grad_phase(dev, smi)
+    dbor_vis = dbor_vis_phase(dev, sky_scene, smi)
 
     common = {'route': 'cuda',
               'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
@@ -1120,6 +1607,7 @@ def main():
         ms = m['flag_ms'] if key == 'any' else m['ms']
         return {'name': name, **common, 'launches': launches[key],
                 'launches_per_frame': launches[key] / spp,
+                'launches_per_sky_frame': sky['envmap']['launches'][key] / 2,
                 'max_abs_err': m['max_abs_err'], 'ms': ms,
                 'plain_ms': m['plain_ms'], 'bound_ms': c['bound_ms'],
                 'bound_by': c['bound_by'],
@@ -1141,7 +1629,8 @@ def main():
                   'mrays_per_s': rays2 / res2.seconds / 1e6,
                   'lit_share': lit2}, **media,
         **prims, '0031_hete/paths_vs_cpu': media_close,
-        'cli_mean': cli_mean}, 'form_cases': fres}), flush=True)
+        'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
+        'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis}), flush=True)
 
     def form_entry(key):
         # launches: the render that reaches the form (cornell: the dense

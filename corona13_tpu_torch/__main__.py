@@ -1,12 +1,16 @@
-"""Command-line front end (corona13_tpu/__main__.py), pt/ptdl only:
+"""Command-line front end (corona13_tpu/__main__.py): pt, ptdl and vis.
 
     python -m corona13_tpu_torch scene.nra2 -s 64 -w 1024 -h 576 -x render
     python -m corona13_tpu_torch scene.nra2 --media --device cpu
+    python -m corona13_tpu_torch scene.nra2 --dbor
+    python -m corona13_tpu_torch scene.nra2 --sampler vis --aov depth
 
 Writes <output>_fb00.pfm (camera XYZ), a sidecar <output>.txt and a
-resumable <output>.fb checkpoint.  Renders on CUDA unless ``--device cpu``
-is given; without a CUDA device it exits non-zero rather than fall back.
-The other samplers and ``--dbor`` are not ported yet and exit non-zero.
+resumable <output>.fb checkpoint; ``--dbor`` also the cascade levels
+<output>_dborNN.pfm; ``--sampler vis`` only the AOV image.  Renders on CUDA
+unless ``--device cpu`` is given; without a CUDA device it exits non-zero
+rather than fall back.  The other samplers are not ported yet and exit
+non-zero.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ def main(argv=None):
     p.add_argument('-x', '--output', default='render', help='output basename')
     p.add_argument('-c', '--cam', default=None, help='.cam camera file')
     p.add_argument('--sampler', default='ptdl', choices=_SAMPLERS)
+    p.add_argument('--aov', default='normals',
+                   choices=['normals', 'depth', 'prim', 'shader', 'uv'],
+                   help='AOV kind for --sampler vis')
     p.add_argument('--max-verts', type=int, default=8)
     p.add_argument('--mf', type=int, default=4,
                    help='hero wavelengths per path')
@@ -47,15 +54,16 @@ def main(argv=None):
     p.add_argument('--retain-framebuffer', action='store_true',
                    help='resume accumulation from an existing .fb')
     p.add_argument('--dbor', action='store_true',
-                   help='density-based outlier rejection (not ported yet)')
+                   help='density-based outlier rejection: splat pt/ptdl '
+                        'through the log2 luminance cascade and write the '
+                        'trust-merged image plus the per-level buffers')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.sampler not in ('pt', 'ptdl') or args.dbor:
-        what = '--dbor' if args.dbor else f'--sampler {args.sampler}'
-        print(f'[corona13_tpu_torch] {what} is not ported yet',
-              file=sys.stderr)
+    if args.sampler not in ('pt', 'ptdl', 'vis'):
+        print(f'[corona13_tpu_torch] --sampler {args.sampler} is not ported '
+              f'yet', file=sys.stderr)
         return 2
 
     import torch
@@ -69,6 +77,7 @@ def main(argv=None):
     from . import scene as scene_mod
     from .io import fb as fb_io
     from .io import pfm as pfm_io
+    from .ops import splat as splat_mod
     from .samplers import pt as pt_mod
 
     # the reference 32-aligns view dims and refits the film back to the
@@ -91,14 +100,34 @@ def main(argv=None):
         mf=args.mf, use_nee=(args.sampler != 'pt'),
         pointsampler=args.pointsampler, seed=args.seed, media=args.media,
         equiangular=args.equiangular)
+    if args.sampler == 'vis':
+        from .samplers import vis as vis_mod
+        with torch.no_grad():
+            img = vis_mod.render_aov(scene, cfg, 0, kind=args.aov)
+        pfm_io.write_pfm(args.output + '_fb00.pfm', img.cpu().numpy())
+        print(f'[corona13_tpu_torch] wrote {args.output}_fb00.pfm '
+              f'({args.aov})')
+        return 0
+
     fbf = fb_io.Framebuffer.open(args.output + '.fb', args.width, args.height,
                                  retain=args.retain_framebuffer)
     if fbf.spp:
         print(f'[corona13_tpu_torch] resuming at {fbf.spp} spp from '
               f'{args.output}.fb')
-    res = render_mod.render(scene, cfg, spp=args.spp, batch=args.batch,
-                            progress=True)
-    fbf.accumulate(res.fb, res.spp)
+    if args.dbor:
+        # the ptdl_dbor technique (reference src/sampler.d/ptdl_dbor.c): the
+        # samples of each progression land in the log2-luminance cascade;
+        # the written image is the trust-merged reassembly
+        fbs = _render_dbor(scene, cfg, fbf.spp, args.spp)
+        merged = splat_mod.dbor_merge(fbs).cpu().numpy()
+        for k in range(splat_mod.N_DBOR):
+            pfm_io.write_pfm(f'{args.output}_dbor{k:02d}.pfm',
+                             fbs[k].cpu().numpy())
+        fbf.accumulate(merged, args.spp)
+    else:
+        res = render_mod.render(scene, cfg, spp=args.spp, batch=args.batch,
+                                progress=True)
+        fbf.accumulate(res.fb, res.spp)
     fbf.flush(iso=float(scene.camera.iso))
     img = fbf.image
     pfm_io.write_pfm(args.output + '_fb00.pfm', img)
@@ -113,6 +142,31 @@ def main(argv=None):
     print(f'[corona13_tpu_torch] wrote {args.output}_fb00.pfm '
           f'({fbf.spp} spp total)')
     return 0
+
+
+def _render_dbor(scene, cfg, first: int, spp: int):
+    """Progressions first .. first+spp-1 splatted through the DBOR cascade;
+    returns it, [N_DBOR, H, W, 3], on the scene's device."""
+    import torch
+
+    from .ops import splat as splat_mod
+    from .samplers import pt as pt_mod
+    from .spectral import cie
+    dev = scene.device
+    pixels = torch.arange(cfg.width * cfg.height, dtype=torch.int64,
+                          device=dev)
+    fbs = torch.zeros((splat_mod.N_DBOR, cfg.height, cfg.width, 3),
+                      dtype=torch.float32, device=dev)
+    t0 = time.time()
+    with torch.no_grad():
+        for s in range(first, first + spp):
+            accum, lam, pi, pj = pt_mod.sample_paths(scene, cfg, s, pixels)
+            xyz = cie.spectral_to_xyz(lam, pt_mod._finite(accum))
+            fbs = splat_mod.splat_dbor(fbs, pi, pj, xyz)
+            done = s + 1 - first
+            print(f'  [{done}/{spp}] {(time.time() - t0) / done:.3f}s/frame',
+                  flush=True)
+    return fbs
 
 
 if __name__ == '__main__':

@@ -3,7 +3,9 @@
 ``scene_from_numpy`` walks a ``corona13_tpu`` Scene duck-typed (dataclass
 fields, ``np.asarray`` on every array leaf) without importing jax, and
 returns the port's Scene on ``device``, so both packages can be fed the
-very same BVH, packed leaves, materials, lights, camera and medium grid.
+very same BVH, packed leaves, materials, lights, camera, medium grid and
+sky tables (an envmap's coefficients and CDFs, a daylight sky's Perez
+terms).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from . import scene as scene_mod
-from .models import medium_hete
+from .models import daylight, envmap, medium_hete
 from .ops import bvh as bvh_mod
 from .ops import trace as trace_mod
 
@@ -26,6 +28,8 @@ _CLASSES = {
     'DeviceGeometry': trace_mod.DeviceGeometry,
     'DeviceBVH': trace_mod.DeviceBVH,
     'VolGrid': medium_hete.VolGrid,
+    'EnvMap': envmap.EnvMap,
+    'DaylightSky': daylight.DaylightSky,
 }
 
 

@@ -37,10 +37,16 @@ def eval_vertex(em, roughness, gn, omega_in):
 
 
 def sky_eval(scene, direction, lam):
-    """Environment radiance for escaped rays: black or constant sky."""
+    """Environment radiance for escaped rays: the image-based envmap, the
+    analytic daylight sky, or a black or constant sky.
+    direction: [N, 3]; lam: [N, MF]."""
     from ..spectral import rgb2spec
-    if scene.has_envmap or scene.has_daylight:
-        raise NotImplementedError('envmap and daylight skies are not ported yet')
+    if scene.has_envmap:
+        from . import envmap as envmap_mod
+        return envmap_mod.eval_radiance(scene.envmap, direction, lam)
+    if scene.has_daylight:
+        from . import daylight as daylight_mod
+        return daylight_mod.eval_radiance(scene.daylight, direction, lam)
     base = scene.sky_mul * rgb2spec.eval_coeff(scene.sky_coeff[None, None, :],
                                                lam)
     return torch.where(scene.sky_kind > 0, base, 0.0)

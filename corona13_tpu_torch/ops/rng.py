@@ -83,7 +83,11 @@ def _words(pixel, sample, dim, seed):
     """Broadcast the four counter words to one int64 shape."""
     pixel = torch.as_tensor(pixel)
     dev = pixel.device
-    args = [torch.as_tensor(a, device=dev).to(torch.int64) & M32
+    # a Python int becomes a tensor by a fill on the device: uploading it
+    # from the host would synchronize the stream at every call
+    args = [torch.full((), int(a) & M32, dtype=torch.int64, device=dev)
+            if isinstance(a, int)
+            else torch.as_tensor(a, device=dev).to(torch.int64) & M32
             for a in (pixel, sample, dim, seed)]
     return torch.broadcast_tensors(*args)
 

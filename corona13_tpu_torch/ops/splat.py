@@ -1,11 +1,14 @@
-"""Framebuffer splatting for the pixel-aligned wavefront
-(corona13_tpu/ops/splat.py:18-76, 122-142).
+"""Framebuffer splatting (corona13_tpu/ops/splat.py).
 
-The progressive renderer traces one path per pixel per progression, so
-every splat lands within a fixed 5x5 neighbourhood of its own pixel: the
-filtered accumulation is 25 shifted dense adds.  Filters: box, bilin,
-spline, gaussian and the default radial 4-term Blackman-Harris, each
-normalized per splat over its in-bounds taps.
+``splat_pixel_aligned``: the progressive renderer traces one path per
+pixel per progression, so every splat lands within a fixed 5x5
+neighbourhood of its own pixel and the filtered accumulation is 25 shifted
+dense adds.  ``splat``: the general form for samples anywhere on the image,
+one ``index_add_`` over a flat pixel index (differentiable in ``col``).
+Filters of both: box, bilin, spline, gaussian and the default radial 4-term
+Blackman-Harris, each normalized per splat over its in-bounds taps.
+``splat_dbor`` / ``dbor_merge``: the density-based outlier rejection
+cascade.
 """
 
 from __future__ import annotations
@@ -76,3 +79,112 @@ def splat_pixel_aligned(fb, jx, jy, col, batch: int = 1,
                 contrib[max(-sy, 0): h - max(sy, 0),
                         max(-sx, 0): w - max(sx, 0), iy, ix]
     return fb + acc
+
+
+def _scatter(fb, yi, xi, contrib):
+    """fb [..., H, W, 3] flattened over its leading axes plus a scatter-add
+    of contrib [..., 3] at flat pixel indices (yi * W + xi, with any cascade
+    level folded into yi by the caller); out of place."""
+    w = fb.shape[-2]
+    flat = (yi * w + xi).reshape(-1)
+    out = fb.reshape(-1, 3).index_add(0, flat, contrib.reshape(-1, 3))
+    return out.reshape(fb.shape)
+
+
+N_DBOR = 8  # cascade buffers (reference --dbor default count)
+
+
+def splat_dbor(fbs, pix_i, pix_j, col):
+    """Density-based outlier rejection cascade (corona-13 view.c:497-522 +
+    include/dbor.h): a splat with luminance L lands in the log2 cascade at
+    k = log2(L), split linearly between buffers floor(k) and ceil(k) so
+    each buffer holds a trust-banded portion of the image.
+
+    fbs: [N_DBOR, H, W, 3]; returns the updated cascade."""
+    lum = torch.clamp(col[..., 1], min=1e-20)
+    # clamp *values* into the top bucket's level so a firefly cannot
+    # masquerade as many samples of the bucket's nominal brightness
+    k = torch.clamp(torch.log2(lum), 0.0, N_DBOR - 1 - 1e-4)
+    k0 = torch.floor(k).to(torch.int64)
+    w1 = k - k0
+    h, w = fbs.shape[1], fbs.shape[2]
+    xi = torch.clamp(pix_i.to(torch.int64), 0, w - 1)
+    yi = torch.clamp(pix_j.to(torch.int64), 0, h - 1)
+    fbs = _scatter(fbs, k0 * h + yi, xi, col * (1.0 - w1)[..., None])
+    k1 = torch.clamp(k0 + 1, max=N_DBOR - 1)
+    return _scatter(fbs, k1 * h + yi, xi, col * w1[..., None])
+
+
+def dbor_merge(fbs, trust: float = 4.0):
+    """Reassemble the cascade (tools/img/dbor.c): buffer k contributes
+    fully where its local sample density reaches ``trust`` samples (count
+    approximated from the accumulated luminance over the bucket's nominal
+    level 2^k, averaged over a 3x3 neighbourhood); rare high-energy splats
+    (fireflies) are attenuated proportionally."""
+    out = torch.zeros_like(fbs[0])
+    for k in range(N_DBOR):
+        lum = fbs[k][..., 1]
+        count = lum / (2.0 ** k)
+        cpad = torch.nn.functional.pad(count, (1, 1, 1, 1))
+        nb = sum(cpad[1 + dy: cpad.shape[0] - 1 + dy,
+                      1 + dx: cpad.shape[1] - 1 + dx]
+                 for dy in (-1, 0, 1) for dx in (-1, 0, 1)) / 9.0
+        t = torch.clamp(nb / trust, 0.0, 1.0) if k > 0 \
+            else torch.ones_like(lum)
+        out = out + fbs[k] * t[..., None]
+    return out
+
+
+def splat(fb, pix_i, pix_j, col, filter_kind: str = 'blackmanharris'):
+    """Accumulate colours into fb [H, W, 3].
+
+    pix_i/pix_j: continuous image coordinates [N]; col: [N, 3].
+    Returns the updated framebuffer."""
+    h, w = fb.shape[0], fb.shape[1]
+    dev = fb.device
+    if filter_kind == 'box':
+        xi = torch.clamp(pix_i.to(torch.int64), 0, w - 1)
+        yi = torch.clamp(pix_j.to(torch.int64), 0, h - 1)
+        return _scatter(fb, yi, xi, col)
+
+    if filter_kind == 'bilin':
+        x = pix_i - 0.5
+        y = pix_j - 0.5
+        x0 = torch.floor(x).to(torch.int64)
+        y0 = torch.floor(y).to(torch.int64)
+        fx = x - x0
+        fy = y - y0
+        for dy in (0, 1):
+            for dx in (0, 1):
+                wgt = (fx if dx else 1 - fx) * (fy if dy else 1 - fy)
+                xi = x0 + dx
+                yi = y0 + dy
+                inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+                fb = _scatter(fb, torch.clamp(yi, 0, h - 1),
+                              torch.clamp(xi, 0, w - 1),
+                              torch.where(inb[..., None],
+                                          wgt[..., None] * col, 0.0))
+        return fb
+
+    # 4x4 footprint: the 16 taps computed densely, then one scatter
+    x0 = torch.floor(pix_i - 1.5).to(torch.int64)
+    y0 = torch.floor(pix_j - 1.5).to(torch.int64)
+    taps = torch.arange(4, device=dev)
+    uu = (x0[..., None] + taps + 0.5) - pix_i[..., None]          # [N, 4]
+    vv = (y0[..., None] + taps + 0.5) - pix_j[..., None]          # [N, 4]
+    if filter_kind == 'spline':
+        f = cubic_bspline(vv)[..., :, None] * cubic_bspline(uu)[..., None, :]
+    else:
+        r = torch.sqrt(uu[..., None, :] ** 2 + vv[..., :, None] ** 2)
+        f = gaussian_window(r) if filter_kind == 'gaussian' \
+            else bh_window(r + 1.5)                               # [N, 4v, 4u]
+    xi = (x0[..., None, None] + taps[None, None, :]).expand(f.shape)
+    yi = (y0[..., None, None] + taps[None, :, None]).expand(f.shape)
+    inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    f = torch.where(inb, f, 0.0)
+    # normalize over in-bounds taps (the reference normalizes per splat)
+    norm = torch.sum(f, dim=(-1, -2), keepdim=True)
+    f = f / torch.clamp(norm, min=1e-20)
+    contrib = f[..., None] * col[..., None, None, :]
+    return _scatter(fb, torch.clamp(yi, 0, h - 1), torch.clamp(xi, 0, w - 1),
+                    contrib)

@@ -6,14 +6,29 @@ combined with the hero-wavelength balance heuristic; NEE is MIS-weighted
 against BSDF extension (ptdl).  Every ``stop_gradient`` of the JAX
 package is a ``.detach()`` at the same place.
 
-Ported: the dense wavefront with ``compact=None`` and the counter RNG (no
-primary-sample replay), with or without participating media
-(``cfg.media``: free flight through homogeneous interiors and the
-heterogeneous grid, its blackbody emission, HG phase NEE and extension,
-the interior priority stack; ``cfg.equiangular``: equiangular volume
-NEE).  Moving scenes hand every trace call the path's shutter time;
-image textures are fetched in ``shading.prepare``.  ``cfg.compact`` and
-envmap and daylight skies raise NotImplementedError.
+Ported: the counter RNG (no primary-sample replay), with or without
+participating media (``cfg.media``: free flight through homogeneous
+interiors and the heterogeneous grid, its blackbody emission, HG phase NEE
+and extension, the interior priority stack; ``cfg.equiangular``:
+equiangular volume NEE).  Moving scenes hand every trace call the path's
+shutter time; image textures are fetched in ``shading.prepare``.  Envmap
+skies add importance-sampled envmap NEE (a second shadow ray a bounce) and
+its MIS on escaped rays; daylight skies are evaluated on escape.
+
+``cfg.compact`` (per-depth capacity fractions) sorts the wavefront before
+a depth whose capacity is below the current width: alive lanes first in a
+random order, dead lanes last, the tail past the capacity banked with its
+radiance; if more lanes are alive than fit, the survivors are a uniformly
+random subset reweighted by alive / capacity.  ``render_sample`` (and
+``sample_paths``, ``count_rays``) with ``cfg.compact`` set is the one
+entry to it: the JAX package's per-segment programs
+(``make_segmented_renderer``) and its bitcast multi-operand sort answer its
+compiler, not the algorithm, and have no counterpart here.
+
+``sample_paths`` and ``render_sample`` are differentiable in the scene's
+float tensors that require grad (the detached-sampling estimator: sampled
+directions, distances and pdfs are constants of the backward pass, and so
+are the traversal kernels' hits).
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ import torch
 
 from ..models import bsdf as bsdf_mod
 from ..models import camera as camera_mod
+from ..models import envmap as envmap_mod
 from ..models import lights as lights_mod
 from ..models import medium as medium_mod
 from ..models import medium_hete as hete_mod
@@ -46,6 +62,8 @@ class PTConfig:
     rr_start: int = 4   # path length after which throughput RR starts
     media: bool = False
     equiangular: bool = False
+    # per-depth wavefront capacity fractions (len = max_verts-1, first
+    # entry 1.0); None = the dense wavefront
     compact: tuple | None = None
 
     def replace(self, **kw) -> 'PTConfig':
@@ -70,11 +88,37 @@ def _finite(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
-def _check(scene, cfg: PTConfig):
-    if cfg.compact is not None:
-        raise NotImplementedError('cfg.compact is not ported yet')
-    if scene.has_envmap or scene.has_daylight:
-        raise NotImplementedError('envmap and daylight skies are not ported yet')
+def capacities(cfg: PTConfig, n: int) -> list[int]:
+    """Lanes each depth of ``cfg.compact`` runs on for a wavefront of n:
+    the fraction of n rounded up to a multiple of 128, at least 128, at
+    most n (the JAX package's rounding: it decides which lanes survive)."""
+    caps = cfg.compact
+    if len(caps) != cfg.max_verts - 1 or abs(caps[0] - 1.0) > 1e-6:
+        raise ValueError('cfg.compact needs max_verts-1 entries, first 1.0')
+    return [min(n, max(128, -(-int(round(c * n)) // 128) * 128))
+            for c in caps]
+
+
+def _compact(state, cfg: PTConfig, cap_n: int, depth: int, banks):
+    """Sort alive lanes first (random order, so an overflow keeps a
+    uniformly random subset), bank the tail past cap_n and return the
+    first cap_n lanes, their throughput scaled by alive / cap_n where more
+    were alive than fit.  Everything stays on the device."""
+    alive = state['alive']
+    k_alive = torch.sum(alive)
+    r = rng.sample_dim(cfg.pointsampler, state['pix'], state['sidx'],
+                       9000 + depth, cfg.seed)
+    key = torch.where(alive, r, 2.0)        # dead lanes sort last
+    order = torch.argsort(key, stable=True)
+    state = {k: v.index_select(0, order) for k, v in state.items()}
+    # the dropped tail's accum is final
+    banks.append((state['orig'][cap_n:], state['accum'][cap_n:],
+                  torch.sum(state['nrays'][cap_n:])))
+    state = {k: v[:cap_n] for k, v in state.items()}
+    # stochastic capping reweight (only != 1 when more alive than cap_n)
+    scale = torch.clamp(k_alive.to(torch.float32) / cap_n, min=1.0)
+    state['thr'] = state['thr'] * scale.detach()
+    return state
 
 
 def sample_paths(scene, cfg: PTConfig, sample_idx, pixel_idx):
@@ -88,8 +132,9 @@ def sample_paths(scene, cfg: PTConfig, sample_idx, pixel_idx):
 
 def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
     """The bounce loop.  pixel_idx [N] and sample_idx ([N] or scalar) are
-    int64 ids in [0, 2^32).  Returns (accum, lam, pix_i, pix_j, state)."""
-    _check(scene, cfg)
+    int64 ids in [0, 2^32).  Returns (accum, lam, pix_i, pix_j, state);
+    under cfg.compact the state holds only the total ``nrays`` and the last
+    depth's ``alive``."""
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
     mf = cfg.mf
@@ -114,6 +159,9 @@ def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
     izero = torch.zeros(n, dtype=torch.int64, device=dev)
     thr0 = cam_thr[..., None].expand(n, mf)
     state = dict(
+        # per-lane constants: they ride along so that a compacted
+        # wavefront still reads its own random streams
+        pix=pixel_idx, sidx=sidx, lam=lam, time=time,
         org=org, dir=direction, thr=thr0,
         pdf_proj=cam_pdf_proj[..., None].expand(n, mf),
         pdf_prod=torch.ones_like(thr0),
@@ -128,20 +176,45 @@ def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
             medium_mod.stack_init(izero), izero + max(scene.exterior_med, 0),
             izero == (0 if scene.exterior_med >= 0 else 1)),
     )
-    for depth in range(cfg.max_verts - 1):
-        state = _bounce(scene, cfg, state, depth, lam, time, rnd)
-    return state['accum'], lam, pix_i, pix_j, state
+    if cfg.compact is None:
+        for depth in range(cfg.max_verts - 1):
+            state = _bounce(scene, cfg, state, depth)
+        return state['accum'], lam, pix_i, pix_j, state
+
+    # compacting loop: depth d runs on capacities(cfg, n)[d] lanes.  Every
+    # original lane ends in exactly one banked tail or in the final state,
+    # so the banked (orig, accum) rows are a permutation of 0..n-1.
+    state['orig'] = torch.arange(n, dtype=torch.int64, device=dev)
+    banks = []
+    for depth, cap_n in enumerate(capacities(cfg, n)):
+        if cap_n < state['alive'].shape[0]:
+            state = _compact(state, cfg, cap_n, depth, banks)
+        state = _bounce(scene, cfg, state, depth)
+    banks.append((state['orig'], state['accum'], torch.sum(state['nrays'])))
+    accum = torch.zeros((n, mf), dtype=torch.float32, device=dev).index_copy(
+        0, torch.cat([b[0] for b in banks]), torch.cat([b[1] for b in banks]))
+    nrays = torch.stack([b[2] for b in banks]).sum()
+    return accum, lam, pix_i, pix_j, {'nrays': nrays[None],
+                                      'alive': state['alive']}
 
 
-def _bounce(scene, cfg, state, depth, lam, time, rnd):
+def _bounce(scene, cfg, state, depth):
     """One wavefront bounce: intersect, free flight through the current
-    medium (cfg.media), shade, emitter/sky hit with hero MIS, area NEE from
-    the surface or volume vertex, BSDF or phase extension, Russian
-    roulette and the interior stack update."""
+    medium (cfg.media), shade, emitter/sky hit with hero MIS, area and
+    envmap NEE from the surface or volume vertex, BSDF or phase extension,
+    Russian roulette and the interior stack update."""
     alive = state['alive']
     org = state['org']
     d = state['dir']
+    lam = state['lam']
+    time = state['time']
     mats = scene.materials
+
+    def rnd(dim, salt=0):
+        # through the state's own ids: compaction permutes and shrinks it
+        return rng.sample_dim(cfg.pointsampler, state['pix'], state['sidx'],
+                              int(dim) + 101 * salt, cfg.seed)
+
     cur_med = medium_mod.stack_current(state['med_stack'])
     # dead lanes trace with t_max = 0 and do no traversal work
     hit = intersect(scene.geom, org, d, ignore_prim=state['prev_prim'],
@@ -201,8 +274,17 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
     # environment hit: escaped rays collect sky radiance (hero MIS only)
     missed = alive & ~hit.valid & ~scat
     sky = lights_mod.sky_eval(scene, d, lam)
-    w_sky = _hero_mis(state['pdf_prod'], state['pdf_proj'],
-                      torch.zeros_like(state['pdf_proj']))
+    if cfg.use_nee and scene.has_envmap:
+        # escaped-ray MIS against envmap NEE (both in solid angle): our
+        # pdf_w = pdf_proj * cos at the vertex the ray left from
+        our_w = state['pdf_proj'] * _lambert(state['prev_n'], d)[..., None]
+        env_w = envmap_mod.pdf(scene.envmap, d)[..., None] * \
+            state['prev_connectable'][..., None]
+        w_sky = _hero_mis(state['pdf_prod'], our_w,
+                          env_w.expand_as(state['pdf_proj']))
+    else:
+        w_sky = _hero_mis(state['pdf_prod'], state['pdf_proj'],
+                          torch.zeros_like(state['pdf_proj']))
     w_sky = _finite(w_sky).detach()
     accum_sky = torch.where(missed[..., None], thr_in * sky * w_sky, 0.0)
 
@@ -316,6 +398,35 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
         w_nee = _finite(w_nee).detach()
         accum = accum + torch.where(can[..., None], _finite(val) * w_nee, 0.0)
 
+    # envmap next event estimation (nee.h envmap branch + sky_envmap.c
+    # importance sampling): independent of the area-light NEE (disjoint
+    # targets, its own MIS against the bsdf extension)
+    if cfg.use_nee and scene.has_envmap:
+        d_env, pdf_env = envmap_mod.sample(
+            scene.envmap, rnd(rng.Dim.NEE_X, salt=30 + depth),
+            rnd(rng.Dim.NEE_Y, salt=30 + depth))
+        f_e, pdf_b_e = bsdf_mod.bsdf_eval_pdf(sp, d, d_env,
+                                              kinds=scene.kinds_used)
+        cos_e = _lambert(sp.n, d_env)
+        can_e = valid & torch.any(f_e > 0.0, dim=-1) & (pdf_env > 0.0) & \
+            (depth <= cfg.max_verts - 3)
+        blocked_e = occluded(scene.geom, ray_offset(x, d_env), d_env,
+                             torch.where(can_e, 1e4, 0.0),
+                             ignore_prim=hit.prim, time=time)
+        # counted before visibility: rays with t_max > 0 traverse
+        nrays = nrays + can_e.to(torch.int64)
+        can_e = can_e & ~blocked_e
+        le_env = lights_mod.sky_eval(scene, d_env, lam)
+        pdf_env_safe = torch.where(pdf_env > 0.0, pdf_env, 1.0)
+        efac = _finite(cos_e / pdf_env_safe)[..., None]
+        val_e = thr_in * f_e * efac * le_env
+        # MIS vs bsdf extension, both in solid angle
+        w_env = _hero_mis(pdf_prod, pdf_env[..., None],
+                          pdf_b_e * cos_e[..., None])
+        w_env = _finite(w_env).detach()
+        accum = accum + torch.where(can_e[..., None], _finite(val_e) * w_env,
+                                    0.0)
+
     # extend: sample the bsdf (path_extend, pathspace.c:190-207)
     r1 = rnd(rng.Dim.OMEGA_X, salt=1 + depth)
     r2 = rnd(rng.Dim.OMEGA_Y, salt=1 + depth)
@@ -384,8 +495,9 @@ def _bounce(scene, cfg, state, depth, lam, time, rnd):
         pdf_prod=pdf_prod, prev_n=new_prev_n, prev_prim=new_prev_prim,
         prev_connectable=connectable, alive=still, accum=accum,
         length=new_len, nrays=nrays, med_stack=new_med)
-    # dead lanes keep their state; accum and ray counts take the new values
-    out = {}
+    # dead lanes keep their state; accum and ray counts take the new
+    # values; the per-lane constants ride along unchanged
+    out = dict(state)
     for k, new in new_state.items():
         if k in ('accum', 'nrays'):
             out[k] = new

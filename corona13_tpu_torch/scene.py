@@ -9,8 +9,8 @@ sigmoid-polynomial coefficients at load.
 
 ``load_scene`` reads texture lines (into a spectral-coefficient atlas),
 ``daylight`` skies and the heterogeneous grid into the same flags and
-tables as the JAX package; daylight raises NotImplementedError when
-rendered.
+tables as the JAX package.  No scene line names an environment map:
+``Scene.with_envmap(rgb)`` attaches one.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from .io import geo as geo_io
 from .io import nra2 as nra2_io
 from .io import pfm as pfm_io
 from .models.bsdf import DIELECTRIC, DIFFDIEL, DIFFUSE, HAIR, METAL, NULL  # noqa: F401
+from .models.daylight import DaylightSky
+from .models.envmap import EnvMap
 from .models.medium_hete import VolGrid
 from .ops.trace import DeviceGeometry, make_device_geometry
 from .spectral import fresnel_data, rgb2spec
@@ -124,10 +126,21 @@ class Scene:
     # mul), padded to the largest; tex_dims [n_tex, 2] int64 (h, w)
     tex_atlas: torch.Tensor | None = None
     tex_dims: torch.Tensor | None = None
+    envmap: EnvMap | None = None          # lat-long IBL (models/envmap.py)
+    daylight: DaylightSky | None = None   # Preetham sky (models/daylight.py)
 
     @property
     def device(self):
         return self.prim_shader.device
+
+    def with_envmap(self, rgb) -> 'Scene':
+        """Attach a lat-long RGB radiance image [H, W, 3] as the
+        environment, fitted on the scene's device."""
+        from .models import envmap as envmap_mod
+        dev = self.device
+        return dataclasses.replace(
+            self, envmap=envmap_mod.build(rgb, device=dev), has_envmap=True,
+            sky_kind=torch.tensor(SKY_ENVMAP, dtype=torch.int64, device=dev))
 
 
 @dataclasses.dataclass
@@ -504,16 +517,27 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
         f_stop=f0(cd.f_stop), exposure_time=f0(cd.exposure_time),
         iso=f0(cd.iso), crop_factor=f0(cd.crop_factor))
 
-    # --- sky (daylight only sets its kind and flag: not ported)
+    # --- sky
     sky_kind = {'black': SKY_BLACK, 'sky_const': SKY_CONST,
                 'const': SKY_CONST, 'cloudy': SKY_CLOUDY,
                 'cloudy_sky': SKY_CLOUDY, 'clear_sky': SKY_CLOUDY,
                 'daylight': SKY_DAYLIGHT}.get(desc.sky.name, SKY_BLACK)
     sky_rgb = np.zeros(3, f32)
+    daylight_sky = None
     if sky_kind == SKY_CONST and len(desc.sky.args) >= 3:
         sky_rgb = np.array([float(x) for x in desc.sky.args[:3]], f32)
     elif sky_kind == SKY_CLOUDY:
         sky_rgb = np.array([0.5, 0.6, 0.8], f32)
+    elif sky_kind == SKY_DAYLIGHT:
+        # `daylight <sundir x y z> <turbidity>` (daylight.h:103-111; the
+        # file's direction points from the sun into the scene).  As in the
+        # JAX package, a line with fewer than four numbers (a direction
+        # without a turbidity) falls back to the default sun altogether.
+        from .models import daylight as daylight_mod
+        a = [float(x) for x in desc.sky.args[:4]] if len(desc.sky.args) >= 4 \
+            else [-1.0, -1.0, -1.0, 2.0]
+        daylight_sky = daylight_mod.build(-np.asarray(a[:3]), a[3],
+                                          device=device)
     sc, sm = _fit(sky_rgb[None])
 
     # --- heterogeneous medium grid (at most one medium_hete per scene)
@@ -541,7 +565,8 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
         sky_kind=torch.tensor(sky_kind, dtype=torch.int64, device=device),
         sky_coeff=t(sc[0]), sky_mul=f0(sm[0]),
         kinds_used=tuple(sorted({m.kind for m in mats})),
-        has_daylight=sky_kind == SKY_DAYLIGHT, has_hete=vol_grid is not None,
+        daylight=daylight_sky, has_daylight=daylight_sky is not None,
+        has_hete=vol_grid is not None,
         has_vol_emission=has_vol_emission, exterior_med=_exterior_med(desc),
         has_textures=bool(tex_files), vol=vol_grid,
         tex_atlas=tex_atlas, tex_dims=tex_dims)

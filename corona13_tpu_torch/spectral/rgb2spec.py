@@ -4,10 +4,16 @@ The Jakob & Hanika 2019 sigmoid-polynomial
 ``S(lambda) = s(c0*lambda^2 + c1*lambda + c2)``, ``s(x) = 1/2 + x / (2
 sqrt(1 + x^2))``, lambda in nm.  Constant albedos are fitted exactly at
 scene load by the same Levenberg-Marquardt 3x3 solve as the JAX package,
-in float32 on the CPU.
+in float32, on the device the caller names (``fit_coeff(..., device=...)``
+is a required keyword: the scene loader fits its few albedos on the CPU, an
+environment map its millions of texels where the scene lives).  Textures
+of RGB values can use the trilinear coefficient LUT instead
+(:class:`Rgb2SpecLUT`, :func:`fetch_lut`, :func:`build_lut`).
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -47,15 +53,27 @@ def _norm_to_nm(cn: torch.Tensor) -> torch.Tensor:
     return torch.stack([a0, a1, a2], dim=-1)
 
 
-def fit_coeff(rgb, space: str = 'ergb', iters: int = 50) -> torch.Tensor:
+# rows fitted at once: bounds the [rows, 95] temporaries of a large image
+_FIT_ROWS = 1 << 18
+
+
+def fit_coeff(rgb, space: str = 'ergb', iters: int = 50, *,
+              device) -> torch.Tensor:
     """Fit sigmoid-poly coefficients reproducing ``rgb`` (values in [0,1])
     by Levenberg-Marquardt on the 3x3 system rgb(S(c)) = rgb_target,
-    batched over leading axes, in float32 on the CPU."""
-    m = torch.as_tensor(colour.from_xyz_matrix(space))
-    target = torch.as_tensor(np.asarray(rgb, np.float32))
+    batched over leading axes, in float32 on ``device``; the result stays
+    there."""
+    target = torch.as_tensor(np.asarray(rgb, np.float32), device=device)
     flat = target.reshape(-1, 3)
+    out = torch.cat([_fit_rows(flat[i:i + _FIT_ROWS], space, iters)
+                     for i in range(0, max(flat.shape[0], 1), _FIT_ROWS)])
+    return out.reshape(target.shape[:-1] + (3,))
 
-    lams = torch.as_tensor(_quad_lambdas())
+
+def _fit_rows(flat: torch.Tensor, space: str, iters: int) -> torch.Tensor:
+    dev = flat.device
+    m = torch.as_tensor(colour.from_xyz_matrix(space), device=dev)
+    lams = torch.as_tensor(_quad_lambdas(), device=dev)
     t_n = (lams - _T_CENTER) / _T_SCALE
     basis = torch.stack([t_n * t_n, t_n, torch.ones_like(t_n)], dim=-1)  # [Q,3]
     cmf = cie.xyz_of_lambda(lams)                                       # [Q,3]
@@ -78,8 +96,8 @@ def fit_coeff(rgb, space: str = 'ergb', iters: int = 50) -> torch.Tensor:
     x0 = (2.0 * mean - 1.0) / (2.0 * torch.sqrt(mean * (1.0 - mean)))
     c = torch.zeros_like(flat)
     c[:, 2] = x0
-    lm = torch.full((flat.shape[0],), 1e-4)
-    eye = torch.eye(3)
+    lm = torch.full((flat.shape[0],), 1e-4, device=dev)
+    eye = torch.eye(3, device=dev)
     for _ in range(iters):
         j = jacobian(c)
         r = residual(c)
@@ -93,14 +111,99 @@ def fit_coeff(rgb, space: str = 'ergb', iters: int = 50) -> torch.Tensor:
         better = err_new < err
         c = torch.where(better[:, None], c_new, c)
         lm = torch.where(better, torch.clamp(lm * 0.3, min=1e-8), lm * 4.0)
-    return _norm_to_nm(c).reshape(target.shape[:-1] + (3,))
+    return _norm_to_nm(c)
 
 
 def fit_coeff_scaled(rgb: np.ndarray, space: str = 'ergb'):
     """Fit arbitrary-brightness rgb: returns numpy (coeff, mul) with
-    rgb = mul * rgb_unit, mul >= 1 (colours <= 1 are not scaled)."""
+    rgb = mul * rgb_unit, mul >= 1 (colours <= 1 are not scaled).  A host
+    helper of the scene loader (a handful of albedos a scene): fitted on
+    the CPU."""
     rgb = np.asarray(rgb, np.float32)
     mul = np.maximum(rgb.max(axis=-1), 1.0)
     unit = rgb / mul[..., None]
-    coeff = fit_coeff(unit, space=space).numpy()
+    coeff = fit_coeff(unit, space=space, device='cpu').numpy()
     return coeff, mul
+
+
+# --- LUT --------------------------------------------------------------------
+
+class Rgb2SpecLUT:
+    """Coefficient LUT in the reference's layout: data[i, z, y, x, 3] where
+    i = argmax component, (x, y) = the other two components scaled by the
+    max, z = the max component's value on the (possibly non-uniform)
+    ``scale`` grid.  Host numpy; ``fetch_lut`` takes tensors of it."""
+
+    def __init__(self, res: int, scale: np.ndarray, data: np.ndarray):
+        self.res = int(res)
+        self.scale = np.asarray(scale, np.float32)
+        self.data = np.asarray(data, np.float32).reshape(3, res, res, res, 3)
+
+    @classmethod
+    def load(cls, path: str) -> 'Rgb2SpecLUT':
+        """Read the reference's binary 'SPEC' format (rgb2spec.h:27-63)."""
+        with open(path, 'rb') as f:
+            if f.read(4) != b'SPEC':
+                raise ValueError(f'{path}: not a SPEC coefficient file')
+            (res,) = struct.unpack('<I', f.read(4))
+            scale = np.frombuffer(f.read(4 * res), np.float32)
+            data = np.frombuffer(f.read(4 * res ** 3 * 9), np.float32)
+        return cls(res, scale, data)
+
+    def save(self, path: str) -> None:
+        with open(path, 'wb') as f:
+            f.write(b'SPEC')
+            f.write(struct.pack('<I', self.res))
+            f.write(self.scale.astype('<f4').tobytes())
+            f.write(self.data.astype('<f4').tobytes())
+
+
+def fetch_lut(lut_scale: torch.Tensor, lut_data: torch.Tensor,
+              rgb: torch.Tensor) -> torch.Tensor:
+    """Trilinear LUT fetch.  lut_data: [3, res, res, res, 3]; rgb: [..., 3]
+    in [0,1]; returns coefficients [..., 3] (reference rgb2spec_fetch)."""
+    res = lut_data.shape[1]
+    i = torch.argmax(rgb, dim=-1)
+    comp = lambda k: torch.gather(rgb, -1, (k % 3)[..., None])[..., 0]
+    z = comp(i)
+    zsafe = torch.clamp(z, min=1e-10)
+    x = comp(i + 1) * (res - 1) / zsafe
+    y = comp(i + 2) * (res - 1) / zsafe
+    xi = torch.clamp(x.to(torch.int64), 0, res - 2)
+    yi = torch.clamp(y.to(torch.int64), 0, res - 2)
+    zi = torch.clamp(torch.searchsorted(lut_scale, z.contiguous(), right=True)
+                     - 1, 0, res - 2)
+    x1 = (x - xi)[..., None]
+    y1 = (y - yi)[..., None]
+    z1 = ((z - lut_scale[zi]) / (lut_scale[zi + 1] - lut_scale[zi]))[..., None]
+    x0, y0, z0 = 1.0 - x1, 1.0 - y1, 1.0 - z1
+
+    def g(dz, dy, dx):
+        return lut_data[i, zi + dz, yi + dy, xi + dx]
+
+    return (((g(0, 0, 0) * x0 + g(0, 0, 1) * x1) * y0 +
+             (g(0, 1, 0) * x0 + g(0, 1, 1) * x1) * y1) * z0 +
+            ((g(1, 0, 0) * x0 + g(1, 0, 1) * x1) * y0 +
+             (g(1, 1, 0) * x0 + g(1, 1, 1) * x1) * y1) * z1)
+
+
+def build_lut(res: int = 32, space: str = 'ergb', *,
+              device) -> Rgb2SpecLUT:
+    """Generate a coefficient LUT by fitting every grid point on ``device``
+    (the reference builds it offline with tools/img/rgb2spec_opt.cpp); the
+    LUT itself is host numpy."""
+    # smoothstep-warped z grid concentrates resolution near the gamut edges
+    t = np.linspace(0, 1, res, dtype=np.float32)
+    scale = t * t * (3 - 2 * t)
+    scale[0] = 1e-4  # avoid the degenerate black corner
+    xs = np.arange(res, dtype=np.float32) / (res - 1)
+    rgb = np.zeros((3, res, res, res, 3), np.float32)
+    for i in range(3):
+        for zi in range(res):
+            z = scale[zi]
+            xg, yg = np.meshgrid(xs * z, xs * z, indexing='xy')
+            rgb[i, zi, ..., i] = z
+            rgb[i, zi, ..., (i + 1) % 3] = xg
+            rgb[i, zi, ..., (i + 2) % 3] = yg
+    data = fit_coeff(rgb, space=space, device=device).cpu().numpy()
+    return Rgb2SpecLUT(res, scale, data.reshape(-1))

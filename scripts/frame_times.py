@@ -1,10 +1,13 @@
 """Frame times of the port's render cells on one CUDA card, with spread.
 
-    python3 scripts/frame_times.py [--root TREE] [--frames N]
+    python3 scripts/frame_times.py [--root TREE] [--frames N] [--cells A,B]
 
 Renders one 1024x576 progression (mf=4, NEE on) of each cell through
 render.render: cornell and plane at max_verts=6, 0031_hete and
-0030_subsurf at max_verts=8 with media on.  Two warm-up frames per cell,
+0030_subsurf at max_verts=8 with media on, and the plane scene under a
+1024x2048 sun envmap (sky) and under a daylight sky at max_verts=6
+(--cells names a subset: a tree from before the skies has only the first
+four).  Two warm-up frames per cell,
 then N timed ones (default 8), each ending with the image on the host.
 Prints seconds per frame as min / median / max with the card's name and
 power limit.  --root names another checkout whose corona13_tpu_torch to
@@ -32,6 +35,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--root', default=HERE)
     ap.add_argument('--frames', type=int, default=8)
+    ap.add_argument('--cells', default='')
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -54,9 +58,14 @@ def main():
         'plane': (lambda: testing.plane_scene(device=dev), 6, {}),
         '0031_hete': (lambda: load('0031_hete'), 8, {'media': True}),
         '0030_subsurf': (lambda: load('0030_subsurf'), 8, {'media': True}),
+        'sky': (lambda: _under_envmap(testing.plane_scene(device=dev)), 6, {}),
+        'daylight': (lambda: _under_daylight(testing.plane_scene(device=dev)),
+                     6, {}),
     }
+    names = [c for c in args.cells.split(',') if c] or list(cells)
     out = {}
-    for name, (make, max_verts, kw) in cells.items():
+    for name in names:
+        make, max_verts, kw = cells[name]
         sc = scene_mod.fit_film(make(), W, H)
         cfg = pt_mod.PTConfig(width=W, height=H, max_verts=max_verts, mf=4,
                               use_nee=True, **kw)
@@ -73,6 +82,22 @@ def main():
               f'{len(secs)}) on {card}, tree {root}', flush=True)
     print(json.dumps({'device': card, 'root': root, 'frame_s': out}),
           flush=True)
+
+
+SUN_DIR = (0.3, 0.2, 0.9)
+
+
+def _under_envmap(scene):
+    from corona13_tpu_torch.models import envmap
+    return scene.with_envmap(envmap.make_gradient_sky(
+        sun_dir=SUN_DIR, sun_radiance=200.0, res=(1024, 2048)))
+
+
+def _under_daylight(scene):
+    import dataclasses
+    from corona13_tpu_torch.models import daylight
+    return dataclasses.replace(scene, has_daylight=True, daylight=daylight.build(
+        SUN_DIR, 2.5, device=scene.device))
 
 
 if __name__ == '__main__':

@@ -395,3 +395,103 @@ def test_intersect_mixed_scene_on_the_card(cuda):
     assert (bk.cpu() == bp).float().mean() >= 0.999
     for lo, hi in ((0, 3000), (3000, 6000), (6000, 9000)):   # every kind hit
         assert ((hp.prim >= lo) & (hp.prim < hi)).any()
+
+
+# --- skies, compaction and gradients on the card against the CPU ------------
+
+def _paths_on_both(build, cfg, cuda, sample=5):
+    """sample_paths of ``build(device)`` on the card and on the CPU: the
+    share of paths equal at rtol 1e-4 / atol 1e-6, and the card's launch
+    counts of that call."""
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    out = []
+    for d in (cuda, torch.device('cpu')):
+        before = dict(trace_cuda.launches)
+        pix = torch.arange(cfg.width * cfg.height, device=d)
+        out.append(pt_mod.sample_paths(build(d), cfg, sample, pix)[0].cpu()
+                   .numpy())
+        if d is cuda:
+            moved = {k: trace_cuda.launches[k] - v for k, v in before.items()
+                     if trace_cuda.launches[k] != v}
+    close = np.isclose(out[0], out[1], rtol=1e-4, atol=1e-6).all(axis=-1)
+    assert (out[1] > 0).any(axis=-1).mean() > 0.05
+    return float(close.mean()), moved
+
+
+def test_sky_frames_on_the_card(cuda):
+    """An envmap frame (two any-hit launches a bounce) and a daylight
+    frame: the card's paths equal the CPU's on >= 99%."""
+    import dataclasses
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.models import daylight, envmap
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=5, mf=4)
+    rgb = envmap.make_gradient_sky(sun_dir=(0.3, 0.2, 0.9), sun_radiance=200.0)
+    env = envmap.build(rgb, device=cuda)
+    assert env.coeff.is_cuda
+    cpu_tables = dataclasses.replace(env, **{
+        f.name: getattr(env, f.name).cpu() for f in dataclasses.fields(env)})
+
+    def under_envmap(d):
+        return dataclasses.replace(
+            testing.plane_scene(device=d), has_envmap=True,
+            envmap=env if d is cuda else cpu_tables)
+    share, moved = _paths_on_both(under_envmap, cfg, cuda)
+    assert share >= 0.99, share
+    assert moved == {'closest': 4, 'any': 8}, moved
+
+    def under_daylight(d):
+        return dataclasses.replace(
+            testing.plane_scene(device=d), has_daylight=True,
+            daylight=daylight.build((0.3, 0.2, 0.9), 2.5, device=d))
+    share, moved = _paths_on_both(under_daylight, cfg, cuda)
+    assert share >= 0.99, share
+    assert moved == {'closest': 4, 'any': 4}, moved
+    # the bisection finds on the card what it finds on the CPU
+    g = torch.Generator().manual_seed(3)
+    r1, r2 = torch.rand(1 << 16, generator=g), torch.rand(1 << 16, generator=g)
+    dc, _ = envmap.sample(env, r1.to(cuda), r2.to(cuda))
+    dh, _ = envmap.sample(cpu_tables, r1, r2)
+    assert ((dc.cpu() - dh).abs().amax(dim=-1) < 1e-5).float().mean() >= 0.995
+
+
+def test_compacted_frame_on_the_card(cuda):
+    """A capped wavefront: the same survivors on the card as on the CPU,
+    and the kernels launched once a depth."""
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=5, mf=4,
+                          compact=(1.0, 0.8, 0.7, 0.6))
+    share, moved = _paths_on_both(lambda d: testing.cornell_scene(device=d),
+                                  cfg, cuda)
+    assert share >= 0.99, share
+    assert moved == {k: 4 for k in ('closest', 'any', 'dense_sphere_closest',
+                                    'dense_sphere_any')}, moved
+
+
+def test_gradient_on_the_card(cuda):
+    """backward() through the kernels' launches (which record nothing):
+    the card's gradient equals the CPU's to 5e-3 and central differences
+    on the card to 2e-3."""
+    import dataclasses
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=5, mf=4)
+    grads = {}
+    for d in (cuda, torch.device('cpu')):
+        sc = testing.cornell_scene(device=d)
+
+        def f(t):
+            mats = dataclasses.replace(sc.materials, d_mul=sc.materials.d_mul * t)
+            return pt_mod.render_sample(
+                dataclasses.replace(sc, materials=mats), cfg, 0).mean()
+        theta = torch.tensor(1.0, device=d, requires_grad=True)
+        f(theta).backward()
+        grads[d.type] = float(theta.grad)
+        if d is cuda:
+            with torch.no_grad():
+                fd = (float(f(torch.tensor(1.001, device=d)))
+                      - float(f(torch.tensor(0.999, device=d)))) / 0.002
+    assert np.isfinite(grads['cuda']) and grads['cuda'] > 0
+    assert abs(grads['cuda'] - grads['cpu']) <= 5e-3 * grads['cpu'], grads
+    assert abs(grads['cuda'] - fd) <= 2e-3 * abs(fd), (grads, fd)

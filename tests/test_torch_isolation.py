@@ -1,8 +1,10 @@
 """The port runs without JAX: a fresh interpreter imports
 corona13_tpu_torch, builds cornell_scene and the plane scene, renders one
 16x9 progression on the CPU, loads 0031_hete with scene.load_scene and
-traces one 16x9 media progression of it, and neither jax, flax nor any
-module of the JAX package corona13_tpu gets imported."""
+traces one 16x9 media progression of it, renders a frame under an envmap
+(models.envmap) and one under a daylight sky (models.daylight), a compacted
+frame, a gradient, a vis AOV (samplers.vis) and a DBOR cascade, and neither
+jax, flax nor any module of the JAX package corona13_tpu gets imported."""
 
 import os
 import subprocess
@@ -26,6 +28,32 @@ hete = scene.fit_film(hete, 16, 9)
 img = pt.render_sample(hete, pt.PTConfig(width=16, height=9, max_verts=4,
                                          media=True), 0).numpy()
 assert np.isfinite(img).all()
+import dataclasses
+import torch
+from corona13_tpu_torch.models import daylight, envmap
+from corona13_tpu_torch.ops import splat
+from corona13_tpu_torch.samplers import vis
+cfg = pt.PTConfig(width=16, height=9, max_verts=4)
+fur = testing.furnace_scene(albedo=0.6, emission=0.0, device='cpu')
+env = fur.with_envmap(envmap.make_gradient_sky(sun_dir=(0.3, 0.2, 0.9),
+                                               res=(8, 16)))
+day = dataclasses.replace(fur, has_daylight=True, daylight=daylight.build(
+    (0.3, 0.2, 0.9), 2.5, device='cpu'))
+for s in (env, day):
+    img = pt.render_sample(s, cfg, 0).numpy()
+    assert np.isfinite(img).all() and img.max() > 0
+img = pt.render_sample(sc, cfg.replace(compact=(1.0, 0.8, 0.5)), 0).numpy()
+assert np.isfinite(img).all() and img.max() > 0
+theta = torch.tensor(1.0, requires_grad=True)
+mats = dataclasses.replace(sc.materials, d_mul=sc.materials.d_mul * theta)
+pt.render_sample(dataclasses.replace(sc, materials=mats), cfg, 0).mean().backward()
+assert float(theta.grad) > 0
+assert vis.render_aov(sc, cfg, 0, kind='normals').shape == (9, 16, 3)
+fbs = splat.splat_dbor(torch.zeros(splat.N_DBOR, 9, 16, 3), torch.rand(50) * 16,
+                       torch.rand(50) * 9, torch.rand(50, 3) * 40)
+assert np.isfinite(splat.dbor_merge(fbs).numpy()).all()
+for mod in ('models.envmap', 'models.daylight', 'samplers.vis'):
+    assert 'corona13_tpu_torch.' + mod in sys.modules, mod
 leaked = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'flax', 'corona13_tpu')]
 assert not leaked, leaked

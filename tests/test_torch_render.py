@@ -181,19 +181,26 @@ def test_alive_profile_and_fit_film(cornell):
 
 
 def test_unported_configs_raise(cornell):
-    """cfg.compact and daylight and envmap skies raise; image textures no
-    longer do: a scene that carries an atlas none of its materials uses
-    traces the paths of the scene without it."""
+    """What used to raise NotImplementedError now traces: cfg.compact, a
+    daylight sky and an envmap sky give finite paths with signal; only a
+    malformed capacity schedule raises.  Image textures: a scene that
+    carries an atlas none of its materials uses traces the paths of the
+    scene without it."""
     import dataclasses
+    from corona13_tpu_torch.models import daylight
     n = 16
     pix = torch.arange(n)
     cfg = pt_mod.PTConfig(width=4, height=4, max_verts=3)
-    cases = [(cornell, cfg.replace(compact=(1.0, 0.5)))] + [
-        (dataclasses.replace(cornell, **{flag: True}), cfg)
-        for flag in ('has_daylight', 'has_envmap')]
-    for sc, c in cases:
-        with pytest.raises(NotImplementedError):
-            pt_mod.sample_paths(sc, c, 0, pix)
+    sky = dataclasses.replace(
+        cornell, has_daylight=True,
+        daylight=daylight.build((0.3, 0.2, 0.9), 2.5, device='cpu'))
+    env = cornell.with_envmap(np.full((4, 8, 3), 0.5, np.float32))
+    for sc, c in ((cornell, cfg.replace(compact=(1.0, 0.5))), (sky, cfg),
+                  (env, cfg)):
+        accum = pt_mod.sample_paths(sc, c, 0, pix)[0]
+        assert torch.isfinite(accum).all() and accum.sum() > 0
+    with pytest.raises(ValueError):
+        pt_mod.sample_paths(cornell, cfg.replace(compact=(1.0,)), 0, pix)
     textured = dataclasses.replace(
         cornell, has_textures=True, tex_atlas=torch.zeros(1, 2, 2, 4),
         tex_dims=torch.tensor([[2, 2]]))

@@ -207,14 +207,18 @@ def test_cli_renders_on_the_cpu(tmp_path):
 
 
 def test_cli_refuses_what_it_cannot_do(tmp_path):
-    """No silent CPU fallback without a card, and the unported samplers and
-    --dbor exit non-zero."""
+    """No silent CPU fallback without a card (for ``--dbor`` and the vis
+    sampler neither), and the unported samplers exit non-zero."""
     out = str(tmp_path / 'r')
     if not torch.cuda.is_available():
         p = _cli(_path('0031_hete'), '-x', out, timeout=120)
         assert p.returncode != 0 and 'no CUDA device' in p.stderr
         assert not os.path.exists(out + '_fb00.pfm')
-    for extra in (('--sampler', 'lt'), ('--sampler', 'vis'), ('--dbor',)):
+        for extra in (('--sampler', 'vis'), ('--dbor',)):
+            p = _cli(_path('0031_hete'), '-x', out, *extra, timeout=120)
+            assert p.returncode != 0 and 'no CUDA device' in p.stderr
+    for extra in (('--sampler', 'lt'), ('--sampler', 'bdpt'),
+                  ('--sampler', 'kmlt', '--dbor')):
         p = _cli(_path('0031_hete'), '--device', 'cpu', '-x', out, *extra,
                  timeout=120)
         assert p.returncode != 0 and 'not ported yet' in p.stderr

@@ -78,7 +78,7 @@ def test_fit_coeff_reflectance():
     rgb[:5] = [(0, 0, 0), (1, 1, 1), (0.6, 0.1, 0.1), (0.1, 0.6, 0.1),
                (0.7, 0.7, 0.7)]
     cj = np.asarray(jr2s.fit_coeff(jnp.asarray(rgb)))
-    ct = tr2s.fit_coeff(rgb).numpy()
+    ct = tr2s.fit_coeff(rgb, device='cpu').numpy()
     lam = np.linspace(360, 830, 95).astype(np.float32)
     sj = np.asarray(jr2s.eval_coeff(jnp.asarray(cj)[:, None, :],
                                     jnp.asarray(lam)))

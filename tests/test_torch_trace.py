@@ -532,13 +532,16 @@ def test_entry_points_default_to_the_card():
     caller passes device='cpu'; the constructors under them take ``device`` as
     a required keyword, so nothing lands on the CPU unasked."""
     from corona13_tpu_torch import scene as tscene
-    from corona13_tpu_torch.models import medium_hete
+    from corona13_tpu_torch.models import daylight, envmap, medium_hete
+    from corona13_tpu_torch.spectral import rgb2spec
     for fn in (tscene.load_scene, ttesting.assemble_scene,
                ttesting.cornell_scene, ttesting.plane_scene,
-               ttesting.furnace_scene, convert.scene_from_numpy):
+               ttesting.furnace_scene, convert.scene_from_numpy,
+               envmap.build, daylight.build):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
     for fn in (tscene.material_table, ttrace.make_device_geometry,
-               ttrace.DeviceBVH.from_host, medium_hete.from_volfile):
+               ttrace.DeviceBVH.from_host, medium_hete.from_volfile,
+               rgb2spec.fit_coeff, rgb2spec.build_lut):
         par = inspect.signature(fn).parameters['device']
         assert par.default is inspect.Parameter.empty, fn
         assert par.kind is inspect.Parameter.KEYWORD_ONLY, fn
