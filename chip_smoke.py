@@ -73,7 +73,17 @@ Phases (each prints its results; any failure exits non-zero):
      itself on the sky frame of 11, whose luminance spans the levels: at
      least two levels above 0 filled, their sum against the plain splat
      (1e-4), the card's levels and merge against the CPU's on the same
-     samples (1e-5).
+     samples (1e-5);
+ 15. light paths: lt, bdpt, ptlt and bdpt1 on cornell at 1024x576, mf=4,
+     max_verts=6: 2 warm-up and 3 timed progressions each (min, median,
+     max s/frame; closest-hit and any-hit launches a progression held to
+     LIGHT_CALLS; rays; peak memory), one profiled bdpt progression, one
+     bdpt frame of the plane scene; the four camera splats of a bdpt frame
+     twice (bit-identical), against the CPU (1e-6), and the splat timed
+     beside the index_add scatter it replaced; lt, bdpt, ptlt on the card
+     against the CPU at 64x36 (1e-4 of the largest pixel on >= 99% of
+     pixels) and bdpt1's picks and table over 4 progressions; the CLI
+     with each of the four samplers on 0002_mb at 256x160.
 The line before the last is a JSON record of the kernels, each with its
 bound on this card: the larger of its bytes (inputs once, outputs once,
 dead lanes only their t_init) over 3.35 TB/s and its float operations (the
@@ -1118,13 +1128,13 @@ def _read_launches():
     return {k: v for k, v in trace_cuda.launches.items() if v}
 
 
-def _profile_frame(name, scene, cfg, card):
-    """One progression under torch.profiler: the unprofiled wall time of the
-    same progression, the profiled device time, their ratio and the
-    number of launches on the card."""
+def _profile_frame(name, scene, cfg, card, frame=None):
+    """One progression (pt's, or ``frame(sample)``) under torch.profiler:
+    the unprofiled wall time of the same progression, the profiled device
+    time, their ratio and the number of launches on the card."""
     from torch.profiler import ProfilerActivity, profile
     from corona13_tpu_torch.samplers import pt as pt_mod
-    frame = lambda s: pt_mod.render_sample(scene, cfg, s)
+    frame = frame or (lambda s: pt_mod.render_sample(scene, cfg, s))
     with torch.no_grad():
         frame(0)
         torch.cuda.synchronize()
@@ -1554,6 +1564,279 @@ def dbor_vis_phase(dev, sky, card):
                 cascade=_dbor_cascade(sky, dev, card))
 
 
+# --- phase 15: the light-path samplers ---------------------------------------
+
+# traversal calls (closest, any) a progression at max_verts=6: lt traces
+# 4 bounces and connects the light vertex and each bounce to the camera;
+# bdpt traces 5 eye and 3 light bounces, and each connection with a light
+# vertex (s >= 1: 10 with t >= 2, 4 camera splats) is one any-hit call;
+# ptlt keeps s = 1 (4) and the camera splats (4); bdpt1 connects once, an
+# any-hit call only where its pick has s >= 1
+LIGHT_CALLS = {'lt': (4, 5), 'bdpt': (8, 14), 'ptlt': (8, 8)}
+LIGHT_SAMPLERS = ('lt', 'bdpt', 'ptlt', 'bdpt1')
+
+
+def _light_frame(name, scene, cfg):
+    """frame(sample) of one light-path sampler, and the picks of bdpt1
+    (the strategy of each progression, appended as it renders)."""
+    from corona13_tpu_torch.samplers import bdpt, bdpt1, lt, ptlt
+    if name != 'bdpt1':
+        render = {'lt': lt.render_sample, 'bdpt': bdpt.render_sample,
+                  'ptlt': ptlt.render_sample}[name]
+        return lambda s: render(scene, cfg, s), None
+    table, picks = bdpt1.ConfigTable.create(cfg), []
+
+    def frame(s):
+        picks.append(table.strategies[bdpt1.pick(cfg, s, table)[0]])
+        return bdpt1.render_sample(scene, cfg, s, table)[0]
+    return frame, picks
+
+
+def _rays_traced(frame, s):
+    """Rays one progression traces: lanes with t_max > 0 in the triangle
+    kernel's calls (each call launches it once, before any other kind)."""
+    from corona13_tpu_torch.ops import trace_cuda
+    count = [0]
+    real = {k: getattr(trace_cuda, k) for k in ('closest_hit', 'any_hit')}
+
+    def counted(name):
+        def wrapper(target, kind, org, direction, t_max, *a, **kw):
+            if kind in ('tri', 'moving'):
+                count[0] += int((torch.as_tensor(t_max) > 0).sum()) \
+                    if torch.is_tensor(t_max) else org.shape[0]
+            return real[name](target, kind, org, direction, t_max, *a, **kw)
+        return wrapper
+    for k in real:
+        setattr(trace_cuda, k, counted(k))
+    try:
+        frame(s)
+    finally:
+        for k, f in real.items():
+            setattr(trace_cuda, k, f)
+    return count[0]
+
+
+def _light_frames(name, label, scene, cfg, card, dense, warm=2, timed=3):
+    """warm untimed progressions, then timed ones, each ending on the host,
+    with the launch counts zeroed just before the timed ones and read just
+    after (held to LIGHT_CALLS a progression; each call on cornell also
+    launches the dense sphere form); peak device memory over the timed
+    ones; the rays of one more progression."""
+    frame, picks = _light_frame(name, scene, cfg)
+    times = []
+    with torch.no_grad():
+        for s in range(warm):
+            frame(s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        for s in range(warm, warm + timed):
+            t0 = time.perf_counter()
+            img = frame(s)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / GB
+        rays = _rays_traced(frame, warm + timed)
+    if picks is not None:
+        per = [(8, int(st[0] >= 1)) for st in picks[warm:warm + timed]]
+    else:
+        per = [LIGHT_CALLS[name]] * timed
+    calls = {'closest': sum(c for c, _ in per), 'any': sum(a for _, a in per)}
+    if dense:
+        calls.update({'dense_sphere_' + k: v for k, v in list(calls.items())})
+    expect = {k: v for k, v in calls.items() if v}
+    med = float(np.median(times))
+    img = img.cpu().numpy()
+    print(f'{label}: {med:.4f} s per frame (min {min(times):.4f}, max '
+          f'{max(times):.4f}, {timed} frames after {warm} warm-up); kernel '
+          f'launches {launches} over the {timed} frames (expected {expect}'
+          f'{", picks " + str(picks[warm:warm + timed]) if picks else ""}); '
+          f'{rays} rays a frame, {rays / med / 1e6:.2f} Mrays/s; peak memory '
+          f'{peak:.3f} GB; image mean {img.mean():.6g}, finite '
+          f'{bool(np.isfinite(img).all())} on {card}', flush=True)
+    check(launches == expect, f'{label}: launches {launches}, expected {expect}')
+    check(np.isfinite(img).all() and img.mean() > 0, f'{label}: image')
+    return dict(frame_s=times, median_s=med, launches=launches,
+                launches_per_frame={k: v / timed for k, v in launches.items()},
+                rays=rays, mrays_per_s=rays / med / 1e6, peak_gb=peak,
+                mean=float(img.mean()), picks=picks)
+
+
+def _splat_times():
+    """scripts/splat_times.py of this checkout (its capture of bdpt's
+    camera splats, its timer and the index_add scatter)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'splat_times', os.path.join(ROOT, 'scripts', 'splat_times.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _light_splats(scene, cfg, dev, card):
+    """The four t = 1 splats of one bdpt progression (their inputs
+    captured as bdpt hands them to splat): into one framebuffer twice,
+    bit-identical; against the CPU on the same inputs; splat's wall and
+    device time a call at that width beside the index_add scatter it
+    replaced, and that scatter's own run-to-run difference."""
+    from corona13_tpu_torch.ops import splat as splat_mod
+    st = _splat_times()
+    calls = st.capture(scene, cfg)
+    check(len(calls) == 4, f'{len(calls)} general splats in a bdpt frame')
+
+    def four(d, scatter=None):
+        fb = torch.zeros((H, W, 3), device=d)
+        own = splat_mod._scatter
+        splat_mod._scatter = scatter or own
+        try:
+            for pi, pj, col in calls:
+                fb = splat_mod.splat(fb, pi.to(d), pj.to(d), col.to(d))
+        finally:
+            splat_mod._scatter = own
+        return fb
+    a, b = four(dev), four(dev)
+    cpu = four(torch.device('cpu'))
+    top = float(cpu.abs().max())
+    err = float((a.cpu() - cpu).abs().max()) / top
+    old = [four(dev, st.scatter_index_add) for _ in range(2)]
+    old_diff = float((old[0] - old[1]).abs().max()) / top
+    old_bits = int((old[0].view(torch.int32) != old[1].view(torch.int32)).sum())
+    fb0 = torch.zeros((H, W, 3), device=dev)
+    run = lambda i: splat_mod.splat(fb0, *calls[i % 4])
+    new = st.time_calls(run)
+    own = splat_mod._scatter
+    splat_mod._scatter = st.scatter_index_add
+    try:
+        ref = st.time_calls(run)
+    finally:
+        splat_mod._scatter = own
+    n = calls[0][0].shape[0]
+    print(f'general splat, the 4 t = 1 splats of a bdpt frame ({n} splats x '
+          f'16 taps x 3 colours each): two runs bit-identical '
+          f'{torch.equal(a, b)}; card against CPU {err:.2e} of the largest '
+          f'pixel (tolerance 1e-6); splat (sorted segmented sum) '
+          f'{new["wall_ms"]:.3f} ms a call, device {new["device_ms"]:.3f} ms, '
+          f'{new["launches"]:.0f} launches; with index_add '
+          f'{ref["wall_ms"]:.3f} ms, device {ref["device_ms"]:.3f} ms, '
+          f'{ref["launches"]:.0f} launches, its two runs differing on '
+          f'{old_bits} of {a.numel()} values by up to {old_diff:.2e} of the '
+          f'largest pixel; on {card}', flush=True)
+    check(torch.equal(a, b), 'the splat is not reproducible on the card')
+    check(err <= 1e-6, f'splat on the card against the CPU: {err}')
+    check(new['device_ms'] > 0, 'the splat profile shows no device time')
+    return dict(splats=n, bit_identical=True, vs_cpu=err, ms=new['wall_ms'],
+                device_ms=new['device_ms'], launches=new['launches'],
+                index_add_ms=ref['wall_ms'],
+                index_add_device_ms=ref['device_ms'],
+                index_add_launches=ref['launches'],
+                index_add_bits_differing=old_bits,
+                index_add_run_diff=old_diff)
+
+
+def _light_vs_cpu(dev, w=64, h=36):
+    """lt, bdpt and ptlt on the card against the CPU on the same scene and
+    sample index (each pixel within 1e-4 of the largest on >= 99% of
+    pixels); bdpt1's picks and table over 4 progressions on both."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import bdpt1
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'light paths on the card against the CPU, cornell {w}x{h}')
+    cfg = pt_mod.PTConfig(width=w, height=h, max_verts=6, mf=4, use_nee=True)
+    scenes = {i: scene_mod.fit_film(testing.cornell_scene(device=d), w, h)
+              for i, d in enumerate((dev, torch.device('cpu')))}
+    out = {}
+    with torch.no_grad():
+        for name in ('lt', 'bdpt', 'ptlt'):
+            img = [_light_frame(name, sc, cfg)[0](5).cpu().numpy()
+                   for sc in scenes.values()]
+            top = float(np.abs(img[1]).max())
+            share = float(np.isclose(img[0], img[1], rtol=0, atol=1e-4 * top)
+                          .all(axis=-1).mean())
+            print(f'{name}: pixels within 1e-4 of the largest {share:.4f} '
+                  f'(bar 0.99), means {img[0].mean():.6g} vs '
+                  f'{img[1].mean():.6g}', flush=True)
+            check(top > 0 and share >= 0.99, f'{name} card against CPU {share}')
+            out[name] = share
+        tables = []
+        for sc in scenes.values():
+            t = bdpt1.ConfigTable.create(cfg)
+            picks = []
+            for s in range(4):
+                picks.append(bdpt1.pick(cfg, s, t)[0])
+                bdpt1.render_sample(sc, cfg, s, t)
+            tables.append((picks, t))
+    (pc, tc), (ph, th) = tables
+    rel = float(np.max(np.abs(tc.mean - th.mean) / np.abs(th.mean)))
+    print(f'bdpt1 over 4 progressions: picks {pc} on the card, {ph} on the '
+          f'CPU; counts equal {bool((tc.count == th.count).all())}; means '
+          f'{rel:.2e} apart (tolerance 1e-4)', flush=True)
+    check(pc == ph and (tc.count == th.count).all() and rel <= 1e-4,
+          'bdpt1 table on the card differs from the CPU')
+    out['bdpt1'] = dict(picks=pc, mean_rel=rel)
+    return out
+
+
+def _light_cli():
+    """python -m corona13_tpu_torch 0002_mb --sampler S, the four at once."""
+    from corona13_tpu_torch.io import pfm as pfm_io
+    phase('CLI: python -m corona13_tpu_torch 0002_mb --sampler '
+          'lt|bdpt|ptlt|bdpt1 -s 2 -w 256 -h 160')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {s: subprocess.Popen(
+            [sys.executable, '-m', 'corona13_tpu_torch',
+             'data/golden/scenes/0002_mb/test.nra2', '--sampler', s, '-s', '2',
+             '-w', '256', '-h', '160', '-x', os.path.join(tmp, s)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s in LIGHT_SAMPLERS}
+        for s, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            check(p.returncode == 0,
+                  f'CLI --sampler {s} exited {p.returncode}: {stderr[-2000:]}')
+            img = pfm_io.read_pfm(os.path.join(tmp, s + '_fb00.pfm'))
+            frame = [l for l in stdout.splitlines() if 's/frame' in l][-1]
+            print(f'--sampler {s}: {frame.strip()}, image {img.shape}, mean '
+                  f'{img.mean():.6g}', flush=True)
+            check(img.shape == (160, 256, 3) and np.isfinite(img).all()
+                  and img.mean() > 0, f'CLI --sampler {s}: image')
+            out[s] = float(img.mean())
+    return out
+
+
+def light_paths_phase(dev, card):
+    """lt, bdpt, ptlt and bdpt1 on cornell at full width, bdpt on the plane
+    scene, the general splat of bdpt's camera splats, the card against the
+    CPU, and the CLI."""
+    import collections
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import bdpt
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    phase(f'light paths: lt, bdpt, ptlt, bdpt1 on cornell {W}x{H}, mf=4, '
+          f'max_verts=6, on {card}')
+    cornell = scene_mod.fit_film(testing.cornell_scene(device=dev), W, H)
+    out = {name: _light_frames(name, name, cornell, cfg, card, dense=True)
+           for name in LIGHT_SAMPLERS}
+    out['bdpt_profile'] = _profile_frame(
+        'bdpt frame', cornell, cfg, card,
+        frame=lambda s: bdpt.render_sample(cornell, cfg, s))
+    plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
+    out['bdpt_plane'] = _light_frames(
+        'bdpt', f'bdpt on the plane scene ({plane.geom.n_tris} triangles)',
+        plane, cfg, card, dense=False, warm=1, timed=1)
+    out['splat'] = _light_splats(cornell, cfg, dev, card)
+    out['vs_cpu'] = _light_vs_cpu(dev)
+    out['cli'] = _light_cli()
+    total = collections.Counter()
+    for k in LIGHT_SAMPLERS + ('bdpt_plane',):
+        total.update(out[k]['launches'])
+    out['launches'] = dict(total)
+    return out
+
+
 def main():
     smi = device_phase()
     from corona13_tpu_torch import scene as scene_mod
@@ -1593,6 +1876,8 @@ def main():
     compact = compact_phase(dev, smi)
     grad = grad_phase(dev, smi)
     dbor_vis = dbor_vis_phase(dev, sky_scene, smi)
+    light = light_paths_phase(dev, smi)
+    lpl = light['launches']
 
     common = {'route': 'cuda',
               'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
@@ -1605,9 +1890,13 @@ def main():
         case = 'cornell/shadow' if key == 'any' else 'cornell/bounce'
         m, c = kres[key][case], cres[case]
         ms = m['flag_ms'] if key == 'any' else m['ms']
-        return {'name': name, **common, 'launches': launches[key],
+        return {'name': name, **common,
+                'launches': launches[key] + lpl.get(key, 0),
                 'launches_per_frame': launches[key] / spp,
                 'launches_per_sky_frame': sky['envmap']['launches'][key] / 2,
+                'launches_per_light_frame': {
+                    k: light[k]['launches_per_frame'].get(key, 0)
+                    for k in LIGHT_SAMPLERS},
                 'max_abs_err': m['max_abs_err'], 'ms': ms,
                 'plain_ms': m['plain_ms'], 'bound_ms': c['bound_ms'],
                 'bound_by': c['bound_by'],
@@ -1630,12 +1919,14 @@ def main():
                   'lit_share': lit2}, **media,
         **prims, '0031_hete/paths_vs_cpu': media_close,
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
-        'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis}), flush=True)
+        'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
+        'light_paths': light}), flush=True)
 
     def form_entry(key):
         # launches: the render that reaches the form (cornell: the dense
-        # sphere list; 0002_mb: moving triangles; the hair frame: the line
-        # BVH), else the intersect / occluded calls of phase 3b
+        # sphere list, also in the light-path frames; 0002_mb: moving
+        # triangles; the hair frame: the line BVH), else the intersect /
+        # occluded calls of phase 3b
         run, frames = {'dense_sphere': (launches, spp),
                        'moving': (prims['0002_mb']['launches'], 2),
                        'line': (prims['hair']['launches'], 2)}.get(
@@ -1646,7 +1937,7 @@ def main():
                 'replaces': 'corona13_tpu/ops/trace.py:' + (
                     '605-614,630-638' if dense else '359-440')
                 + ' (XLA, not Pallas)',
-                'launches': run[key],
+                'launches': run[key] + lpl.get(key, 0),
                 'launches_per_frame': run[key] / frames if frames else None,
                 'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
                 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],

@@ -1,15 +1,17 @@
-"""Command-line front end (corona13_tpu/__main__.py): pt, ptdl and vis.
+"""Command-line front end (corona13_tpu/__main__.py): pt, ptdl, lt, bdpt,
+ptlt, bdpt1 and vis.
 
     python -m corona13_tpu_torch scene.nra2 -s 64 -w 1024 -h 576 -x render
     python -m corona13_tpu_torch scene.nra2 --media --device cpu
     python -m corona13_tpu_torch scene.nra2 --dbor
+    python -m corona13_tpu_torch scene.nra2 --sampler bdpt
     python -m corona13_tpu_torch scene.nra2 --sampler vis --aov depth
 
 Writes <output>_fb00.pfm (camera XYZ), a sidecar <output>.txt and a
 resumable <output>.fb checkpoint; ``--dbor`` also the cascade levels
 <output>_dborNN.pfm; ``--sampler vis`` only the AOV image.  Renders on CUDA
 unless ``--device cpu`` is given; without a CUDA device it exits non-zero
-rather than fall back.  The other samplers are not ported yet and exit
+rather than fall back.  ppm, kmlt and vmlt are not ported yet and exit
 non-zero.
 """
 
@@ -61,7 +63,7 @@ def main(argv=None):
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.sampler not in ('pt', 'ptdl', 'vis'):
+    if args.sampler in ('ppm', 'kmlt', 'vmlt'):
         print(f'[corona13_tpu_torch] --sampler {args.sampler} is not ported '
               f'yet', file=sys.stderr)
         return 2
@@ -114,7 +116,10 @@ def main(argv=None):
     if fbf.spp:
         print(f'[corona13_tpu_torch] resuming at {fbf.spp} spp from '
               f'{args.output}.fb')
-    if args.dbor:
+    if args.sampler in ('lt', 'bdpt', 'ptlt', 'bdpt1'):
+        fb = _render_light_paths(scene, cfg, args.sampler, fbf.spp, args.spp)
+        fbf.accumulate(fb, args.spp)
+    elif args.dbor:
         # the ptdl_dbor technique (reference src/sampler.d/ptdl_dbor.c): the
         # samples of each progression land in the log2-luminance cascade;
         # the written image is the trust-merged reassembly
@@ -142,6 +147,33 @@ def main(argv=None):
     print(f'[corona13_tpu_torch] wrote {args.output}_fb00.pfm '
           f'({fbf.spp} spp total)')
     return 0
+
+
+def _render_light_paths(scene, cfg, sampler: str, first: int, spp: int):
+    """Progressions first .. first+spp-1 of lt, bdpt, ptlt or bdpt1 (one
+    progression a step, as the JAX CLI runs them); returns their sum
+    [H, W, 3] on the host."""
+    import torch
+
+    from .samplers import bdpt, bdpt1, lt, ptlt
+    step = {'lt': lt.render_sample, 'bdpt': bdpt.render_sample,
+            'ptlt': ptlt.render_sample}.get(sampler)
+    table = bdpt1.ConfigTable.create(cfg) if sampler == 'bdpt1' else None
+    acc = None
+    t0 = time.time()
+    with torch.no_grad():
+        for s in range(first, first + spp):
+            if table is None:
+                out = step(scene, cfg, s)
+            else:
+                out, table = bdpt1.render_sample(scene, cfg, s, table)
+            acc = out if acc is None else acc + out
+            if acc.is_cuda:
+                torch.cuda.synchronize(acc.device)
+            done = s + 1 - first
+            print(f'  [{done}/{spp}] {(time.time() - t0) / done:.3f}s/frame',
+                  flush=True)
+    return acc.cpu().numpy()
 
 
 def _render_dbor(scene, cfg, first: int, spp: int):

@@ -12,7 +12,8 @@ import math
 
 import torch
 
-from ..utils.math import cross, dot, normalize
+from ..utils.math import (build_onb, cross, dot, from_frame, normalize,
+                          sample_cos_hemisphere)
 
 
 def phong_edf(roughness, cos_gn):
@@ -71,6 +72,35 @@ def sample_nee(lights, geom, from_pos, r1, r2, r3):
     gn = normalize(cross(e1, e2))
     return {'pos': pos, 'gn': gn, 'prim': prim, 'pdf_area': pdf_area,
             'u': u, 'v': v}
+
+
+def sample_emission(lights, geom, materials, prim_shader, lam,
+                    r1, r2, r3, r4, r5):
+    """Start a light subpath: pick an emissive prim by the area*L CDF, a
+    uniform point on it and a cosine (diffuse-EDF) direction about its
+    geometric normal.
+
+    Returns dict(pos, gn, dir, prim, thr [N, MF], pdf_pos, le) with
+    thr = Le * cos / (pdf_pos * pdf_dir), the light vertex's throughput."""
+    from ..spectral import rgb2spec
+    ls = sample_nee(lights, geom, None, r1, r2, r3)
+    pos, gn, prim = ls['pos'], ls['gn'], ls['prim']
+    pdf_pos = ls['pdf_area']                     # L / sum(L*A)
+    mat = prim_shader[torch.clamp(prim, min=0)]
+    em = (materials.e_mul[mat, None]
+          * rgb2spec.eval_coeff(materials.e_coeff[mat][..., None, :], lam))
+    d_local, pdf_dir_cos = sample_cos_hemisphere(r4, r5)
+    u, v = build_onb(gn)
+    wo = from_frame(u, v, gn, d_local)
+    cos_t = d_local[..., 2]
+    edf = phong_edf(materials.roughness[mat], cos_t)
+    le = em * edf[..., None]
+    pdf_pos_safe = torch.where(pdf_pos > 0.0, pdf_pos, 1.0)
+    thr = le * (cos_t / (pdf_pos_safe
+                         * torch.clamp(pdf_dir_cos, min=1e-12)))[..., None]
+    thr = torch.where(torch.isfinite(thr), thr, 0.0)
+    return dict(pos=pos, gn=gn, dir=wo, prim=prim, thr=thr, pdf_pos=pdf_pos,
+                le=le)
 
 
 def nee_pdf_area(lights, prim):

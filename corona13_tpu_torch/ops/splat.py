@@ -4,7 +4,8 @@
 pixel per progression, so every splat lands within a fixed 5x5
 neighbourhood of its own pixel and the filtered accumulation is 25 shifted
 dense adds.  ``splat``: the general form for samples anywhere on the image,
-one ``index_add_`` over a flat pixel index (differentiable in ``col``).
+one reproducible segmented sum over a flat pixel index (the same bits on
+every run and under any order of the samples; differentiable in ``col``).
 Filters of both: box, bilin, spline, gaussian and the default radial 4-term
 Blackman-Harris, each normalized per splat over its in-bounds taps.
 ``splat_dbor`` / ``dbor_merge``: the density-based outlier rejection
@@ -81,14 +82,47 @@ def splat_pixel_aligned(fb, jx, jy, col, batch: int = 1,
     return fb + acc
 
 
-def _scatter(fb, yi, xi, contrib):
+def _bits(x):
+    """The float32 bit pattern of x as int64 in [-2^31, 2^31)."""
+    return x.contiguous().view(torch.int32).to(torch.int64)
+
+
+def _scatter(fb, yi, xi, contrib, keep=None):
     """fb [..., H, W, 3] flattened over its leading axes plus a scatter-add
     of contrib [..., 3] at flat pixel indices (yi * W + xi, with any cascade
-    level folded into yi by the caller); out of place."""
+    level folded into yi by the caller); out of place.  Where ``keep`` is
+    False the contribution is left out (a filter tap off the image, whose
+    weight is 0).
+
+    Reproducible: the contributions are sorted by (pixel, then the bits of
+    their three colours), an order that does not depend on the order of
+    the input, and each pixel's run is summed serially in that order
+    (``segment_reduce``), so the same splats give the same bits on every
+    run and under any permutation.  An atomic ``index_add`` sums in no
+    fixed order on the card.  The left-out taps sort past the last pixel
+    and are never summed: clamped to the border, the taps of every splat
+    off the film would make one pixel's run, and its serial sum, as long
+    as their count."""
     w = fb.shape[-2]
+    n_pix = fb.numel() // 3
     flat = (yi * w + xi).reshape(-1)
-    out = fb.reshape(-1, 3).index_add(0, flat, contrib.reshape(-1, 3))
-    return out.reshape(fb.shape)
+    if keep is not None:
+        flat = torch.where(keep.reshape(-1), flat, n_pix)
+    vals = contrib.reshape(-1, 3)
+    key = _bits(vals.detach())
+    # two stable sorts: the minor key (colours 1 and 2) first, then the
+    # major (pixel, colour 0); each key fits int64 without overflow
+    minor = key[:, 1] * (1 << 32) + (key[:, 2] & 0xFFFFFFFF)
+    perm = torch.sort(minor, stable=True).indices
+    major = flat[perm] * (1 << 32) + (key[perm, 0] & 0xFFFFFFFF)
+    major, order = torch.sort(major, stable=True)
+    perm = perm[order]
+    # each pixel's run [offsets[p], offsets[p + 1]), empty runs sum to 0
+    pixels = torch.arange(n_pix + 1, dtype=torch.int64, device=flat.device)
+    offsets = torch.searchsorted(major >> 32, pixels)
+    sums = torch.segment_reduce(vals[perm], 'sum', offsets=offsets, axis=0,
+                                unsafe=True)
+    return (fb.reshape(-1, 3) + sums).reshape(fb.shape)
 
 
 N_DBOR = 8  # cascade buffers (reference --dbor default count)
@@ -163,7 +197,7 @@ def splat(fb, pix_i, pix_j, col, filter_kind: str = 'blackmanharris'):
                 fb = _scatter(fb, torch.clamp(yi, 0, h - 1),
                               torch.clamp(xi, 0, w - 1),
                               torch.where(inb[..., None],
-                                          wgt[..., None] * col, 0.0))
+                                          wgt[..., None] * col, 0.0), inb)
         return fb
 
     # 4x4 footprint: the 16 taps computed densely, then one scatter
@@ -187,4 +221,4 @@ def splat(fb, pix_i, pix_j, col, filter_kind: str = 'blackmanharris'):
     f = f / torch.clamp(norm, min=1e-20)
     contrib = f[..., None] * col[..., None, None, :]
     return _scatter(fb, torch.clamp(yi, 0, h - 1), torch.clamp(xi, 0, w - 1),
-                    contrib)
+                    contrib, inb)

@@ -6,6 +6,8 @@ leading (wavefront) axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -16,6 +18,10 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def norm(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
 
 
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
@@ -58,6 +64,29 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     q = (1.0 - t) * q0 + t * q1
     return q / torch.clamp(torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)),
                            min=1e-20)
+
+
+def reflect(w: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror direction: w points *into* the surface, returns outgoing."""
+    return w - 2.0 * dot(w, n)[..., None] * n
+
+
+def sample_cos_hemisphere(r1, r2):
+    """Cosine-weighted hemisphere sample in the local frame (z up).
+    Returns (dir [..., 3], pdf = cos/pi)."""
+    phi = 2.0 * math.pi * r1
+    sr = torch.sqrt(r2)
+    z = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    d = torch.stack([sr * torch.cos(phi), sr * torch.sin(phi), z], dim=-1)
+    return d, z / math.pi
+
+
+def sample_sphere(r1, r2):
+    """Uniform direction on the unit sphere."""
+    z = 1.0 - 2.0 * r2
+    s = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * r1
+    return torch.stack([s * torch.cos(phi), s * torch.sin(phi), z], dim=-1)
 
 
 def ray_offset(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

@@ -495,3 +495,64 @@ def test_gradient_on_the_card(cuda):
     assert np.isfinite(grads['cuda']) and grads['cuda'] > 0
     assert abs(grads['cuda'] - grads['cpu']) <= 5e-3 * grads['cpu'], grads
     assert abs(grads['cuda'] - fd) <= 2e-3 * abs(fd), (grads, fd)
+
+
+def test_splat_reproducible_on_the_card(cuda):
+    """The general splat and the DBOR cascade: two launches on the card
+    bit-identical (no atomics: a sorted segmented sum), and within 1e-6 of
+    the largest pixel of the CPU's on the same samples."""
+    from corona13_tpu_torch.ops import splat
+    g = torch.Generator().manual_seed(8)
+    n, w, h = 1 << 18, 256, 144
+    pi = torch.rand(n, generator=g) * (w + 4) - 2
+    pj = torch.rand(n, generator=g) * (h + 4) - 2
+    pi[:4096], pj[:4096] = pi[0], pj[0]          # a hot pixel
+    col = 10.0 ** (torch.rand(n, 3, generator=g) * 5 - 2)
+    args = [x.to(cuda) for x in (pi, pj, col)]
+    for kind in ('blackmanharris', 'box', 'bilin', 'dbor'):
+        if kind == 'dbor':
+            run = lambda a, b, c, d: splat.splat_dbor(
+                torch.zeros(splat.N_DBOR, h, w, 3, device=d), a, b, c)
+        else:
+            run = lambda a, b, c, d: splat.splat(
+                torch.zeros(h, w, 3, device=d), a, b, c, filter_kind=kind)
+        first = run(*args, cuda)
+        assert torch.equal(run(*args, cuda), first), kind
+        cpu = run(pi, pj, col, torch.device('cpu'))
+        err = float((first.cpu() - cpu).abs().max() / cpu.abs().max())
+        assert err <= 1e-6 or (kind == 'dbor' and err <= 1e-5), (kind, err)
+
+
+_BDPT_STRATEGIES = [(0, 2), (0, 3), (0, 4), (1, 2), (1, 3), (2, 2), (1, 1),
+                    (2, 1)]
+
+
+@pytest.mark.parametrize('st', _BDPT_STRATEGIES,
+                         ids=lambda st: f's{st[0]}t{st[1]}')
+def test_bdpt_strategy_on_the_card(cuda, st):
+    """Each bdpt strategy of max_verts=4 on the card against the CPU at
+    64x42 (a 3:2 film, so that the ceiling light is on it: at 64x36 the
+    s = 0, t = 2 and s = 1, t = 1 images are black): each pixel within 1e-4
+    of the largest on >= 99% of the pixels;
+    both subpaths traced (3 eye and 1 light closest-hit calls) and one
+    any-hit call for a connection (s >= 1)."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import bdpt, pt as pt_mod
+    cfg = pt_mod.PTConfig(width=64, height=42, max_verts=4, mf=4)
+    out = []
+    for d in (cuda, torch.device('cpu')):
+        sc = scene_mod.fit_film(testing.cornell_scene(device=d), 64, 42)
+        before = dict(trace_cuda.launches)
+        out.append(bdpt.render_sample(sc, cfg, 3, only=st).cpu().numpy())
+        moved = {k: v - before[k] for k, v in trace_cuda.launches.items()
+                 if v != before[k]}
+        if d is cuda:
+            calls = {'closest': 4, 'any': int(st[0] >= 1)}
+            want = {f'{p}{k}': v for k, v in calls.items() if v
+                    for p in ('', 'dense_sphere_')}
+            assert moved == want, moved
+    top = float(np.abs(out[1]).max())
+    assert top > 0
+    close = np.isclose(out[0], out[1], rtol=0, atol=1e-4 * top).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()

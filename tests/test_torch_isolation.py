@@ -3,8 +3,11 @@ corona13_tpu_torch, builds cornell_scene and the plane scene, renders one
 16x9 progression on the CPU, loads 0031_hete with scene.load_scene and
 traces one 16x9 media progression of it, renders a frame under an envmap
 (models.envmap) and one under a daylight sky (models.daylight), a compacted
-frame, a gradient, a vis AOV (samplers.vis) and a DBOR cascade, and neither
-jax, flax nor any module of the JAX package corona13_tpu gets imported."""
+frame, a gradient, a vis AOV (samplers.vis), a DBOR cascade and one 16x9
+progression of each light-path sampler (samplers.lt, bdpt, ptlt, bdpt1, with
+lights.sample_emission, camera.connect and the sampling helpers of
+utils.math), and neither jax, flax nor any module of the JAX package
+corona13_tpu gets imported."""
 
 import os
 import subprocess
@@ -52,7 +55,14 @@ assert vis.render_aov(sc, cfg, 0, kind='normals').shape == (9, 16, 3)
 fbs = splat.splat_dbor(torch.zeros(splat.N_DBOR, 9, 16, 3), torch.rand(50) * 16,
                        torch.rand(50) * 9, torch.rand(50, 3) * 40)
 assert np.isfinite(splat.dbor_merge(fbs).numpy()).all()
-for mod in ('models.envmap', 'models.daylight', 'samplers.vis'):
+from corona13_tpu_torch.samplers import bdpt, bdpt1, lt, ptlt
+for render in (lt.render_sample, bdpt.render_sample, ptlt.render_sample):
+    img = render(sc, cfg, 0).numpy()
+    assert img.shape == (9, 16, 3) and np.isfinite(img).all() and img.max() > 0
+img, table = bdpt1.render_sample(sc, cfg, 0, bdpt1.ConfigTable.create(cfg))
+assert np.isfinite(img.numpy()).all() and table.count.sum() == 1
+for mod in ('models.envmap', 'models.daylight', 'samplers.vis', 'samplers.lt',
+            'samplers.bdpt', 'samplers.ptlt', 'samplers.bdpt1'):
     assert 'corona13_tpu_torch.' + mod in sys.modules, mod
 leaked = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'flax', 'corona13_tpu')]

@@ -208,7 +208,8 @@ def test_cli_renders_on_the_cpu(tmp_path):
 
 def test_cli_refuses_what_it_cannot_do(tmp_path):
     """No silent CPU fallback without a card (for ``--dbor`` and the vis
-    sampler neither), and the unported samplers exit non-zero."""
+    sampler neither), and the unported samplers (ppm, kmlt, vmlt) exit
+    non-zero."""
     out = str(tmp_path / 'r')
     if not torch.cuda.is_available():
         p = _cli(_path('0031_hete'), '-x', out, timeout=120)
@@ -217,11 +218,27 @@ def test_cli_refuses_what_it_cannot_do(tmp_path):
         for extra in (('--sampler', 'vis'), ('--dbor',)):
             p = _cli(_path('0031_hete'), '-x', out, *extra, timeout=120)
             assert p.returncode != 0 and 'no CUDA device' in p.stderr
-    for extra in (('--sampler', 'lt'), ('--sampler', 'bdpt'),
+    for extra in (('--sampler', 'ppm'), ('--sampler', 'kmlt'),
                   ('--sampler', 'kmlt', '--dbor')):
         p = _cli(_path('0031_hete'), '--device', 'cpu', '-x', out, *extra,
                  timeout=120)
         assert p.returncode != 0 and 'not ported yet' in p.stderr
+
+
+@pytest.mark.parametrize('sampler', ['lt', 'bdpt', 'ptlt', 'bdpt1'])
+def test_cli_light_path_samplers(tmp_path, sampler):
+    """--sampler lt|bdpt|ptlt|bdpt1 on the CPU: 0002_mb at 32x32, 2 spp,
+    a finite image with signal, the sidecar naming the sampler."""
+    out = str(tmp_path / sampler)
+    p = _cli(_path('0002_mb'), '--sampler', sampler, '-s', '2', '-w', '32',
+             '-h', '32', '--max-verts', '5', '--device', 'cpu', '-x', out)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert '[2/2]' in p.stdout and 's/frame' in p.stdout
+    img = tpfm.read_pfm(out + '_fb00.pfm')
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
+    assert f'sampler  : {sampler}' in open(out + '.txt').read()
+    assert tfb.Framebuffer.load(out + '.fb').spp == 2
 
 
 # --- golden gates, the port's twins of tests/test_golden.py:134-173 --------

@@ -179,6 +179,6 @@ def test_cli_vis_and_unported_samplers(tmp_path, capsys):
         img = pfm_io.read_pfm(out + '_fb00.pfm')
         assert img.shape == (32, 32, 3) and np.isfinite(img).all()
         assert img.max() > 0 and img.max() <= 1.0
-    for sampler in ('lt', 'bdpt', 'bdpt1', 'ptlt', 'ppm', 'kmlt', 'vmlt'):
+    for sampler in ('ppm', 'kmlt', 'vmlt'):
         assert cli.main([MB, '--sampler', sampler, '--device', 'cpu']) == 2
         assert 'not ported yet' in capsys.readouterr().err
