@@ -83,7 +83,18 @@ Phases (each prints its results; any failure exits non-zero):
      beside the index_add scatter it replaced; lt, bdpt, ptlt on the card
      against the CPU at 64x36 (1e-4 of the largest pixel on >= 99% of
      pixels) and bdpt1's picks and table over 4 progressions; the CLI
-     with each of the four samplers on 0002_mb at 256x160.
+     with each of the four samplers on 0002_mb at 256x160;
+ 16. ppm, kmlt and vmlt on cornell at 1024x576, mf=4, max_verts=6, with
+     the reference defaults (2 * W * H photon paths; 8192 chains, 8
+     burn-in steps): s a frame (ppm 2 warm-up and 3 timed, the chains 1
+     and 2), closest-hit and any-hit launches a frame held to _mlt_calls,
+     peak memory, one profiled frame each (launches, busy share), 0
+     synchronizing calls in one kmlt and one vmlt mutation step; the
+     traversal forms at these samplers' shapes, captured from their own
+     calls (a photon bounce of 1,179,648 rays; a replay bounce and its NEE
+     shadow rays at 8192 chains), each against its plain version on the
+     same tensors as 3b holds them; the three on the card against the CPU
+     at 64x36 (chains=256).
 The line before the last is a JSON record of the kernels, each with its
 bound on this card: the larger of its bytes (inputs once, outputs once,
 dead lanes only their t_init) over 3.35 TB/s and its float operations (the
@@ -95,6 +106,7 @@ over 67 TFLOP/s.  The last line is
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -1128,22 +1140,27 @@ def _read_launches():
     return {k: v for k, v in trace_cuda.launches.items() if v}
 
 
-def _profile_frame(name, scene, cfg, card, frame=None):
+def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
+                   cpu_ops=True):
     """One progression (pt's, or ``frame(sample)``) under torch.profiler:
-    the unprofiled wall time of the same progression, the profiled device
-    time, their ratio and the number of launches on the card."""
+    the unprofiled wall time of the same progression (``wall`` seconds
+    where the caller timed it already), the profiled device time, their
+    ratio and the number of launches on the card.  cpu_ops=False traces
+    the card alone (a frame of 300,000 launches parses in a fraction of
+    the time)."""
     from torch.profiler import ProfilerActivity, profile
     from corona13_tpu_torch.samplers import pt as pt_mod
     frame = frame or (lambda s: pt_mod.render_sample(scene, cfg, s))
     with torch.no_grad():
-        frame(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame(1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        if wall is None:
+            frame(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU] * cpu_ops
+                     + [ProfilerActivity.CUDA]) as prof:
             frame(2)
             torch.cuda.synchronize()
     events = [e for e in prof.events()
@@ -1837,6 +1854,288 @@ def light_paths_phase(dev, card):
     return out
 
 
+# --- phase 16: ppm and the MLT samplers -------------------------------------
+
+MLT_SAMPLERS = ('ppm', 'kmlt', 'vmlt')
+
+
+def _mlt_module(name):
+    from corona13_tpu_torch.samplers import kmlt, ppm, vmlt
+    return {'ppm': ppm, 'kmlt': kmlt, 'vmlt': vmlt}[name]
+
+
+def _mlt_calls(name, cfg, chains=8192, burn_in=8):
+    """(closest, any) traversal calls of one progression: ppm traces
+    max(max_verts - 1, 2) photon bounces and min(max_verts - 1, 4) eye
+    bounces, closest-hit only; kmlt and vmlt replay pt (one closest-hit
+    and one any-hit call a bounce) on the seeding pool and at each of
+    burn_in + n_mut mutations."""
+    if name == 'ppm':
+        return max(cfg.max_verts - 1, 2) + min(cfg.max_verts - 1, 4), 0
+    replays = 1 + max(1, cfg.width * cfg.height // chains) + burn_in
+    return (cfg.max_verts - 1) * replays, (cfg.max_verts - 1) * replays
+
+
+def _mlt_frames(name, scene, cfg, card, warm, timed):
+    """warm untimed progressions, then timed ones ending on the host, the
+    launch counts zeroed just before the timed ones and read just after
+    (held to _mlt_calls; cornell's dense sphere form launches with each
+    call), peak device memory over the timed ones."""
+    render = _mlt_module(name).render_sample
+    times = []
+    with torch.no_grad():
+        for s in range(warm):
+            render(scene, cfg, s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        for s in range(warm, warm + timed):
+            t0 = time.perf_counter()
+            img = render(scene, cfg, s)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / GB
+    c, a = _mlt_calls(name, cfg)
+    expect = {k: v * timed for k, v in (('closest', c), ('any', a),
+                                        ('dense_sphere_closest', c),
+                                        ('dense_sphere_any', a)) if v}
+    med = float(np.median(times))
+    img = img.cpu().numpy()
+    print(f'{name}: {med:.4f} s per frame (min {min(times):.4f}, max '
+          f'{max(times):.4f}, {timed} frames after {warm} warm-up); kernel '
+          f'launches {launches} over the {timed} frames (expected {expect}); '
+          f'peak memory {peak:.3f} GB; image mean {img.mean():.6g}, finite '
+          f'{bool(np.isfinite(img).all())} on {card}', flush=True)
+    check(launches == expect, f'{name}: launches {launches}, expected {expect}')
+    check(np.isfinite(img).all() and img.mean() > 0, f'{name}: image')
+    return dict(frame_s=times, median_s=med, launches=launches,
+                launches_per_frame={k: v / timed for k, v in launches.items()},
+                peak_gb=peak, mean=float(img.mean()))
+
+
+def _mlt_step_syncs(name, scene, cfg):
+    """Synchronizing calls in one mutation step after burn-in (both
+    splats included) at 8192 chains, by _sync_warnings."""
+    from corona13_tpu_torch.samplers import kmlt
+    mod = _mlt_module(name)
+    with torch.no_grad():
+        carry = kmlt.init_chains(scene, cfg, 0, 8192, mod.MULT)
+        syncs = _sync_warnings(lambda: mod.step(scene, cfg, carry, 9))
+    print(f'{name}: synchronizing calls in one mutation step: {syncs or 0}',
+          flush=True)
+    check(not syncs, f'{name} mutation step synchronizes: {syncs}')
+    return sum(syncs.values())
+
+
+def _cloned(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(y) for y in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
+def _capture_calls(fn, n_lanes, picks):
+    """Run fn with trace_cuda.closest_hit and any_hit wrapped.  A call of
+    trace.intersect / occluded launches one form per prim kind, the first
+    without a carry; for the picks[mode]-th such call on n_lanes rays
+    (0-based), keep each launch's arguments as the form was given them
+    (the carry cloned before the launch updates it in place)."""
+    from corona13_tpu_torch.ops import trace_cuda
+    real = {m: getattr(trace_cuda, m) for m in picks}
+    seen = {m: -1 for m in picks}
+    kept = {m: [] for m in picks}
+
+    def wrapped(mode):
+        def call(target, kind, org, *a, **kw):
+            if org.shape[0] == n_lanes:
+                seen[mode] += kw.get('carry') is None
+                if seen[mode] == picks[mode]:
+                    kept[mode].append((target, kind, _cloned((org,) + a),
+                                       _cloned(kw)))
+            return real[mode](target, kind, org, *a, **kw)
+        return call
+    for m in picks:
+        setattr(trace_cuda, m, wrapped(m))
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for m, f in real.items():
+            setattr(trace_cuda, m, f)
+    return kept
+
+
+def _hold_calls(where, kept):
+    """Each captured launch again on the card, twice (bit-identical), and
+    by its plain version on the same tensors: prim, slot and t, u, v (the
+    any-hit flag) held as phase 3b holds them (_form_compare)."""
+    from corona13_tpu_torch.ops import trace_cuda
+    out = {}
+    for mode, calls in kept.items():
+        check(calls, f'{where}: no {mode} call captured')
+        any_hit = mode == 'any_hit'
+        for target, kind, args, kw in calls:
+            kern = lambda: getattr(trace_cuda, mode)(target, kind, *args,
+                                                     **_cloned(kw))
+            k, k2 = kern(), kern()
+            plain = getattr(trace_cuda, mode + '_plain')(
+                target, kind, *args, **_cloned(kw))
+            torch.cuda.synchronize()
+            same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(
+                (k,) if any_hit else k, (k2,) if any_hit else k2))
+            key = trace_cuda._count_key(trace_cuda._form_of(target, kind),
+                                        kind, any_hit)
+            agree, slot, err = _form_compare(k, plain, any_hit,
+                                             f'{where} {key}')
+            t, n = args[2], args[0].shape[0]
+            alive = int((t > 0).sum()) if torch.is_tensor(t) else n
+            print(f'  {where:34s} {key:22s} {n} rays, alive {alive}: '
+                  + (f'blocked agree {agree:.6f}' if any_hit else
+                     f'prim agree {agree:.6f}, slot agree {slot:.6f}, max '
+                     f'|dt| {err:.3g}') + f', two launches identical {same}',
+                  flush=True)
+            check(same, f'{where} {key}: two launches differ')
+            out[key] = dict(rays=n, alive=alive, agree=agree,
+                            slot_agree=slot, max_abs_err=err)
+    return out
+
+
+def _kernels_at_mlt_shapes(scene, cfg):
+    """The traversal forms at the shapes ppm, kmlt and vmlt give them,
+    captured from the samplers' own calls: the second photon bounce of
+    ppm's photon pass (2 * W * H rays, ignore ids from the first hit, lanes
+    dead where the path ended) and the second bounce and second NEE shadow
+    batch of one kmlt and one vmlt mutation step (8192 rays), each form's
+    kernel against its plain version on the same tensors."""
+    from corona13_tpu_torch.samplers import kmlt, ppm
+    phase(f'the traversal forms against plain at the ppm and MLT shapes, '
+          f'cornell {W}x{H}')
+    n_paths = 2 * W * H
+    out = {'ppm photon bounce': _hold_calls('ppm photon bounce', _capture_calls(
+        lambda: ppm.photon_pass(scene, cfg, 0, n_paths,
+                                max(cfg.max_verts - 1, 2)),
+        n_paths, {'closest_hit': 1}))}
+    for name in ('kmlt', 'vmlt'):
+        mod = _mlt_module(name)
+        with torch.no_grad():
+            carry = kmlt.init_chains(scene, cfg, 0, 8192, mod.MULT)
+        out[f'{name} replay bounce'] = _hold_calls(
+            f'{name} replay bounce', _capture_calls(
+                lambda: mod.step(scene, cfg, carry, 9), 8192,
+                {'closest_hit': 1, 'any_hit': 1}))
+    print('tolerance: prim and slot (any-hit: blocked) identical on >= 99.9% '
+          'of rays, t rel 1e-6 and u, v 1e-6 where prim agrees; two launches '
+          'bit-identical', flush=True)
+    return out
+
+
+def _mlt_vs_cpu(dev, w=64, h=36, chains=256):
+    """ppm, kmlt and vmlt (chains=256) on the card against the CPU on the
+    same scene and sample index: the share of pixels within 1e-4 of the
+    largest (bar 0.99); for the chains, where an accept flips on an ulp,
+    >= 99% of the chains in the same final state and the means within
+    1e-3 instead."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import kmlt
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'ppm, kmlt, vmlt on the card against the CPU, cornell {w}x{h}, '
+          f'chains={chains}')
+    cfg = pt_mod.PTConfig(width=w, height=h, max_verts=6, mf=4, use_nee=True)
+    scenes = [scene_mod.fit_film(testing.cornell_scene(device=d), w, h)
+              for d in (dev, torch.device('cpu'))]
+    out = {}
+    with torch.no_grad():
+        for name in MLT_SAMPLERS:
+            mod = _mlt_module(name)
+            if name == 'ppm':
+                res = [{'image': mod.render_sample(sc, cfg, 5)}
+                       for sc in scenes]
+            else:
+                res = [kmlt.run_chains(sc, cfg, 5, 1, chains, 8,
+                                       mod.STUCK_LIMIT, mod.MULT, mod.step)
+                       for sc in scenes]
+            card, cpu = ({k: v.cpu() for k, v in r.items()
+                          if torch.is_tensor(v)} for r in res)
+            top = float(cpu['image'].abs().max())
+            share = float(torch.isclose(card['image'], cpu['image'], rtol=0,
+                                        atol=1e-4 * top).all(-1).float().mean())
+            mean_rel = abs(float(card['image'].mean() / cpu['image'].mean())
+                           - 1.0)
+            # the same final state: the same rejection count and the
+            # primary samples within 1e-6 (exp on the card and on the CPU
+            # may round a small step an ulp apart); the share with the
+            # samples bit-equal is printed beside it
+            same = bits = None
+            if 'u' in card:
+                rej = card['rejects'] == cpu['rejects']
+                same = float((rej & torch.isclose(
+                    card['u'], cpu['u'], rtol=0, atol=1e-6).all(-1))
+                    .float().mean())
+                bits = float((rej & (card['u'] == cpu['u']).all(-1))
+                             .float().mean())
+            print(f'{name}: pixels within 1e-4 of the largest {share:.4f} '
+                  f'(bar 0.99), means {float(card["image"].mean()):.6g} vs '
+                  f'{float(cpu["image"].mean()):.6g}'
+                  + (f', chains in the same final state {same:.4f} (primary '
+                     f'samples within 1e-6; bit-equal {bits:.4f})'
+                     if same is not None else ''), flush=True)
+            check(top > 0 and (share >= 0.99 or (
+                same is not None and same >= 0.99 and mean_rel <= 1e-3)),
+                f'{name} card against CPU: {share}, {same}, {mean_rel}')
+            out[name] = dict(pixels=share, chains=same, chains_bits=bits,
+                             mean_rel=mean_rel)
+    return out
+
+
+def mlt_ppm_phase(dev, card):
+    """ppm, kmlt and vmlt on cornell at full width (mf=4, max_verts=6, NEE
+    on, the reference defaults: 2 * W * H photon paths, 8192 chains): s a
+    frame, launches, peak memory, one profiled frame each, the
+    synchronizing calls of a mutation step, and the card against the
+    CPU."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    phase(f'ppm, kmlt, vmlt on cornell {W}x{H}, mf=4, max_verts=6, on {card}')
+    cornell = scene_mod.fit_film(testing.cornell_scene(sphere='diffuse',
+                                                       device=dev), W, H)
+    out = {}
+    for name in MLT_SAMPLERS:
+        t0 = time.perf_counter()
+        warm, timed = (2, 3) if name == 'ppm' else (1, 2)
+        out[name] = _mlt_frames(name, cornell, cfg, card, warm, timed)
+        t1 = time.perf_counter()
+        render = _mlt_module(name).render_sample
+        out[name]['profile'] = _profile_frame(
+            f'{name} frame', cornell, cfg, card,
+            frame=lambda s: render(cornell, cfg, s),
+            wall=out[name]['median_s'], cpu_ops=False)
+        t2 = time.perf_counter()
+        if name != 'ppm':
+            out[name]['step_syncs'] = _mlt_step_syncs(name, cornell, cfg)
+        print(f'{name}: phase seconds: frames {t1 - t0:.1f}, profile '
+              f'{t2 - t1:.1f}, sync check {time.perf_counter() - t2:.1f}',
+              flush=True)
+    t0 = time.perf_counter()
+    out['kernels_at_shapes'] = _kernels_at_mlt_shapes(cornell, cfg)
+    print(f'forms at the ppm and MLT shapes: {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    t0 = time.perf_counter()
+    out['vs_cpu'] = _mlt_vs_cpu(dev)
+    print(f'card against CPU: {time.perf_counter() - t0:.1f} s', flush=True)
+    total = collections.Counter()
+    for k in MLT_SAMPLERS:
+        total.update(out[k]['launches'])
+    out['launches'] = dict(total)
+    return out
+
+
 def main():
     smi = device_phase()
     from corona13_tpu_torch import scene as scene_mod
@@ -1877,12 +2176,21 @@ def main():
     grad = grad_phase(dev, smi)
     dbor_vis = dbor_vis_phase(dev, sky_scene, smi)
     light = light_paths_phase(dev, smi)
-    lpl = light['launches']
+    mlt = mlt_ppm_phase(dev, smi)
+    # launches of the light-path and the ppm / MLT frames
+    lpl = collections.Counter(light['launches'])
+    lpl.update(mlt['launches'])
 
     common = {'route': 'cuda',
               'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
               'replaces': 'corona13_tpu/ops/trace_pallas.py:284',
               'library_ms': None}   # no PyTorch call walks a BVH
+
+    def at_shapes(key):
+        # the least agreement with the plain version at the ppm / MLT shapes
+        got = [v['agree'] for d in mlt['kernels_at_shapes'].values()
+               for k, v in d.items() if k == key]
+        return min(got) if got else None
 
     def entry(key, name):
         # the main path's shapes: cornell BVH, 589,824 bounce / shadow rays;
@@ -1897,7 +2205,11 @@ def main():
                 'launches_per_light_frame': {
                     k: light[k]['launches_per_frame'].get(key, 0)
                     for k in LIGHT_SAMPLERS},
-                'max_abs_err': m['max_abs_err'], 'ms': ms,
+                'launches_per_ppm_mlt_frame': {
+                    k: mlt[k]['launches_per_frame'].get(key, 0)
+                    for k in MLT_SAMPLERS},
+                'max_abs_err': m['max_abs_err'],
+                'agree_at_ppm_mlt_shapes': at_shapes(key), 'ms': ms,
                 'plain_ms': m['plain_ms'], 'bound_ms': c['bound_ms'],
                 'bound_by': c['bound_by'],
                 'roofline_share': c['bound_ms'] / ms}
@@ -1920,7 +2232,7 @@ def main():
         **prims, '0031_hete/paths_vs_cpu': media_close,
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
-        'light_paths': light}), flush=True)
+        'light_paths': light, 'ppm_mlt': mlt}), flush=True)
 
     def form_entry(key):
         # launches: the render that reaches the form (cornell: the dense
@@ -1939,7 +2251,8 @@ def main():
                 + ' (XLA, not Pallas)',
                 'launches': run[key] + lpl.get(key, 0),
                 'launches_per_frame': run[key] / frames if frames else None,
-                'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
+                'max_abs_err': m['max_abs_err'],
+                'agree_at_ppm_mlt_shapes': at_shapes(key), 'ms': m['ms'],
                 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
                 'bound_by': m['bound_by'],
                 'roofline_share': m['bound_ms'] / m['ms']}

@@ -1,18 +1,18 @@
 """Command-line front end (corona13_tpu/__main__.py): pt, ptdl, lt, bdpt,
-ptlt, bdpt1 and vis.
+ptlt, bdpt1, ppm, kmlt, vmlt and vis.
 
     python -m corona13_tpu_torch scene.nra2 -s 64 -w 1024 -h 576 -x render
     python -m corona13_tpu_torch scene.nra2 --media --device cpu
     python -m corona13_tpu_torch scene.nra2 --dbor
     python -m corona13_tpu_torch scene.nra2 --sampler bdpt
+    python -m corona13_tpu_torch scene.nra2 --sampler kmlt
     python -m corona13_tpu_torch scene.nra2 --sampler vis --aov depth
 
 Writes <output>_fb00.pfm (camera XYZ), a sidecar <output>.txt and a
 resumable <output>.fb checkpoint; ``--dbor`` also the cascade levels
-<output>_dborNN.pfm; ``--sampler vis`` only the AOV image.  Renders on CUDA
-unless ``--device cpu`` is given; without a CUDA device it exits non-zero
-rather than fall back.  ppm, kmlt and vmlt are not ported yet and exit
-non-zero.
+<output>_dborNN.pfm (pt and ptdl only, as in the JAX CLI); ``--sampler vis``
+only the AOV image.  Renders on CUDA unless ``--device cpu`` is given;
+without a CUDA device it exits non-zero rather than fall back.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import time
 
 _SAMPLERS = ['pt', 'ptdl', 'lt', 'ptlt', 'bdpt', 'bdpt1', 'kmlt', 'vmlt',
              'ppm', 'vis']
+# rendered one progression a call by ``_render_progressions``
+_STEPPED = ('lt', 'bdpt', 'ptlt', 'bdpt1', 'ppm', 'kmlt', 'vmlt')
 
 
 def main(argv=None):
@@ -62,11 +64,6 @@ def main(argv=None):
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-
-    if args.sampler in ('ppm', 'kmlt', 'vmlt'):
-        print(f'[corona13_tpu_torch] --sampler {args.sampler} is not ported '
-              f'yet', file=sys.stderr)
-        return 2
 
     import torch
     device = torch.device(args.device)
@@ -116,8 +113,8 @@ def main(argv=None):
     if fbf.spp:
         print(f'[corona13_tpu_torch] resuming at {fbf.spp} spp from '
               f'{args.output}.fb')
-    if args.sampler in ('lt', 'bdpt', 'ptlt', 'bdpt1'):
-        fb = _render_light_paths(scene, cfg, args.sampler, fbf.spp, args.spp)
+    if args.sampler in _STEPPED:
+        fb = _render_progressions(scene, cfg, args.sampler, fbf.spp, args.spp)
         fbf.accumulate(fb, args.spp)
     elif args.dbor:
         # the ptdl_dbor technique (reference src/sampler.d/ptdl_dbor.c): the
@@ -149,15 +146,17 @@ def main(argv=None):
     return 0
 
 
-def _render_light_paths(scene, cfg, sampler: str, first: int, spp: int):
-    """Progressions first .. first+spp-1 of lt, bdpt, ptlt or bdpt1 (one
+def _render_progressions(scene, cfg, sampler: str, first: int, spp: int):
+    """Progressions first .. first+spp-1 of one of ``_STEPPED`` (one
     progression a step, as the JAX CLI runs them); returns their sum
     [H, W, 3] on the host."""
     import torch
 
-    from .samplers import bdpt, bdpt1, lt, ptlt
+    from .samplers import bdpt, bdpt1, kmlt, lt, ppm, ptlt, vmlt
     step = {'lt': lt.render_sample, 'bdpt': bdpt.render_sample,
-            'ptlt': ptlt.render_sample}.get(sampler)
+            'ptlt': ptlt.render_sample, 'ppm': ppm.render_sample,
+            'kmlt': kmlt.render_sample,
+            'vmlt': vmlt.render_sample}.get(sampler)
     table = bdpt1.ConfigTable.create(cfg) if sampler == 'bdpt1' else None
     acc = None
     t0 = time.time()

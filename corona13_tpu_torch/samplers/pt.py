@@ -6,7 +6,9 @@ combined with the hero-wavelength balance heuristic; NEE is MIS-weighted
 against BSDF extension (ptdl).  Every ``stop_gradient`` of the JAX
 package is a ``.detach()`` at the same place.
 
-Ported: the counter RNG (no primary-sample replay), with or without
+Ported: the counter RNG and the primary-sample replay of the MLT
+samplers (``u``: every random decision reads a column of a
+``[N, psd_dims]`` array), with or without
 participating media (``cfg.media``: free flight through homogeneous
 interiors and the heterogeneous grid, its blackbody emission, HG phase NEE
 and extension, the interior priority stack; ``cfg.equiangular``:
@@ -130,25 +132,76 @@ def sample_paths(scene, cfg: PTConfig, sample_idx, pixel_idx):
     return accum, lam, pi, pj
 
 
-def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
+# primary-sample-space layout of the MLT replay (the reference's fixed
+# per-vertex dim contract, pathspace.h:16-53): dims 0-5 the camera block
+# (image xy, lambda, time, aperture xy), then per bounce 10 dims: 5 of the
+# extension, 3 of area NEE, 2 of envmap NEE
+N_CAM_DIMS = 6
+N_BOUNCE_DIMS = 10
+_CAM_SLOT = {int(rng.Dim.IMAGE_X): 0, int(rng.Dim.IMAGE_Y): 1,
+             int(rng.Dim.LAMBDA): 2, int(rng.Dim.TIME): 3,
+             int(rng.Dim.APERTURE_X): 4, int(rng.Dim.APERTURE_Y): 5}
+# family: (the salt of its depth 0, {dim: slot in the bounce block})
+_BOUNCE_SLOT = {
+    'ext': (1, {int(rng.Dim.FREE_PATH): 0, int(rng.Dim.OMEGA_X): 1,
+                int(rng.Dim.OMEGA_Y): 2, int(rng.Dim.SCATTER_MODE): 3,
+                int(rng.Dim.RUSSIAN_R): 4}),
+    'nee': (10, {int(rng.Dim.NEE_LIGHT2): 5, int(rng.Dim.NEE_X): 6,
+                 int(rng.Dim.NEE_Y): 7}),
+    'env': (30, {int(rng.Dim.NEE_X): 8, int(rng.Dim.NEE_Y): 9})}
+
+
+def psd_dims(max_verts: int) -> int:
+    """Primary-sample dimension count for a path of max_verts vertices."""
+    return N_CAM_DIMS + N_BOUNCE_DIMS * (max_verts - 1)
+
+
+def _psd_column(dim, salt=0, family='cam') -> int:
+    """The column of ``u`` that a call site's (dim, salt, family) reads:
+    the family tells apart the dims that the extension, area-NEE and
+    envmap-NEE blocks share; salt - (the family's first salt) is the
+    depth."""
+    if family == 'cam':
+        return _CAM_SLOT[int(dim)]
+    first, slots = _BOUNCE_SLOT[family]
+    return N_CAM_DIMS + N_BOUNCE_DIMS * (salt - first) + slots[int(dim)]
+
+
+def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx, u=None):
     """The bounce loop.  pixel_idx [N] and sample_idx ([N] or scalar) are
     int64 ids in [0, 2^32).  Returns (accum, lam, pix_i, pix_j, state);
     under cfg.compact the state holds only the total ``nrays`` and the last
-    depth's ``alive``."""
+    depth's ``alive``.
+
+    u: optional [N, psd_dims] primary samples (MLT replay): every random
+    decision reads its column of u instead of the counter RNG, the image
+    dims span the whole film (chains roam across pixels), and the
+    wavefront stays dense whatever cfg.compact says."""
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
     mf = cfg.mf
     ps = cfg.pointsampler
+    if cfg.equiangular and u is not None:
+        raise ValueError('equiangular volume NEE has no slot in the MLT '
+                         'primary-sample layout (psd_dims)')
     sidx = torch.broadcast_to(torch.as_tensor(sample_idx, device=dev),
                               pixel_idx.shape).to(torch.int64)
 
     def rnd(dim, salt=0):
+        if u is not None:
+            return u[:, _psd_column(dim)]
         return rng.sample_dim(ps, pixel_idx, sidx, int(dim) + 101 * salt,
                               cfg.seed)
 
     # camera start (path_extend v==0 branch, pathspace.c:211-247)
-    pix_i = (pixel_idx % cfg.width).to(torch.float32) + rnd(rng.Dim.IMAGE_X)
-    pix_j = (pixel_idx // cfg.width).to(torch.float32) + rnd(rng.Dim.IMAGE_Y)
+    jx = rnd(rng.Dim.IMAGE_X)
+    jy = rnd(rng.Dim.IMAGE_Y)
+    if u is None:
+        pix_i = (pixel_idx % cfg.width).to(torch.float32) + jx
+        pix_j = (pixel_idx // cfg.width).to(torch.float32) + jy
+    else:
+        pix_i = jx * cfg.width
+        pix_j = jy * cfg.height
     lam, _ = cie.sample_lambda_hero(rnd(rng.Dim.LAMBDA), mf)
     cam = scene.camera
     time = rnd(rng.Dim.TIME) * torch.clamp(cam.exposure_time * 30.0, max=1.0)
@@ -176,9 +229,9 @@ def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
             medium_mod.stack_init(izero), izero + max(scene.exterior_med, 0),
             izero == (0 if scene.exterior_med >= 0 else 1)),
     )
-    if cfg.compact is None:
+    if cfg.compact is None or u is not None:
         for depth in range(cfg.max_verts - 1):
-            state = _bounce(scene, cfg, state, depth)
+            state = _bounce(scene, cfg, state, depth, u)
         return state['accum'], lam, pix_i, pix_j, state
 
     # compacting loop: depth d runs on capacities(cfg, n)[d] lanes.  Every
@@ -198,11 +251,12 @@ def _sample_paths_full(scene, cfg: PTConfig, sample_idx, pixel_idx):
                                       'alive': state['alive']}
 
 
-def _bounce(scene, cfg, state, depth):
+def _bounce(scene, cfg, state, depth, u=None):
     """One wavefront bounce: intersect, free flight through the current
     medium (cfg.media), shade, emitter/sky hit with hero MIS, area and
     envmap NEE from the surface or volume vertex, BSDF or phase extension,
-    Russian roulette and the interior stack update."""
+    Russian roulette and the interior stack update.  u: the replay's
+    primary samples, or None for the counter RNG."""
     alive = state['alive']
     org = state['org']
     d = state['dir']
@@ -210,7 +264,9 @@ def _bounce(scene, cfg, state, depth):
     time = state['time']
     mats = scene.materials
 
-    def rnd(dim, salt=0):
+    def rnd(dim, salt, family):
+        if u is not None:
+            return u[:, _psd_column(dim, salt, family)]
         # through the state's own ids: compaction permutes and shrinks it
         return rng.sample_dim(cfg.pointsampler, state['pix'], state['sidx'],
                               int(dim) + 101 * salt, cfg.seed)
@@ -224,7 +280,7 @@ def _bounce(scene, cfg, state, depth):
     # free flight through the interior medium (path_propagate's
     # shader_vol_sample step, pathspace.c:697-740)
     if cfg.media:
-        r_free = rnd(rng.Dim.FREE_PATH, salt=1 + depth)
+        r_free = rnd(rng.Dim.FREE_PATH, 1 + depth, 'ext')
         scat, vdist, w_med = medium_mod.sample_dist_scene(
             scene, cur_med, lam, org, d, hit.t, r_free)
         scat = scat & alive
@@ -322,9 +378,9 @@ def _bounce(scene, cfg, state, depth):
     if cfg.use_nee and scene.lights.n_lights > 0:
         ls = lights_mod.sample_nee(
             scene.lights, scene.geom, x_nee,
-            rnd(rng.Dim.NEE_LIGHT2, salt=10 + depth),
-            rnd(rng.Dim.NEE_X, salt=10 + depth),
-            rnd(rng.Dim.NEE_Y, salt=10 + depth))
+            rnd(rng.Dim.NEE_LIGHT2, 10 + depth, 'nee'),
+            rnd(rng.Dim.NEE_X, 10 + depth, 'nee'),
+            rnd(rng.Dim.NEE_Y, 10 + depth, 'nee'))
         thr_nee = thr_in
         if cfg.media and cfg.equiangular:
             # re-place the volume connection vertex by equiangular sampling
@@ -334,7 +390,7 @@ def _bounce(scene, cfg, state, depth):
             eq = scat
             if scene.has_hete:
                 eq = eq & (cur_med != scene.vol.mat_id)
-            r_eq = rnd(rng.Dim.FREE_PATH, salt=40 + depth)
+            r_eq = rnd(rng.Dim.FREE_PATH, 40 + depth, 'eq')
             t_eq, pdf_eq = medium_mod.equiangular_sample(
                 org, d, ls['pos'], torch.clamp(t_park, max=1e4), r_eq)
             t_eq = t_eq.detach()
@@ -403,8 +459,8 @@ def _bounce(scene, cfg, state, depth):
     # targets, its own MIS against the bsdf extension)
     if cfg.use_nee and scene.has_envmap:
         d_env, pdf_env = envmap_mod.sample(
-            scene.envmap, rnd(rng.Dim.NEE_X, salt=30 + depth),
-            rnd(rng.Dim.NEE_Y, salt=30 + depth))
+            scene.envmap, rnd(rng.Dim.NEE_X, 30 + depth, 'env'),
+            rnd(rng.Dim.NEE_Y, 30 + depth, 'env'))
         f_e, pdf_b_e = bsdf_mod.bsdf_eval_pdf(sp, d, d_env,
                                               kinds=scene.kinds_used)
         cos_e = _lambert(sp.n, d_env)
@@ -428,9 +484,9 @@ def _bounce(scene, cfg, state, depth):
                                     0.0)
 
     # extend: sample the bsdf (path_extend, pathspace.c:190-207)
-    r1 = rnd(rng.Dim.OMEGA_X, salt=1 + depth)
-    r2 = rnd(rng.Dim.OMEGA_Y, salt=1 + depth)
-    rm = rnd(rng.Dim.SCATTER_MODE, salt=1 + depth)
+    r1 = rnd(rng.Dim.OMEGA_X, 1 + depth, 'ext')
+    r2 = rnd(rng.Dim.OMEGA_Y, 1 + depth, 'ext')
+    rm = rnd(rng.Dim.SCATTER_MODE, 1 + depth, 'ext')
     wo, pdf_proj_new, bsdf_w, mode = bsdf_mod.bsdf_sample(
         sp, d, r1, r2, rm, kinds=scene.kinds_used)
     if cfg.media:
@@ -461,7 +517,7 @@ def _bounce(scene, cfg, state, depth):
                         thr[..., 0] / torch.clamp(thr0, min=1e-30), 0.0)
     p_survive = torch.clamp(ratio, 0.05, 1.0).detach()
     do_rr = new_len > cfg.rr_start
-    rrnd = rnd(rng.Dim.RUSSIAN_R, salt=1 + depth)
+    rrnd = rnd(rng.Dim.RUSSIAN_R, 1 + depth, 'ext')
     survive = ~do_rr | (rrnd < p_survive)
     thr = torch.where((do_rr & survive)[..., None],
                       thr / p_survive[..., None], thr)

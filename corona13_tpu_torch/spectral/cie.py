@@ -37,6 +37,11 @@ def sample_lambda_hero(r: torch.Tensor, mf: int):
     return lam, pdf
 
 
+def lambda_pdf(lam: torch.Tensor) -> torch.Tensor:
+    """The pdf of a uniformly sampled wavelength, 1/470 per lane."""
+    return torch.full_like(lam, 1.0 / LAMBDA_RANGE)
+
+
 def xyz_of_lambda(lam: torch.Tensor) -> torch.Tensor:
     """CIE xbar/ybar/zbar at wavelength lam [nm] -> [..., 3] (linear
     interpolation of the 5 nm table; out-of-range wavelengths give 0)."""
@@ -72,6 +77,16 @@ def eta_from_abbe(n_d: float, v_d: float, lam: torch.Tensor) -> torch.Tensor:
     """Spectral IOR eta(lambda[nm]) via Cauchy's equation."""
     a, b = cauchy_from_abbe(n_d, v_d)
     return a + (b * 1e6) / (lam * lam)
+
+
+def mutate_lambda(lam: torch.Tensor, r: torch.Tensor, step: float = 50.0):
+    """MLT wavelength mutation with boundary mirroring (reference
+    spectrum.h:219-241).  Returns (lambda', pdf)."""
+    delta = torch.where(r > 0.5, -2.0 * step * (r - 0.5), 2.0 * step * r)
+    l2 = lam + delta
+    l2 = torch.where(l2 < LAMBDA_MIN, 2.0 * LAMBDA_MIN - l2, l2)
+    l2 = torch.where(l2 > LAMBDA_MAX, 2.0 * LAMBDA_MAX - l2, l2)
+    return l2, torch.full_like(l2, 0.5 / step)
 
 
 def blackbody(temp: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:

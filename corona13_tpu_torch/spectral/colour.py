@@ -59,6 +59,10 @@ _FROM_XYZ = {'xyz': IDENTITY, 'ergb': XYZ_TO_ERGB, 'srgb': XYZ_TO_SRGB,
              'aces': XYZ_TO_ACES}
 
 
+def to_xyz_matrix(space: str) -> np.ndarray:
+    return _TO_XYZ[space]
+
+
 def from_xyz_matrix(space: str) -> np.ndarray:
     return _FROM_XYZ[space]
 

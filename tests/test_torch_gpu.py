@@ -556,3 +556,46 @@ def test_bdpt_strategy_on_the_card(cuda, st):
     assert top > 0
     close = np.isclose(out[0], out[1], rtol=0, atol=1e-4 * top).all(axis=-1)
     assert close.mean() >= 0.99, close.mean()
+
+
+@pytest.mark.parametrize('name', ['ppm', 'kmlt', 'vmlt'])
+def test_ppm_mlt_on_the_card(cuda, name):
+    """ppm, kmlt and vmlt (chains=256, burn_in=8) on the card against the
+    CPU on cornell at 64x36: each pixel within 1e-4 of the largest on
+    >= 99% of the pixels; for the chains, where an accept flips on an
+    ulp, >= 99% of the chains in the same final state (rejection count
+    equal, primary samples within 1e-6) and the frame means within 1e-3
+    instead.  ppm launches closest-hit only, the chains both."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import kmlt, ppm, vmlt
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=6, mf=4)
+    out = []
+    for d in (cuda, torch.device('cpu')):
+        sc = scene_mod.fit_film(testing.cornell_scene(device=d), 64, 36)
+        before = dict(trace_cuda.launches)
+        if name == 'ppm':
+            out.append({'image': ppm.render_sample(sc, cfg, 3)})
+        else:
+            mod = {'kmlt': kmlt, 'vmlt': vmlt}[name]
+            out.append(kmlt.run_chains(sc, cfg, 3, 1, 256, 8,
+                                       mod.STUCK_LIMIT, mod.MULT, mod.step))
+        moved = {k for k, v in trace_cuda.launches.items() if v != before[k]}
+        if d is cuda:
+            assert 'closest' in moved
+            assert ('any' in moved) == (name != 'ppm'), moved
+    card, cpu = ({k: v.cpu() for k, v in o.items() if torch.is_tensor(v)}
+                 for o in out)
+    top = float(cpu['image'].abs().max())
+    assert top > 0 and torch.isfinite(card['image']).all()
+    close = torch.isclose(card['image'], cpu['image'], rtol=0,
+                          atol=1e-4 * top).all(dim=-1).float().mean()
+    if name != 'ppm' and close < 0.99:
+        same = ((card['rejects'] == cpu['rejects'])
+                & torch.isclose(card['u'], cpu['u'], rtol=0, atol=1e-6)
+                .all(dim=-1)).float().mean()
+        mean_rel = abs(float(card['image'].mean() / cpu['image'].mean()) - 1)
+        assert same >= 0.99 and mean_rel <= 1e-3, (close, same, mean_rel)
+    else:
+        assert close >= 0.99, close

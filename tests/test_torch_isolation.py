@@ -6,7 +6,8 @@ traces one 16x9 media progression of it, renders a frame under an envmap
 frame, a gradient, a vis AOV (samplers.vis), a DBOR cascade and one 16x9
 progression of each light-path sampler (samplers.lt, bdpt, ptlt, bdpt1, with
 lights.sample_emission, camera.connect and the sampling helpers of
-utils.math), and neither jax, flax nor any module of the JAX package
+utils.math) and of ppm, kmlt and vmlt (pt's primary-sample replay), and
+neither jax, flax nor any module of the JAX package
 corona13_tpu gets imported."""
 
 import os
@@ -61,8 +62,15 @@ for render in (lt.render_sample, bdpt.render_sample, ptlt.render_sample):
     assert img.shape == (9, 16, 3) and np.isfinite(img).all() and img.max() > 0
 img, table = bdpt1.render_sample(sc, cfg, 0, bdpt1.ConfigTable.create(cfg))
 assert np.isfinite(img.numpy()).all() and table.count.sum() == 1
+from corona13_tpu_torch.samplers import kmlt, ppm, vmlt
+for img in (ppm.render_sample(sc, cfg, 0),
+            kmlt.render_sample(sc, cfg, 0, chains=64),
+            vmlt.render_sample(sc, cfg, 0, chains=64)):
+    img = img.numpy()
+    assert img.shape == (9, 16, 3) and np.isfinite(img).all() and img.max() > 0
 for mod in ('models.envmap', 'models.daylight', 'samplers.vis', 'samplers.lt',
-            'samplers.bdpt', 'samplers.ptlt', 'samplers.bdpt1'):
+            'samplers.bdpt', 'samplers.ptlt', 'samplers.bdpt1',
+            'samplers.ppm', 'samplers.kmlt', 'samplers.vmlt'):
     assert 'corona13_tpu_torch.' + mod in sys.modules, mod
 leaked = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'flax', 'corona13_tpu')]

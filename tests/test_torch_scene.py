@@ -207,22 +207,17 @@ def test_cli_renders_on_the_cpu(tmp_path):
 
 
 def test_cli_refuses_what_it_cannot_do(tmp_path):
-    """No silent CPU fallback without a card (for ``--dbor`` and the vis
-    sampler neither), and the unported samplers (ppm, kmlt, vmlt) exit
-    non-zero."""
+    """No silent CPU fallback without a card (for ``--dbor``, the vis
+    sampler and the MLT samplers neither)."""
     out = str(tmp_path / 'r')
     if not torch.cuda.is_available():
         p = _cli(_path('0031_hete'), '-x', out, timeout=120)
         assert p.returncode != 0 and 'no CUDA device' in p.stderr
         assert not os.path.exists(out + '_fb00.pfm')
-        for extra in (('--sampler', 'vis'), ('--dbor',)):
+        for extra in (('--sampler', 'vis'), ('--dbor',),
+                      ('--sampler', 'kmlt')):
             p = _cli(_path('0031_hete'), '-x', out, *extra, timeout=120)
             assert p.returncode != 0 and 'no CUDA device' in p.stderr
-    for extra in (('--sampler', 'ppm'), ('--sampler', 'kmlt'),
-                  ('--sampler', 'kmlt', '--dbor')):
-        p = _cli(_path('0031_hete'), '--device', 'cpu', '-x', out, *extra,
-                 timeout=120)
-        assert p.returncode != 0 and 'not ported yet' in p.stderr
 
 
 @pytest.mark.parametrize('sampler', ['lt', 'bdpt', 'ptlt', 'bdpt1'])
@@ -239,6 +234,44 @@ def test_cli_light_path_samplers(tmp_path, sampler):
     assert img.mean() > 0
     assert f'sampler  : {sampler}' in open(out + '.txt').read()
     assert tfb.Framebuffer.load(out + '.fb').spp == 2
+
+
+@pytest.mark.parametrize('sampler', ['ppm', 'kmlt', 'vmlt'])
+def test_cli_mlt_ppm_samplers(tmp_path, sampler):
+    """--sampler ppm|kmlt|vmlt on the CPU: 0002_mb at 32x32, 2 spp,
+    max_verts 4 (the CLI has no --chains: kmlt and vmlt run the reference
+    default of 8192 chains, 9 replays a progression at this size), a
+    finite image with signal, the sidecar naming the sampler; ``--dbor``
+    does not apply to them, as in the JAX CLI."""
+    out = str(tmp_path / sampler)
+    p = _cli(_path('0002_mb'), '--sampler', sampler, '-s', '2', '-w', '32',
+             '-h', '32', '--max-verts', '4', '--dbor', '--device', 'cpu',
+             '-x', out)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert '[2/2]' in p.stdout and 's/frame' in p.stdout
+    img = tpfm.read_pfm(out + '_fb00.pfm')
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
+    assert f'sampler  : {sampler}' in open(out + '.txt').read()
+    assert tfb.Framebuffer.load(out + '.fb').spp == 2
+    assert not os.path.exists(out + '_dbor00.pfm')
+
+
+def test_cli_samplers_match_the_reference():
+    """The port's --sampler choices are the JAX CLI's (read from its
+    parser's source: importing it would import jax), and every one of
+    them has a branch."""
+    import ast
+    from corona13_tpu_torch import __main__ as cli
+    src = open(os.path.join(ROOT, 'corona13_tpu', '__main__.py')).read()
+    choices = [
+        ast.literal_eval(kw.value) for node in ast.walk(ast.parse(src))
+        if isinstance(node, ast.Call) and node.args
+        and isinstance(node.args[0], ast.Constant)
+        and node.args[0].value == '--sampler'
+        for kw in node.keywords if kw.arg == 'choices']
+    assert choices == [cli._SAMPLERS]
+    assert set(cli._SAMPLERS) == set(cli._STEPPED) | {'pt', 'ptdl', 'vis'}
 
 
 # --- golden gates, the port's twins of tests/test_golden.py:134-173 --------

@@ -116,3 +116,32 @@ def test_blackbody_matches_jax():
     t = tcie.blackbody(torch.as_tensor(temp), torch.as_tensor(lam)).numpy()
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6)
     assert (t[:4] == 0).all() and t.max() > 1.0
+
+
+def test_lambda_pdf_and_mutate_lambda():
+    """The MLT helpers: the uniform wavelength pdf, and the wavelength
+    mutation with its mirroring at both ends of [360, 830] (both ends hit
+    by the inputs) and its pdf."""
+    g = np.random.default_rng(3)
+    lam = g.uniform(360.0, 830.0, (4096, 4)).astype(np.float32)
+    lam[:4, 0] = (360.0, 361.0, 829.5, 830.0)
+    r = g.uniform(0, 1, (4096, 4)).astype(np.float32)
+    r[:4, 0] = (0.9, 0.95, 0.1, 0.5)
+    _close(jcie.lambda_pdf(jnp.asarray(lam)),
+           tcie.lambda_pdf(torch.as_tensor(lam)))
+    for step in (50.0, 10.0):
+        want = jcie.mutate_lambda(jnp.asarray(lam), jnp.asarray(r), step)
+        got = tcie.mutate_lambda(torch.as_tensor(lam), torch.as_tensor(r),
+                                 step)
+        for a, b in zip(want, got):
+            _close(a, b, atol=1e-4)
+        assert (got[0] >= 360.0).all() and (got[0] <= 830.0).all()
+
+
+def test_to_xyz_matrix_matches_jax():
+    for space in ('xyz', 'ergb', 'srgb', 'rec709', 'adobergb', 'aces'):
+        np.testing.assert_array_equal(tcolour.to_xyz_matrix(space),
+                                      jcolour.to_xyz_matrix(space))
+        np.testing.assert_allclose(tcolour.from_xyz_matrix(space)
+                                   @ tcolour.to_xyz_matrix(space), np.eye(3),
+                                   atol=1e-4)
