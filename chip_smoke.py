@@ -94,7 +94,22 @@ Phases (each prints its results; any failure exits non-zero):
      calls (a photon bounce of 1,179,648 rays; a replay bounce and its NEE
      shadow rays at 8192 chains), each against its plain version on the
      same tensors as 3b holds them; the three on the card against the CPU
-     at 64x36 (chains=256).
+     at 64x36 (chains=256);
+ 17. sharded: an NCCL process group of world size 1 (one H100) through a
+     file:// store; parallel.shard.render_samples_sharded on cornell at
+     1024x576, mf=4, max_verts=6, NEE on, 2 warm-up and 3 timed calls
+     beside pt.render_sample of the same size (min / median / max s, the
+     overhead share 1 - t_single / t_sharded, launches held to 5 of each
+     form a frame, peak memory, one profiled call each), the sharded
+     images against pt.render_sample off the pixels its pixel-aligned
+     splat moves (_carried; rtol 2e-4, atol 1e-5: tests/test_parallel.py:
+     28-29) and, a check of the collective alone, against the shard
+     function over the whole film; meshes (2, 2) and (1, 4) emulated rank
+     after rank on the card against the same two at the same tolerance
+     (the second a check of the split alone); the traversal forms at a
+     shard's shapes (294,912 and 147,456 rays) against their plain
+     versions as in 16; parallel.dryrun.dryrun_multichip(1): its losses
+     (the last below the first), seconds a step and peak memory.
 The line before the last is a JSON record of the kernels, each with its
 bound on this card: the larger of its bytes (inputs once, outputs once,
 dead lanes only their t_init) over 3.35 TB/s and its float operations (the
@@ -2136,6 +2151,259 @@ def mlt_ppm_phase(dev, card):
     return out
 
 
+# --- phase 17: the sharded render and the inverse-rendering loop ------------
+
+SHARD_RTOL, SHARD_ATOL = 2e-4, 1e-5      # tests/test_parallel.py:28-29
+
+
+def _spread(times):
+    return (f'min {min(times):.4f}, median {float(np.median(times)):.4f}, '
+            f'max {max(times):.4f}')
+
+
+def _held(a, b):
+    """a against b at the JAX test's tolerance: the share of values within
+    it and max |a - b|."""
+    ok = (a - b).abs() <= SHARD_ATOL + SHARD_RTOL * b.abs()
+    return float(ok.float().mean()), float((a - b).abs().max())
+
+
+def _whole(scene, cfg, s):
+    """The frame of sample s by the shard's own function over the whole
+    film, as the one rank of mesh (1, 1) without a collective.  Held
+    against it, a mesh checks the split of pixels and samples and the
+    reduction, not the render: that is held to pt.render_sample
+    (_off_carried)."""
+    from corona13_tpu_torch.parallel import shard
+    return shard.render_shard(scene, cfg, shard.make_mesh(), s, 0)
+
+
+def _carried(scene, cfg, s):
+    """The lanes of sample s whose continuous image coordinate rounded up
+    to the next pixel (floor(pix_i) past the lane's own column, or pix_j
+    past its row), and the pixels within the filter's reach of them (7x7
+    around the lane's pixel).  pt.render_sample's pixel-aligned splat, as
+    the JAX package's (corona13_tpu/samplers/pt.py:897-899), recovers the
+    jitter as pix - floor(pix) = 0 and splats such a sample one pixel
+    short; the general splat of a shard puts it where its coordinates
+    are."""
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    pix = torch.arange(W * H, device=scene.device)
+    _, _, pi, pj = pt_mod.sample_paths(scene, cfg, s, pix)
+    c = (torch.floor(pi) != pix % W) | (torch.floor(pj) != pix // W)
+    near = torch.nn.functional.max_pool2d(
+        c.reshape(1, 1, H, W).float(), 7, stride=1, padding=3)[0, 0] > 0
+    return int(c.sum()), near
+
+
+def _off_carried(img, ref, carried):
+    """img against pt.render_sample's ref of the same samples, pixel by
+    pixel at the JAX test's tolerance: the share of pixels within it, the
+    pixels within reach of the samples carried into the next pixel (the
+    masks of _carried), and the share within it off them."""
+    ok = ((img - ref).abs() <= SHARD_ATOL + SHARD_RTOL * ref.abs()).all(-1)
+    near = torch.stack([m for _, m in carried]).any(0)
+    return float(ok.float().mean()), near, float(ok[~near].float().mean())
+
+
+def _shard_frames(scene, cfg, card, warm=2, timed=3):
+    """render_samples_sharded over the world-size-1 mesh and pt.render_sample
+    at the same sample indices: warm untimed calls of each, then timed calls
+    of each ending on the host (the launch counts zeroed just before the
+    sharded ones and read just after), the peak memory and the profile of
+    one sharded call.  The sharded images' sum is held to pt.render_sample's
+    off the reach of the samples it splats one pixel short (_off_carried),
+    and to the shard function's frames of the same samples (_whole): at
+    world size 1 the latter checks only the path through the collective."""
+    from corona13_tpu_torch.parallel import shard
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    mesh = shard.make_mesh()
+    sharded = lambda s: shard.render_samples_sharded(
+        scene, cfg, mesh, s, device=scene.device)
+    single = lambda s: pt_mod.render_sample(scene, cfg, s)
+    out = {}
+    samples = range(warm, warm + timed)
+    with torch.no_grad():
+        for s in range(warm):
+            sharded(s)
+            single(s)
+        torch.cuda.synchronize()
+        for name, fn in (('sharded', sharded), ('single', single)):
+            if name == 'sharded':
+                _zero_launches()
+            times, total = [], 0
+            for s in samples:
+                t0 = time.perf_counter()
+                img = fn(s)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                total = total + img
+            out[name] = dict(frame_s=times, median_s=float(np.median(times)),
+                             image=total)
+            if name == 'sharded':
+                out[name]['launches'] = _read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        sharded(warm + timed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / GB
+        whole = sum(_whole(scene, cfg, s) for s in samples)
+        carried = [_carried(scene, cfg, s) for s in samples]
+    img, img1 = out['sharded'].pop('image'), out['single'].pop('image')
+    share, err = _held(img, whole)
+    same = bool(torch.equal(img, whole))
+    n_carried = sum(c for c, _ in carried)
+    share1, near, share_off = _off_carried(img, img1, carried)
+    t_sh, t_si = out['sharded']['median_s'], out['single']['median_s']
+    overhead = 1.0 - t_si / t_sh
+    launches = out['sharded']['launches']
+    print(f'sharded frame: {_spread(out["sharded"]["frame_s"])} s; '
+          f'unsharded pt.render_sample: {_spread(out["single"]["frame_s"])} '
+          f's; overhead share at world size 1 (1 - t_single / t_sharded, '
+          f'medians) {overhead:.4f}; peak memory {peak:.3f} GB; kernel '
+          f'launches {launches} over {timed} frames on {card}', flush=True)
+    print(f'the collective at world size 1: sharded images of samples '
+          f'{warm}..{warm + timed - 1} against render_shard of the whole film '
+          f'without it (the same function, so not a check of the render): '
+          f'within rtol {SHARD_RTOL}, atol {SHARD_ATOL} on {share:.6f}, max '
+          f'|diff| {err:.3g}, bit-equal {same}', flush=True)
+    print(f'against pt.render_sample (pixel-aligned splat): pixels within the '
+          f'tolerance {share1:.6f}; {n_carried} samples carried into the next '
+          f'pixel, {int(near.sum())} pixels within their reach; off them '
+          f'{share_off:.6f}', flush=True)
+    check(share == 1.0, f'sharded frame against render_shard of the whole '
+          f'film: {share}, {err}')
+    check(share_off == 1.0, f'sharded against render_sample off the carried '
+          f'samples: {share_off}')
+    per = cfg.max_verts - 1
+    expect = {k: per * timed for k in ('closest', 'any',
+                                       'dense_sphere_closest',
+                                       'dense_sphere_any')}
+    check(launches == expect, f'sharded launches {launches}, expected '
+          f'{expect}')
+    prof = {k: _profile_frame(f'{k} frame', scene, cfg, card, frame=fn,
+                              wall=out[k]['median_s'], cpu_ops=False)
+            for k, fn in (('sharded', sharded), ('single', single))}
+    return dict(sharded=out['sharded'], single=out['single'],
+                overhead_share=overhead, peak_gb=peak, profile=prof,
+                launches=launches,
+                launches_per_frame={k: v / timed for k, v in launches.items()},
+                vs_whole=dict(share=share, max_abs_diff=err, bit_equal=same),
+                vs_render_sample=dict(share=share1, carried=n_carried,
+                                      near_pixels=int(near.sum()),
+                                      share_off_carried=share_off))
+
+
+def _emulated_meshes(scene, cfg, card):
+    """Meshes (2, 2) and (1, 4) run rank after rank on the card: the sum of
+    the shards against pt.render_sample of the mesh's samples off the reach
+    of the samples it carries (_off_carried), and against the shard
+    function's own frames of the whole film (_whole), a check of the split
+    alone."""
+    from corona13_tpu_torch.parallel import shard
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    out = {}
+    with torch.no_grad():
+        whole = [_whole(scene, cfg, s) for s in (0, 1)]
+        single = [pt_mod.render_sample(scene, cfg, s) for s in (0, 1)]
+        carried = [_carried(scene, cfg, s) for s in (0, 1)]
+        for n_sp, n_px in ((2, 2), (1, 4)):
+            mesh = shard.make_mesh(n_sp, n_px)
+            t0 = time.perf_counter()
+            fb = shard.render_samples_sharded(scene, cfg, mesh, 0,
+                                              emulate=True,
+                                              device=scene.device)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            share, err = _held(fb, sum(whole[:n_sp]))
+            share1, near, share_off = _off_carried(
+                fb, sum(single[:n_sp]), carried[:n_sp])
+            print(f'mesh ({n_sp}, {n_px}) emulated on {card}: {mesh.size} '
+                  f'shards of {W * H // n_px} rays in {sec:.3f} s; their sum '
+                  f'against pt.render_sample of the same samples within rtol '
+                  f'{SHARD_RTOL}, atol {SHARD_ATOL} on {share1:.6f} of the '
+                  f'pixels, {share_off:.6f} off the {int(near.sum())} within '
+                  f'reach of carried samples; the split against render_shard '
+                  f'of the whole film on {share:.6f}, max |diff| {err:.3g}',
+                  flush=True)
+            check(share_off == 1.0, f'mesh ({n_sp}, {n_px}) against '
+                  f'render_sample off the carried samples: {share_off}')
+            check(share == 1.0, f'mesh ({n_sp}, {n_px}) split: {share}, '
+                  f'{err}')
+            out[f'{n_sp}x{n_px}'] = dict(
+                share=share, max_abs_diff=err, seconds=sec,
+                vs_render_sample=dict(share=share1, near_pixels=int(near.sum()),
+                                      share_off_carried=share_off))
+    return out
+
+
+def _kernels_at_shard_shapes(scene, cfg):
+    """The traversal forms at the shapes a shard gives them, captured from
+    render_shard's own calls: the second bounce and the second NEE batch of
+    the last rank of mesh (2, 2) (W * H / 2 rays) and of mesh (1, 4)
+    (W * H / 4 rays), each against its plain version on the same tensors."""
+    from corona13_tpu_torch.parallel import shard
+    phase(f'the traversal forms against plain at the shard shapes, cornell '
+          f'{W}x{H}')
+    out = {}
+    for n_sp, n_px in ((2, 2), (1, 4)):
+        mesh = shard.make_mesh(n_sp, n_px)
+        where = f'shard ({n_sp}, {n_px}) rank {mesh.size - 1}'
+        out[where] = _hold_calls(where, _capture_calls(
+            lambda: shard.render_shard(scene, cfg, mesh, 0, mesh.size - 1),
+            W * H // n_px, {'closest_hit': 1, 'any_hit': 1}))
+    print('tolerance: as at the ppm and MLT shapes', flush=True)
+    return out
+
+
+def shard_phase(dev, card):
+    """parallel.shard and parallel.dryrun on the card in an NCCL process
+    group of world size 1 (a file:// store under a temporary directory):
+    the sharded cornell frame at full width timed beside pt.render_sample,
+    emulated meshes, the forms at the shard shapes, and the training loop
+    of dryrun_multichip(1)."""
+    import torch.distributed as dist
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.parallel import dryrun
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    phase(f'sharded render: cornell {W}x{H}, mf=4, max_verts=6, NEE, on '
+          f'{card}')
+    cornell = scene_mod.fit_film(testing.cornell_scene(sphere='diffuse',
+                                                       device=dev), W, H)
+    torch.cuda.set_device(cornell.device)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group('nccl', init_method='file://' + os.path.join(
+            tmp, 'store'), rank=0, world_size=1)
+        try:
+            print(f'world size {dist.get_world_size()}: this machine has one '
+                  f'H100 (NCCL, backend {dist.get_backend()})', flush=True)
+            out = _shard_frames(cornell, cfg, card)
+            out['meshes'] = _emulated_meshes(cornell, cfg, card)
+            out['kernels_at_shapes'] = _kernels_at_shard_shapes(cornell, cfg)
+            phase(f'dryrun_multichip(1) on {card}: cornell_subsurf 256x144, '
+                  f'max_verts=7, mf=2, NEE and media, 3 Adam steps')
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = dryrun.dryrun_multichip(1, device=dev)
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / GB
+        finally:
+            dist.destroy_process_group()
+    print(f'dryrun: losses {run["losses"]}, seconds a step '
+          f'{[round(t, 4) for t in run["step_s"]]}, {sec:.1f} s in all with '
+          f'the target render, peak memory {peak:.3f} GB on {card}',
+          flush=True)
+    check(all(np.isfinite(run['losses'])) and run['losses'][-1]
+          < run['losses'][0], f'dryrun losses {run["losses"]}')
+    out['dryrun'] = dict(losses=run['losses'], step_s=run['step_s'],
+                         seconds=sec, peak_gb=peak, grads={
+                             k: v.tolist() for k, v in run['grads'].items()})
+    print(f'sharded phase: {time.perf_counter() - t_start:.1f} s', flush=True)
+    return out
+
+
 def main():
     smi = device_phase()
     from corona13_tpu_torch import scene as scene_mod
@@ -2177,18 +2445,21 @@ def main():
     dbor_vis = dbor_vis_phase(dev, sky_scene, smi)
     light = light_paths_phase(dev, smi)
     mlt = mlt_ppm_phase(dev, smi)
-    # launches of the light-path and the ppm / MLT frames
+    sharded = shard_phase(dev, smi)
+    # launches of the light-path, the ppm / MLT and the sharded frames
     lpl = collections.Counter(light['launches'])
     lpl.update(mlt['launches'])
+    lpl.update(sharded['launches'])
 
     common = {'route': 'cuda',
               'source': 'corona13_tpu_torch/csrc/traverse_tris.cu',
               'replaces': 'corona13_tpu/ops/trace_pallas.py:284',
               'library_ms': None}   # no PyTorch call walks a BVH
 
-    def at_shapes(key):
+    def at_shapes(key, run=mlt):
         # the least agreement with the plain version at the ppm / MLT shapes
-        got = [v['agree'] for d in mlt['kernels_at_shapes'].values()
+        # (or at a shard's shapes)
+        got = [v['agree'] for d in run['kernels_at_shapes'].values()
                for k, v in d.items() if k == key]
         return min(got) if got else None
 
@@ -2208,8 +2479,11 @@ def main():
                 'launches_per_ppm_mlt_frame': {
                     k: mlt[k]['launches_per_frame'].get(key, 0)
                     for k in MLT_SAMPLERS},
+                'launches_per_sharded_frame':
+                    sharded['launches_per_frame'].get(key, 0),
                 'max_abs_err': m['max_abs_err'],
-                'agree_at_ppm_mlt_shapes': at_shapes(key), 'ms': ms,
+                'agree_at_ppm_mlt_shapes': at_shapes(key),
+                'agree_at_shard_shapes': at_shapes(key, sharded), 'ms': ms,
                 'plain_ms': m['plain_ms'], 'bound_ms': c['bound_ms'],
                 'bound_by': c['bound_by'],
                 'roofline_share': c['bound_ms'] / ms}
@@ -2232,7 +2506,8 @@ def main():
         **prims, '0031_hete/paths_vs_cpu': media_close,
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
-        'light_paths': light, 'ppm_mlt': mlt}), flush=True)
+        'light_paths': light, 'ppm_mlt': mlt, 'sharded': sharded}),
+        flush=True)
 
     def form_entry(key):
         # launches: the render that reaches the form (cornell: the dense
@@ -2251,8 +2526,12 @@ def main():
                 + ' (XLA, not Pallas)',
                 'launches': run[key] + lpl.get(key, 0),
                 'launches_per_frame': run[key] / frames if frames else None,
+                'launches_per_sharded_frame':
+                    sharded['launches_per_frame'].get(key, 0),
                 'max_abs_err': m['max_abs_err'],
-                'agree_at_ppm_mlt_shapes': at_shapes(key), 'ms': m['ms'],
+                'agree_at_ppm_mlt_shapes': at_shapes(key),
+                'agree_at_shard_shapes': at_shapes(key, sharded),
+                'ms': m['ms'],
                 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
                 'bound_by': m['bound_by'],
                 'roofline_share': m['bound_ms'] / m['ms']}

@@ -1,4 +1,4 @@
-"""Reader for the reference's binary ``.cam`` camera files
+"""Reader and writer for the reference's binary ``.cam`` camera files
 (corona13_tpu/io/cam.py).
 
 Both the v1 'CCAM' layout and the legacy v0 struct dump, told apart by
@@ -98,3 +98,15 @@ def read_cam(path: str) -> CameraData:
             iso=v[25],
         )
     raise ValueError(f'{path}: unrecognized camera file size {len(data)}')
+
+
+def write_cam(path: str, c: CameraData) -> None:
+    """Write ``c`` in the v1 'CCAM' layout (what read_cam reads back)."""
+    data = struct.pack(
+        _V1_FMT, b'CCAM', 1,
+        *np.asarray(c.pos, np.float32), *np.asarray(c.pos_t1, np.float32),
+        *np.asarray(c.orient, np.float32), *np.asarray(c.orient_t1, np.float32),
+        c.speed, c.focus_sensor_offset, c.focus, c.film_width, c.film_height,
+        c.crop_factor, c.aperture_value, c.exposure_value, c.focal_length, c.iso)
+    with open(path, 'wb') as f:
+        f.write(data)

@@ -1,4 +1,4 @@
-"""Reader for the reference's binary ``.geo`` geometry format
+"""Reader and writers for the reference's binary ``.geo`` geometry format
 (corona13_tpu/io/geo.py).
 
 Layout (corona-13 include/prims.h:26-47, include/geo.h): a 32-byte header
@@ -11,9 +11,9 @@ float radius for spheres and lines.  Motion blur doubles the vertex stride
 (v0,v1,v2) and (v0,v2,v3), in the reference loader's order: all
 triangles, then every quad's first half, then every second half.
 
-Everything decodes vectorised in numpy.  Lines and motion load here;
-``ops/trace.py`` refuses them at trace time until their leaf tests are
-ported.
+Everything decodes vectorised in numpy.  The writers emit triangle
+meshes only: ``save_geo`` with the motion layout when given shutter-close
+vertices, ``write_geo`` (obj2geo's output stage) never with it.
 """
 
 from __future__ import annotations
@@ -233,3 +233,77 @@ def load_geo(path: str) -> GeoShape:
         line_radii=line_radii, line_prim=prim_index[line_sel],
         num_prims=int(num_prims), has_motion=has_motion,
     )
+
+
+def save_geo(path: str, tri_vtx: np.ndarray, tri_ns: np.ndarray | None = None,
+             tri_uv: np.ndarray | None = None,
+             tri_vtx_t1: np.ndarray | None = None) -> None:
+    """Write a triangle mesh as a reference-compatible .geo file (used by the
+    obj2geo tool and by test fixtures).
+
+    ``tri_vtx_t1``: optional shutter-close vertices — sets the primid
+    motion bit (corona_common.h:45-55 bit 60) and interleaves (t0, t1)
+    vertex pairs at stride 2, the reference motion-blur layout
+    (include/prims.h:37-47)."""
+    t = np.asarray(tri_vtx, np.float32)
+    n_tri = len(t)
+    verts = t.reshape(-1, 3)
+    mb = tri_vtx_t1 is not None
+    if tri_ns is None:
+        e1 = t[:, 1] - t[:, 0]
+        e2 = t[:, 2] - t[:, 0]
+        gn = np.cross(e1, e2)
+        gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+        ns = np.repeat(gn[:, None, :], 3, axis=1)
+    else:
+        ns = np.asarray(tri_ns, np.float32)
+    enc_n = encode_oct_normal(ns.reshape(-1, 3))
+    if tri_uv is None:
+        enc_uv = np.zeros(3 * n_tri, np.uint32)
+    else:
+        enc_uv = encode_uv(np.asarray(tri_uv, np.float32).reshape(-1, 2))
+
+    primids = (np.uint64(PRIM_TRI) << np.uint64(61)) | \
+              ((np.arange(n_tri, dtype=np.uint64) * np.uint64(3)) << np.uint64(32))
+    if mb:
+        primids |= np.uint64(1) << np.uint64(60)
+    vtxidx = np.zeros((3 * n_tri, 2), np.uint32)
+    vtxidx[:, 0] = np.arange(3 * n_tri, dtype=np.uint32)
+    vtxidx[:, 1] = enc_uv
+    if mb:
+        verts1 = np.asarray(tri_vtx_t1, np.float32).reshape(-1, 3)
+        vdata = np.zeros((2 * 3 * n_tri, 4), np.uint32)
+        vdata[0::2, :3] = verts.view(np.uint32)
+        vdata[0::2, 3] = enc_n
+        vdata[1::2, :3] = verts1.view(np.uint32)
+        vdata[1::2, 3] = enc_n
+    else:
+        vdata = np.zeros((3 * n_tri, 4), np.uint32)
+        vdata[:, :3] = verts.view(np.uint32)
+        vdata[:, 3] = enc_n
+
+    hdr_size = 32
+    vtxidx_off = hdr_size + 8 * n_tri
+    vertex_off = vtxidx_off + 8 * 3 * n_tri
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<iiQQQ', GEO_MAGIC, GEO_VERSION, n_tri, vtxidx_off, vertex_off))
+        f.write(primids.astype('<u8').tobytes())
+        f.write(vtxidx.astype('<u4').tobytes())
+        f.write(vdata.astype('<u4').tobytes())
+
+
+def write_geo(path: str, tri_vtx: np.ndarray, tri_ns: np.ndarray | None = None,
+              tri_uv: np.ndarray | None = None) -> None:
+    """Write a triangle mesh in the reference binary .geo format
+    (inverse of :func:`load_geo`; the analogue of tools/geo/obj2geo.c's
+    output stage).  tri_vtx [T, 3, 3]; tri_ns optional [T, 3, 3] shading
+    normals (face normals when omitted); tri_uv optional [T, 3, 2].  The
+    motion bit is never set: this is :func:`save_geo` without shutter-close
+    vertices."""
+    save_geo(path, tri_vtx, tri_ns, tri_uv)
+
+
+def encode_uv(uv: np.ndarray) -> np.ndarray:
+    """Two texture coords -> packed half2 u32 (inverse of decode_uv)."""
+    h = np.asarray(uv, np.float16).view(np.uint16).astype(np.uint32)
+    return (h[..., 0] | (h[..., 1] << np.uint32(16))).astype(np.uint32)

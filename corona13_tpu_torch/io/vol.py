@@ -1,5 +1,5 @@
-"""Reader for the reference .vol hierarchical volume format
-(corona13_tpu/io/vol.py; its writer is not ported).
+"""Reader and writer for the reference .vol hierarchical volume format
+(corona13_tpu/io/vol.py).
 
 Format (corona-13 include/vol/types.h:31-96): 4096-byte header (magic
 0x9bae454d, version 8 | motion_samples<<16), payload blocks starting at
@@ -153,3 +153,106 @@ def read_vol(path: str, max_res: int = 256) -> VolFile:
                             temp.shape[2] // 2, 2).max(axis=(1, 3, 5))
     return VolFile(dens, temp, hd['aabb'], hd['voxel_size'], hd['loc'],
                    hd['rot'], int(hd['shaderid']))
+
+
+def write_vol(path: str, density, temperature=None, aabb=None,
+              voxel_size=1.0, loc=(0, 0, 0), rot=(0, 0, 0), shaderid=0):
+    """Write a depth-2 static .vol (res <= 64 per axis; larger grids are
+    written at 64^3 by nearest sampling).  density/temperature: [Z, Y, X].
+    The analogue of tools/vol/ptc2vol.c's output stage.  depth=2 matches
+    the reference convention (8**depth = 64 voxels per axis, root node is
+    a leaf of 8^3 bricks; depth=1 files are rejected by vol.h:295)."""
+    density = np.asarray(density, np.float32)
+    if temperature is None:
+        temperature = np.zeros_like(density)
+    temperature = np.asarray(temperature, np.float32)
+    if density.shape != temperature.shape:
+        raise ValueError('density/temperature shape mismatch')
+    res = 64
+    if density.shape != (res, res, res):
+        idx = [np.clip((np.arange(res) + 0.5) / res * s, 0, s - 1
+                       ).astype(np.int32) for s in density.shape]
+        density = density[np.ix_(idx[0], idx[1], idx[2])]
+        temperature = temperature[np.ix_(idx[0], idx[1], idx[2])]
+    if aabb is None:
+        aabb = [0, 0, 0, res * voxel_size, res * voxel_size,
+                res * voxel_size]
+    else:
+        # the reference derives the voxel grid resolution from
+        # aabb extent / voxel_size (vol/types.h header contract), so an
+        # explicit aabb overrides the voxel size to keep res = 64; the
+        # single scalar voxel size in the header requires a cubic box
+        ext = [float(aabb[3 + a]) - float(aabb[a]) for a in range(3)]
+        if max(ext) - min(ext) > 1e-5 * max(ext):
+            raise ValueError(
+                f'write_vol needs a cubic aabb (one header voxel size); '
+                f'got extents {ext}')
+        voxel_size = ext[0] / res
+
+    # depth-1 file: root node is a leaf whose 512 children are bricks
+    bricks0 = []          # payload bricks of children 0..255
+    bricks1 = []          # payload bricks of children 256..511
+    off = np.full(512, 255, np.uint8)
+    empty = np.ones(512, bool)
+    for i in range(512):
+        ix, iy, iz = i & 7, (i >> 3) & 7, (i >> 6) & 7
+        d = density[iz * 8:iz * 8 + 8, iy * 8:iy * 8 + 8, ix * 8:ix * 8 + 8]
+        t = temperature[iz * 8:iz * 8 + 8, iy * 8:iy * 8 + 8,
+                        ix * 8:ix * 8 + 8]
+        if not np.any(d) and not np.any(t):
+            continue
+        # each 256-half addresses its own payload run (off is u8 <= 254)
+        bricks = bricks0 if i < 256 else bricks1
+        off[i] = len(bricks)
+        empty[i] = False
+        bricks.append((d, t))
+
+    def pack(brs):
+        out = bytearray()
+        for d, t in brs:
+            out += d.astype(np.float16).tobytes()
+            out += t.astype(np.float16).tobytes()
+        return bytes(out)
+
+    pay0 = pack(bricks0)
+    pay1 = pack(bricks1)
+    # root coarse mip payload (8x8x8 means) precedes the node array
+    root_d = density.reshape(8, 8, 8, 8, 8, 8).mean(axis=(1, 3, 5))
+    root_t = temperature.reshape(8, 8, 8, 8, 8, 8).mean(axis=(1, 3, 5))
+    root_pay = root_d.astype(np.float16).tobytes() + \
+        root_t.astype(np.float16).tobytes()
+
+    payload_off0 = 0
+    payload_off1 = len(pay0)
+    nodes_off = 4096 + len(pay0) + len(pay1) + len(root_pay)
+
+    node = np.zeros(1, _NODE)
+    node['doff0'] = (payload_off0 << 1) | 1          # static
+    node['doff1'] = (payload_off1 << 1) | 1
+    node['noff0'] = 1 if empty[255] else 0
+    node['noff1'] = (1 if empty[511] else 0) | (1 << 1)   # leaf
+    node['off'][0] = off
+
+    light_off = nodes_off + _NODE.itemsize
+    hd = np.zeros(1, _HEADER)
+    hd['magic'] = VOL_MAGIC
+    hd['version'] = VOL_VERSION | (VOL_MOTION_SAMPLES << 16)
+    hd['nodes'] = nodes_off
+    hd['aabb'][0] = np.asarray(aabb, np.float32)
+    hd['content_box'][0] = np.asarray(aabb, np.float32)
+    hd['voxel_size'] = voxel_size
+    hd['rot'][0] = np.asarray(rot, np.float32)
+    hd['loc'][0] = np.asarray(loc, np.float32)
+    hd['depth'] = 2
+    hd['light'] = light_off
+    hd['isstatic'] = 1
+    hd['shaderid'] = shaderid
+    hd['end'] = light_off
+
+    with open(path, 'wb') as f:
+        buf = hd.tobytes()
+        f.write(buf + b'\0' * (4096 - len(buf)))
+        f.write(pay0)
+        f.write(pay1)
+        f.write(root_pay)
+        f.write(node.tobytes())

@@ -28,7 +28,8 @@ import torch
 from . import bvh as bvh_mod
 from . import trace_cuda
 from .trace_plain import (_closest_select, ray_cone_intersect,  # noqa: F401
-                          ray_sphere_intersect, ray_tri_intersect_packed)
+                          ray_sphere_intersect, ray_tri_intersect,
+                          ray_tri_intersect_packed)
 
 INVALID_PRIM = -1
 MAX_DIST = 3.4e38

@@ -62,6 +62,13 @@ def ray_tri_intersect_packed(rows, org, direction):
     return t, bu, bv, ok
 
 
+def ray_tri_intersect(v0, e1, e2, org, direction):
+    """ray_tri_intersect_packed over separate v0 / e1 / e2 candidate arrays
+    [N, K, 3] (the JAX package's compatibility wrapper)."""
+    return ray_tri_intersect_packed(torch.cat([v0, e1, e2], dim=-1), org,
+                                    direction)
+
+
 def ray_sphere_intersect(c, r, org, direction):
     """[N, K] candidates; returns the nearest positive root and its mask."""
     cx, cy, cz = _xyz(c)

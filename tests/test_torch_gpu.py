@@ -599,3 +599,60 @@ def test_ppm_mlt_on_the_card(cuda, name):
         assert same >= 0.99 and mean_rel <= 1e-3, (close, same, mean_rel)
     else:
         assert close >= 0.99, close
+
+
+def test_sharded_render_on_the_card(cuda):
+    """parallel.shard on the card: meshes (2, 2) and (1, 4) emulated rank
+    after rank equal the sum of pt.render_sample over the mesh's samples
+    at the JAX test's tolerance (rtol 2e-4, atol 1e-5) off the 7x7 reach
+    of the samples whose pixel-aligned splat lands one pixel short (see
+    test_pixel_aligned_splat_moves_carried_samples_reference_defect), and
+    the shard function's own frames of the whole film everywhere (a check
+    of the split); each shard launches the traversal kernels, and
+    train_step_theta's gradients on the card equal the CPU's (1e-3 of the
+    largest for the linear parameters, 5e-3 for focus)."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.parallel import shard
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=6, mf=4)
+    scenes = [scene_mod.fit_film(testing.cornell_scene(device=d), 64, 36)
+              for d in (cuda, torch.device('cpu'))]
+    sc = scenes[0]
+    dev = sc.device
+    pix = torch.arange(64 * 36, device=dev)
+    with torch.no_grad():
+        whole = [shard.render_shard(sc, cfg, shard.make_mesh(), s, 0)
+                 for s in (0, 1)]
+        single = [pt_mod.render_sample(sc, cfg, s) for s in (0, 1)]
+        near = []
+        for s in (0, 1):
+            _, _, pi, pj = pt_mod.sample_paths(sc, cfg, s, pix)
+            c = (torch.floor(pi) != pix % 64) | (torch.floor(pj) != pix // 64)
+            near.append(torch.nn.functional.max_pool2d(
+                c.reshape(1, 1, 36, 64).float(), 7, stride=1,
+                padding=3)[0, 0] > 0)
+        for n_sp, n_px in ((2, 2), (1, 4)):
+            mesh = shard.make_mesh(n_sp, n_px)
+            before = trace_cuda.launches['closest']
+            fb = shard.render_samples_sharded(sc, cfg, mesh, 0, emulate=True,
+                                              device=dev)
+            assert trace_cuda.launches['closest'] == before + 5 * mesh.size
+            off = ~torch.stack(near[:n_sp]).any(0)
+            assert float(off.float().mean()) > 0.5
+            torch.testing.assert_close(fb[off], sum(single[:n_sp])[off],
+                                       rtol=2e-4, atol=1e-5)
+            torch.testing.assert_close(fb, sum(whole[:n_sp]), rtol=2e-4,
+                                       atol=1e-5)
+    target = (whole[0] * 0.8).cpu()
+    theta = {'d_mul': torch.ones(sc.materials.d_mul.shape[0]),
+             'e_mul': torch.tensor(1.0), 'med_sigma': torch.tensor(1.0),
+             'focus': torch.tensor(1.0)}
+    grads = [shard.train_step_theta(s, cfg, shard.make_mesh(1, 2), target,
+                                    theta, emulate=True, device=s.device)[1]
+             for s in scenes]
+    for k, tol in (('d_mul', 1e-3), ('e_mul', 1e-3), ('focus', 5e-3)):
+        card, cpu = grads[0][k].cpu(), grads[1][k]
+        assert torch.isfinite(card).all() and float(cpu.abs().max()) > 0, k
+        assert float((card - cpu).abs().max()) <= tol * float(
+            cpu.abs().max()), (k, card, cpu)

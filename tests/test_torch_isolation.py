@@ -6,8 +6,11 @@ traces one 16x9 media progression of it, renders a frame under an envmap
 frame, a gradient, a vis AOV (samplers.vis), a DBOR cascade and one 16x9
 progression of each light-path sampler (samplers.lt, bdpt, ptlt, bdpt1, with
 lights.sample_emission, camera.connect and the sampling helpers of
-utils.math) and of ppm, kmlt and vmlt (pt's primary-sample replay), and
-neither jax, flax nor any module of the JAX package
+utils.math) and of ppm, kmlt and vmlt (pt's primary-sample replay), a
+sharded render and a train step over an emulated (2, 2) mesh
+(parallel.shard), writes and reads back a .cam, .geo and .vol file (the io
+writers) and runs the tools (pfmdiff, welch, obj2geo, netdisplay's
+tonemap), and neither jax, flax nor any module of the JAX package
 corona13_tpu gets imported."""
 
 import os
@@ -68,9 +71,44 @@ for img in (ppm.render_sample(sc, cfg, 0),
             vmlt.render_sample(sc, cfg, 0, chains=64)):
     img = img.numpy()
     assert img.shape == (9, 16, 3) and np.isfinite(img).all() and img.max() > 0
+from corona13_tpu_torch.parallel import dryrun, shard
+mesh = shard.make_mesh(2, 2)
+fb = shard.render_samples_sharded(sc, cfg, mesh, 0, emulate=True, device='cpu')
+assert fb.shape == (9, 16, 3) and float(fb.sum()) > 0
+(loss, img), grads = shard.train_step_theta(
+    sc, cfg, mesh, fb * 0.25, {'d_mul': torch.tensor(1.0),
+                              'e_mul': torch.tensor(1.0),
+                              'med_sigma': torch.tensor(1.0),
+                              'focus': torch.tensor(1.0)},
+    emulate=True, device='cpu')
+assert float(grads['e_mul']) > 0
+import os, tempfile
+from corona13_tpu_torch.io import cam, geo, pfm, vol
+from corona13_tpu_torch.tools import netdisplay, obj2geo, pfmdiff, welch
+with tempfile.TemporaryDirectory() as tmp:
+    p = lambda name: os.path.join(tmp, name)
+    c = cam.read_cam('data/golden/scenes/0002_mb/test01.cam')
+    cam.write_cam(p('a.cam'), c)
+    assert cam.read_cam(p('a.cam')).focus == c.focus
+    tri = np.random.default_rng(0).uniform(-1, 1, (4, 3, 3)).astype(np.float32)
+    geo.save_geo(p('a.geo'), tri, tri_vtx_t1=tri + 1)
+    assert geo.load_geo(p('a.geo')).has_motion
+    geo.write_geo(p('b.geo'), tri)
+    assert (geo.load_geo(p('b.geo')).tri_vtx == tri).all()
+    vol.write_vol(p('a.vol'), np.ones((8, 8, 8), np.float32))
+    assert vol.read_vol(p('a.vol')).density.shape == (64, 64, 64)
+    with open(p('a.obj'), 'w') as f:
+        f.write('v 0 0 0\\nv 1 0 0\\nv 0 1 0\\nf 1 2 3\\n')
+    assert obj2geo.main([p('a.obj'), p('c.geo')]) == 0
+    pfm.write_pfm(p('a.pfm'), np.ones((64, 64, 3), np.float32))
+    assert pfmdiff.main([p('a.pfm'), p('a.pfm')]) == 0
+    assert welch.main([p('a.pfm'), p('a.pfm')]) == 0
+    assert netdisplay._tonemap(np.ones((2, 2, 3), np.float32)).max() > 0
 for mod in ('models.envmap', 'models.daylight', 'samplers.vis', 'samplers.lt',
             'samplers.bdpt', 'samplers.ptlt', 'samplers.bdpt1',
-            'samplers.ppm', 'samplers.kmlt', 'samplers.vmlt'):
+            'samplers.ppm', 'samplers.kmlt', 'samplers.vmlt',
+            'parallel.shard', 'parallel.dryrun', 'tools.netdisplay',
+            'tools.obj2geo', 'tools.pfmdiff', 'tools.welch'):
     assert 'corona13_tpu_torch.' + mod in sys.modules, mod
 leaked = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'flax', 'corona13_tpu')]

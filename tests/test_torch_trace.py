@@ -533,11 +533,14 @@ def test_entry_points_default_to_the_card():
     a required keyword, so nothing lands on the CPU unasked."""
     from corona13_tpu_torch import scene as tscene
     from corona13_tpu_torch.models import daylight, envmap, medium_hete
+    from corona13_tpu_torch.parallel import dryrun, shard
     from corona13_tpu_torch.spectral import rgb2spec
     for fn in (tscene.load_scene, ttesting.assemble_scene,
                ttesting.cornell_scene, ttesting.plane_scene,
                ttesting.furnace_scene, convert.scene_from_numpy,
-               envmap.build, daylight.build):
+               envmap.build, daylight.build, shard.render_samples_sharded,
+               shard.train_step, shard.train_step_theta,
+               dryrun.dryrun_multichip, shard.rank_device):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
     for fn in (tscene.material_table, ttrace.make_device_geometry,
                ttrace.DeviceBVH.from_host, medium_hete.from_volfile,
@@ -547,3 +550,27 @@ def test_entry_points_default_to_the_card():
         assert par.kind is inspect.Parameter.KEYWORD_ONLY, fn
     with pytest.raises(TypeError):
         ttrace.make_device_geometry(tri_v=_random_tris(4))
+
+
+def test_ray_tri_intersect_matches_jax():
+    """The unpacked Moeller-Trumbore wrapper (tests/test_bvh.py's brute
+    force) against the JAX package's: the hit mask, and t, u, v where it is
+    set (a near-parallel miss divides by a tiny determinant, where XLA's
+    and torch's roundings part)."""
+    tri = _random_tris(300)
+    r = np.random.default_rng(7)
+    org = r.uniform(-12, 12, (64, 3)).astype(np.float32)
+    d = r.normal(size=(64, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    parts = (tri[None, :, 0], tri[None, :, 1] - tri[None, :, 0],
+             tri[None, :, 2] - tri[None, :, 0])
+    want = jtrace.ray_tri_intersect(*map(jnp.asarray, parts),
+                                    jnp.asarray(org), jnp.asarray(d))
+    got = ttrace.ray_tri_intersect(*map(torch.as_tensor, parts),
+                                   torch.as_tensor(org), torch.as_tensor(d))
+    assert bool(np.asarray(want[3]).any())
+    hit = np.asarray(want[3])
+    np.testing.assert_array_equal(got[3].numpy(), hit)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a.numpy()[hit], np.asarray(b)[hit],
+                                   rtol=1e-5, atol=1e-5)
