@@ -26,6 +26,11 @@ Phases (each prints its results; any failure exits non-zero):
      cornell's one sphere and on 64 lines; two launches bit-identical;
      then trace.intersect / trace.occluded on geometries that route to
      the forms no render below reaches (launch counts asserted);
+  3c. line counters: the line policy's counters launch (simple_walk
+     kind='line', thread i on ray i, near-first for closest-hit) on the
+     line soup's bounce and shadow rays of 3b (launch counts asserted):
+     kernel pops a ray beside the plain skip-link walk's nodes and leaves,
+     hits against plain, timed beside the persistent launch;
   4. main path: render.render of testing.cornell_scene at 1024x576, mf=4,
      max_verts=6, NEE on, 4 spp, through the kernel (launch counts
      checked), plus the same path on the card against the CPU at 64x36;
@@ -49,6 +54,16 @@ Phases (each prints its results; any failure exits non-zero):
      line BVH form), and its paths on the card against the CPU, held to
      the bar on the frame's thick fibres and printed without a bar on
      fibres as thin as real hair;
+  8c. the line and moving forms at their frames' own shapes: every launch
+     of one hair and one 0002_mb progression captured from the frame's
+     own calls (frame_calls) and launched again on the same tensors
+     (frame_forms): each held against its plain version, two launches
+     bit-identical, by the hold of 16 and 17 (_hold_launch), timed (a
+     fresh carry each launch) and bound from the plain walk's visits on the
+     same rays (the line form also with its early exit at the
+     discriminant); launches, ms, bound and share a frame; the line
+     counters on the hair frame's first bounce and shadow rays; one hair
+     progression under torch.profiler (device ms a form);
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
  10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp;
@@ -115,7 +130,12 @@ bound on this card: the larger of its bytes (inputs once, outputs once,
 dead lanes only their t_init) over 3.35 TB/s and its float operations (the
 pops this run's rays needed, on occupied children and rows; for the forms
 of 3b the box and leaf tests of the plain skip-link walk on the same rays)
-over 67 TFLOP/s.  The last line is
+over 67 TFLOP/s.  The line and moving forms' rows give 3b's launch at the
+soup's shapes as ms, bound and plain, and their frame's (8c) as frame_*:
+the frame's sums and a launch's mean.  The line rows add exit_*, the bound
+with rows that miss at the discriminant counted up to it (the kernel leaves
+them there), beside the bound above, which counts the full test.  The
+last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -250,9 +270,11 @@ def _soup_sets(dev, seed):
     return {k: tuple(a.to(dev) for a in v) for k, v in cpu.items()}
 
 
-def _time_ms(fn, n_sets, reps, host=False):
+def _time_ms(fn, n_sets, reps, host=False, before=None):
     """Mean card ms per call over reps calls cycling over n_sets input
     sets, between CUDA events, ending in a synchronize and a read-back.
+    ``before()``, where given, runs ahead of each pass (and of the spin):
+    it makes the inputs that the calls update in place afresh.
     A dry pass measures how long the host takes to enqueue the calls; a
     spin kernel half as long again (at an SM clock of at most 2 GHz) then
     goes first, so that the host has enqueued every call before the card
@@ -261,6 +283,8 @@ def _time_ms(fn, n_sets, reps, host=False):
     the pass is host-bound and is taken again behind twice the spin (at
     most three passes).  host=True also returns the host's microseconds
     per call to enqueue and whether the last pass was still host-bound."""
+    if before is not None:
+        before()
     fn(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -268,6 +292,8 @@ def _time_ms(fn, n_sets, reps, host=False):
         fn(i % n_sets)
     spin_s = (time.perf_counter() - t0) * 1.5 + 1e-3
     for _ in range(3):
+        if before is not None:
+            before()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -523,9 +549,12 @@ def callers_phase(bvhs, kres, card):
 # what a test computes from the prim alone, which the least work does once a
 # prim and not once a ray: r*r of a sphere; a cone's axis, its length, the
 # three divisions and the slope k, 15.  A node of the skip-link walk is one
-# box test, OPS_CHILD.
+# box test, OPS_CHILD.  OPS_LINE_DISC: the cone test up to and with its
+# discriminant's compare (3 subtractions, four dot products, s, a, b, c, the
+# discriminant), where the line form's kernel leaves a row that misses.
 OPS_ROW_OF = {'tri': OPS_ROW, 'moving': OPS_ROW + 28, 'sphere': 25, 'line': 75}
 OPS_PRIM_OF = {'tri': 0, 'moving': 0, 'sphere': 1, 'line': 15}
+OPS_LINE_DISC = 45
 
 
 def _sphere_soup(n, seed):
@@ -543,7 +572,8 @@ def _line_soup(n, seed, box=50.0, length=2.0, radius=0.2):
                                      (n, 2)).astype(np.float32))
 
 
-def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs):
+def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs,
+                missed=0):
     """The least time the card could take for one fresh launch of a form:
     (ms, 'bytes' or 'operations').  Bytes: the records the form reads once
     (a tree's nodes and leaf rows, a dense list's arrays), 24 B of origin
@@ -554,7 +584,10 @@ def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs):
     a test computes from the prim alone once a prim; a tree: one box test a
     node visited and the leaf rows tested, as the plain skip-link walk
     counted them on these rays, at the tree's mean row fill; a dense list:
-    every live ray against every prim."""
+    every live ray against every prim.  ``missed`` (0: the definition
+    above): line rows the plain walk found with a discriminant that is not
+    positive, counted at OPS_LINE_DISC, where the kernel leaves them, and
+    not at the full test."""
     if form == 'dense':
         recs = sum(x.numel() for x in target if x is not None) * 4
         n_prims = target[0].shape[0]
@@ -569,11 +602,30 @@ def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs):
         filled = target.leaf_prims >= 0
         ops = (alive * OPS_RAY + visits * OPS_CHILD
                + leafs * 8 * float(filled.float().mean()) * OPS_ROW_OF[kind]
-               + int(filled.sum()) * OPS_PRIM_OF[kind])
+               + int(filled.sum()) * OPS_PRIM_OF[kind]
+               - missed * (OPS_ROW_OF[kind] - OPS_LINE_DISC))
     nbytes = recs + alive * (24 + 8 + 4 * lerps) + n * (4 + out_bytes)
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_FLOP_PER_S * 1e3
     return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
+
+
+def _plain_counts(form, kind, plain, *args, **kw):
+    """A form's plain version and, for a tree the skip-link walk serves,
+    its per-ray counts: (hit, nodes visited, leaves tested, line rows
+    missed at the discriminant); a dense list and the static wide triangles
+    give (hit, 0, 0, None).  The last is None where the package's plain
+    walk does not count such rows (scripts/trace_times.py --root imports
+    another checkout's)."""
+    if form == 'dense' or (form, kind) == ('wide', 'tri'):
+        return plain(*args, **kw), 0, 0, None
+    hit, visits, leafs, *missed = plain(*args, want_counts=True, **kw)
+    return hit, visits, leafs, missed[0] if missed else None
+
+
+def _total(count):
+    """A per-ray count summed over the rays (a number or None as given)."""
+    return int(count.sum()) if torch.is_tensor(count) else count
 
 
 def _form_compare(k, p, any_hit, where):
@@ -633,14 +685,11 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    p = plain(want_counts=form != 'dense') if form != 'dense' else plain()
+    p, *counts = _plain_counts(form, kind, plain)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    visits = leafs = 0
-    if form != 'dense':
-        p, v, l = p
-        visits, leafs = int(v.sum()), int(l.sum())
+    visits, leafs, missed = map(_total, counts)
     agree, slot, err = _form_compare(first, p, any_hit, name)
     # the same rays with a running hit carried in
     n = argsets[0][0].shape[0]
@@ -677,6 +726,9 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
     out_bytes = 1 if any_hit else 28
     bound, by = _form_bound(target, kind, form, n, alive, out_bytes, visits,
                             leafs)
+    exit_bound = _form_bound(target, kind, form, n, alive, out_bytes, visits,
+                             leafs, missed)[0] \
+        if kind == 'line' and missed is not None else None
     print(f'  {name:30s} {"any" if any_hit else "closest"}-hit ({form}): '
           f'alive {alive / n:.4f}, hit share {hit_share:.4f}, prim agree '
           f'{agree:.6f}, slot agree {slot:.6f}, max |dt| {err:.3g}; carried: '
@@ -685,11 +737,18 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
           f'{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms by '
           f'{by} (share {bound / ms:.3f})'
           + (f'; skip-link walk {visits / n:.2f} nodes / {leafs / n:.2f} '
-             f'leaves a ray' if form != 'dense' else ''), flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, agree=min(agree, c_agree),
-                slot_agree=min(slot, c_slot), max_abs_err=max(err, c_err),
-                hit_share=hit_share, alive=alive, bound_ms=bound, bound_by=by,
-                form=form, nodes_per_ray=visits / n, leaves_per_ray=leafs / n)
+             f'leaves a ray' if form != 'dense' else '')
+          + (f'; {missed / n:.2f} rows a ray missed at the discriminant, '
+             f'bound with the early exit {exit_bound:.4f} ms (share '
+             f'{exit_bound / ms:.3f})' if exit_bound is not None else ''),
+          flush=True)
+    rec = dict(ms=ms, plain_ms=plain_ms, agree=min(agree, c_agree),
+               slot_agree=min(slot, c_slot), max_abs_err=max(err, c_err),
+               hit_share=hit_share, alive=alive, bound_ms=bound, bound_by=by,
+               form=form, nodes_per_ray=visits / n, leaves_per_ray=leafs / n)
+    if exit_bound is not None:
+        rec.update(exit_bound_ms=exit_bound, missed_rows_per_ray=missed / n)
+    return rec
 
 
 def forms_phase(dev, card, bvhs):
@@ -738,10 +797,12 @@ def forms_phase(dev, card, bvhs):
         'dense_line': (dense_line, 'line', 12, (corn_a, corn_b)),
     }
     gen = torch.Generator(device='cpu').manual_seed(13)
-    res = {}
+    res, line_sets = {}, {}
     for key, (target, kind, offset, sets) in targets.items():
         for mode, ray_kind in (('closest', 'bounce'), ('any', 'shadow')):
             argsets = []
+            if key == 'line':
+                line_sets[mode] = (target, offset, argsets)
             for rays in sets:
                 o, d, _, *seg = rays[ray_kind]
                 t = seg[0] if seg else torch.full((N_RAYS,), MAX_DIST,
@@ -785,7 +846,126 @@ def forms_phase(dev, card, bvhs):
     check(launches == {f'{k}_{m}': 1 for k in ('sphere', 'dense_line', 'deep')
                        for m in ('closest', 'any')},
           f'form path launch counts {launches}')
-    return res, launches
+    return res, launches, line_sets
+
+
+def line_counts(where, target, offset, mode, args, card, time_it=True):
+    """The line policy's counters launch (simple_walk kind='line': thread
+    i walks ray i, near-first for closest-hit, as the persistent launch
+    walks it) on one set of rays (org, dir, t_init, ignore ids, the second
+    ignore ids or None): inner and
+    leaf pops a ray beside the plain skip-link walk's nodes and leaves on
+    the same rays, its hits held to the plain walk's (_form_compare), and
+    with time_it its ms beside the persistent launch's."""
+    from corona13_tpu_torch.ops import trace_cuda
+    any_hit = mode == 'any'
+    o, d, t, ig, ig2 = args
+    walk = lambda: trace_cuda.simple_walk(target, o, d, t, ig, ig2,
+                                          any_hit=any_hit, kind='line',
+                                          prim_offset=offset)
+    out = walk()
+    plain = trace_cuda.any_hit_plain if any_hit else \
+        trace_cuda.closest_hit_plain
+    kw = dict(ignore_prim2=ig2) if any_hit else {}
+    p, visits, leafs, *_ = plain(target, 'line', o, d, t, ig,
+                                 prim_offset=offset, want_counts=True, **kw)
+    k = out[1] >= 0 if any_hit else out[:5]
+    agree, slot, err = _form_compare(k, p, any_hit, f'{where} counters')
+    n = o.shape[0]
+    alive = int((t > 0).sum()) if torch.is_tensor(t) else n
+    rec = dict(inner_per_ray=int(out[5].sum()) / n,
+               leaf_per_ray=int(out[6].sum()) / n,
+               plain_nodes_per_ray=int(visits.sum()) / n,
+               plain_leaves_per_ray=int(leafs.sum()) / n, agree=agree,
+               max_abs_err=err, alive=alive)
+    if time_it:
+        if any_hit:
+            pers = lambda s: (trace_cuda.any_hit(target, 'line', o, d, t, ig,
+                                                 ig2, prim_offset=offset),)
+        else:
+            pers = lambda s: trace_cuda.closest_hit(target, 'line', o, d, t,
+                                                    ig, prim_offset=offset)
+        rec['ms'] = _time_ms(lambda s: walk(), 1, 20)
+        rec['ms_persistent'] = _time_ms(pers, 1, 20)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain(target, 'line', o, d, t, ig, prim_offset=offset,
+              want_counts=True, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        rec['plain_ms'] = start.elapsed_time(end)
+        rec['bound_ms'], rec['bound_by'] = _form_bound(
+            target, 'line', 'wide', n, alive, 1 if any_hit else 28,
+            int(visits.sum()), int(leafs.sum()))
+    print(f'  {where:24s} line_{mode} counters: {n} rays, alive {alive}; '
+          f'kernel pops a ray {rec["inner_per_ray"]:.2f} inner / '
+          f'{rec["leaf_per_ray"]:.2f} leaf, plain skip-link walk '
+          f'{rec["plain_nodes_per_ray"]:.2f} nodes / '
+          f'{rec["plain_leaves_per_ray"]:.2f} leaves; '
+          + (f'blocked agree {agree:.6f}' if any_hit else
+             f'prim agree {agree:.6f}, max |dt| {err:.3g}')
+          + (f'; counters launch {rec["ms"]:.4f} ms, persistent '
+             f'{rec["ms_persistent"]:.4f} ms, plain {rec["plain_ms"]:.1f} ms'
+             if time_it else '') + f' on {card}', flush=True)
+    return rec
+
+
+def line_counters_phase(line_sets, card):
+    """Phase 3c: the line policy's counters launch on the line soup's
+    bounce and shadow rays of 3b, with the launch counts zeroed just before
+    and read just after (a debug path: no render launches it)."""
+    phase(f'line counters: the ConeLeaf counters launch on the 2^16-line '
+          f'soup, {N_RAYS} rays, on {card}')
+    from corona13_tpu_torch.ops import trace_cuda
+    _zero_launches()
+    # as 3b launches them: any-hit excludes the same id twice
+    rays = {m: argsets[0][:4] + (argsets[0][3] if m == 'any' else None,)
+            for m, (_, _, argsets) in line_sets.items()}
+    for m, (target, offset, _) in line_sets.items():
+        trace_cuda.simple_walk(target, *rays[m], any_hit=m == 'any',
+                               kind='line', prim_offset=offset)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    print(f'line counters launches {launches}', flush=True)
+    check(launches == {'line_counters': len(line_sets)},
+          f'line counters launch counts {launches}')
+    outs = {m: line_counts(f'soup {m}', target, offset, m, rays[m], card)
+            for m, (target, offset, _) in line_sets.items()}
+    return outs, launches
+
+
+def frame_shapes_phase(hair, mb, card):
+    """Phase 8c: the line and moving forms at the hair and 0002_mb frames'
+    own shapes: every launch of one 1024x576 progression captured and held
+    by frame_forms (time, bound, share, launches a frame), the line
+    counters launch on the hair frame's first bounce and first shadow rays
+    (kernel pops a ray beside the plain walk's), and one hair progression
+    under torch.profiler (device ms of each form)."""
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'the line and moving forms at the hair and 0002_mb frames\' '
+          f'shapes, {W}x{H}, mf=4, max_verts=6, NEE, on {card}')
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    kept = frame_calls(hair, cfg)
+    out = {'hair': frame_forms('hair', kept, ('line_closest', 'line_any'),
+                               card),
+           'pops': {}}
+    for mode, calls in kept.items():
+        target, _, args, kw = next(c for c in calls if c[1] == 'line')
+        carry, t = kw['carry'], args[2]
+        any_hit = mode == 'any_hit'
+        # the line launch starts where the triangle launch left the ray
+        start = torch.where(carry, 0.0, t) if any_hit else carry[0]
+        out['pops'][mode] = line_counts(
+            f'hair first {"shadow" if any_hit else "bounce"}', target,
+            kw['prim_offset'], 'any' if any_hit else 'closest',
+            (args[0], args[1], start.contiguous(), args[3],
+             args[4] if any_hit else None), card, time_it=False)
+    del kept
+    out['0002_mb'] = frame_forms('0002_mb', frame_calls(mb, cfg),
+                                 ('moving_closest', 'moving_any'), card)
+    out['hair_profile'] = _profile_frame('hair frame', hair, cfg, card)
+    return out
 
 
 def _compare_hits(k, p, any_hit, where):
@@ -1091,6 +1271,7 @@ def prims_phase(dev, card):
         f'hair ({hair.geom.n_lines} fibres)', hair, 2, card,
         forms=('closest', 'any', 'line_closest', 'line_any'))
     check(lit > 0.5, f'hair frame: only {lit} of the pixels are lit')
+    out['frame_forms'] = frame_shapes_phase(hair, mb, card)
     out['hair'] = dict(frame_s=res.seconds / 2, rays=rays,
                        mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
                        mean=float(res.image_xyz.mean()), launches=launches,
@@ -1182,11 +1363,39 @@ def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_s = sum(e.device_time_total for e in events) * 1e-6
     check(device_s > 0, f'{name}: the profile shows no device time')
+    forms = collections.Counter()
+    for e in events:
+        key = _kernel_key(e.name)
+        if key:
+            forms[key] += e.device_time_total * 1e-3
     print(f'{name} profile: wall {wall * 1e3:.1f} ms unprofiled, device time '
           f'{device_s * 1e3:.1f} ms, busy share {device_s / wall:.2f}, '
-          f'{len(events)} launches on {card}', flush=True)
+          f'{len(events)} launches on {card}; traversal kernels (device ms): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in sorted(forms.items())),
+          flush=True)
     return dict(wall_ms=wall * 1e3, device_ms=device_s * 1e3,
-                busy_share=device_s / wall, launches=len(events))
+                busy_share=device_s / wall, launches=len(events),
+                kernel_ms=dict(forms))
+
+
+def _kernel_key(name):
+    """The entry of trace_cuda.launches that a traversal kernel's name (as
+    the profiler demangles it) counts under, or None for another kernel."""
+    m = re.search(r'(traverse|skip|dense)_kernel<[^<>]*?(\w+)Leaf, '
+                  r'(true|false)(?:, (true|false))?', name)
+    if m is None:
+        return None
+    kernel, leaf, any_hit, counters = m.groups()
+    mode = 'any' if any_hit == 'true' else 'closest'
+    kind = {'Triangle': '', 'MovingTriangle': 'moving', 'Sphere': 'sphere',
+            'Cone': 'line'}[leaf]
+    if kernel == 'traverse' and counters == 'true':
+        return 'counters' if not kind else f'{kind}_counters'
+    if kernel == 'skip':
+        return f'deep_{mode}'
+    if kernel == 'dense':
+        return f'dense_{kind}_{mode}'
+    return f'{kind}_{mode}' if kind else mode
 
 
 def sky_phase(dev, card):
@@ -1957,10 +2166,13 @@ def _capture_calls(fn, n_lanes, picks):
     """Run fn with trace_cuda.closest_hit and any_hit wrapped.  A call of
     trace.intersect / occluded launches one form per prim kind, the first
     without a carry; for the picks[mode]-th such call on n_lanes rays
-    (0-based), keep each launch's arguments as the form was given them
-    (the carry cloned before the launch updates it in place)."""
+    (0-based; a collection of indices keeps each of them), keep each
+    launch's arguments as the form was given them (the carry cloned before
+    the launch updates it in place), in the order of the launches."""
     from corona13_tpu_torch.ops import trace_cuda
     real = {m: getattr(trace_cuda, m) for m in picks}
+    want = {m: {p} if isinstance(p, int) else set(p)
+            for m, p in picks.items()}
     seen = {m: -1 for m in picks}
     kept = {m: [] for m in picks}
 
@@ -1968,7 +2180,7 @@ def _capture_calls(fn, n_lanes, picks):
         def call(target, kind, org, *a, **kw):
             if org.shape[0] == n_lanes:
                 seen[mode] += kw.get('carry') is None
-                if seen[mode] == picks[mode]:
+                if seen[mode] in want[mode]:
                     kept[mode].append((target, kind, _cloned((org,) + a),
                                        _cloned(kw)))
             return real[mode](target, kind, org, *a, **kw)
@@ -1984,38 +2196,155 @@ def _capture_calls(fn, n_lanes, picks):
     return kept
 
 
-def _hold_calls(where, kept):
-    """Each captured launch again on the card, twice (bit-identical), and
-    by its plain version on the same tensors: prim, slot and t, u, v (the
-    any-hit flag) held as phase 3b holds them (_form_compare)."""
+def _hold_launch(where, mode, target, kind, args, kw):
+    """One captured launch again on the card, twice (bit-identical), and by
+    its plain version on the same tensors (timed; a tree's with the
+    skip-link walk's counts, _plain_counts): prim, slot and t, u, v (the
+    any-hit flag) held as phase 3b holds them (_form_compare).  Returns the
+    launch's record: its key in trace_cuda.launches, form, rays, alive,
+    agreement, max |dt|, plain ms and the walk's summed counts."""
     from corona13_tpu_torch.ops import trace_cuda
+    any_hit = mode == 'any_hit'
+    form = trace_cuda._form_of(target, kind)
+    key = trace_cuda._count_key(form, kind, any_hit)
+    kern = lambda: getattr(trace_cuda, mode)(target, kind, *args,
+                                             **_cloned(kw))
+    k, k2 = kern(), kern()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p, *counts = _plain_counts(form, kind,
+                               getattr(trace_cuda, mode + '_plain'),
+                               target, kind, *args, **_cloned(kw))
+    end.record()
+    torch.cuda.synchronize()
+    visits, leafs, missed = map(_total, counts)
+    same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(
+        (k,) if any_hit else k, (k2,) if any_hit else k2))
+    agree, slot, err = _form_compare(k, p, any_hit, f'{where} {key}')
+    t, n = args[2], args[0].shape[0]
+    alive = int((t > 0).sum()) if torch.is_tensor(t) else n
+    print(f'  {where:34s} {key:22s} {n} rays, alive {alive}: '
+          + (f'blocked agree {agree:.6f}' if any_hit else
+             f'prim agree {agree:.6f}, slot agree {slot:.6f}, max '
+             f'|dt| {err:.3g}') + f', two launches identical {same}',
+          flush=True)
+    check(same, f'{where} {key}: two launches differ')
+    return dict(key=key, form=form, rays=n, alive=alive, agree=agree,
+                slot_agree=slot, max_abs_err=err,
+                plain_ms=start.elapsed_time(end), visits=visits, leafs=leafs,
+                missed=missed)
+
+
+def _hold_calls(where, kept):
+    """Each captured launch held by _hold_launch; per form, the least
+    agreement and the largest max |dt| over its launches."""
     out = {}
     for mode, calls in kept.items():
         check(calls, f'{where}: no {mode} call captured')
-        any_hit = mode == 'any_hit'
         for target, kind, args, kw in calls:
-            kern = lambda: getattr(trace_cuda, mode)(target, kind, *args,
-                                                     **_cloned(kw))
-            k, k2 = kern(), kern()
-            plain = getattr(trace_cuda, mode + '_plain')(
-                target, kind, *args, **_cloned(kw))
-            torch.cuda.synchronize()
-            same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(
-                (k,) if any_hit else k, (k2,) if any_hit else k2))
+            r = _hold_launch(where, mode, target, kind, args, kw)
+            o = out.setdefault(r['key'], dict(
+                rays=r['rays'], alive=r['alive'], agree=1.0, slot_agree=1.0,
+                max_abs_err=0.0))
+            o['agree'] = min(o['agree'], r['agree'])
+            o['slot_agree'] = min(o['slot_agree'], r['slot_agree'])
+            o['max_abs_err'] = max(o['max_abs_err'], r['max_abs_err'])
+    return out
+
+
+def frame_calls(scene, cfg, sample=0):
+    """Every trace_cuda launch of one pt progression (render_sample) at the
+    frame's full width, as _capture_calls keeps them: {'closest_hit':
+    [...], 'any_hit': [...]} in the order of the launches."""
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    n = cfg.width * cfg.height
+    every = range(2 * cfg.max_verts)   # at most two calls of a mode a bounce
+    return _capture_calls(lambda: pt_mod.render_sample(scene, cfg, sample), n,
+                          {'closest_hit': every, 'any_hit': every})
+
+
+def frame_forms(where, kept, keys, card, reps=20):
+    """The captured launches of the forms in ``keys`` (entries of
+    trace_cuda.launches) at a frame's own shapes: each held by _hold_launch,
+    timed on the card (the spin timer, mean of ``reps`` launches, every
+    launch on a fresh clone of its carry) and given the bound _form_bound
+    gives phase 3b, from the plain skip-link walk's visits on the same rays
+    (for the line form also the bound with its early exit at the
+    discriminant).  Returns per form: the launches a frame, the frame's sum
+    of kernel ms, of bound ms and of plain ms, the mean per launch, and the
+    launches in order."""
+    from corona13_tpu_torch.ops import trace_cuda
+    out = {}
+    for mode, calls in kept.items():
+        any_hit = mode == 'any_hit'
+        tup = (lambda x: (x,)) if any_hit else (lambda x: x)
+        kern = getattr(trace_cuda, mode)
+        for target, kind, args, kw in calls:
             key = trace_cuda._count_key(trace_cuda._form_of(target, kind),
                                         kind, any_hit)
-            agree, slot, err = _form_compare(k, plain, any_hit,
-                                             f'{where} {key}')
-            t, n = args[2], args[0].shape[0]
-            alive = int((t > 0).sum()) if torch.is_tensor(t) else n
-            print(f'  {where:34s} {key:22s} {n} rays, alive {alive}: '
-                  + (f'blocked agree {agree:.6f}' if any_hit else
-                     f'prim agree {agree:.6f}, slot agree {slot:.6f}, max '
-                     f'|dt| {err:.3g}') + f', two launches identical {same}',
+            if key not in keys:
+                continue
+            r = _hold_launch(where, mode, target, kind, args, kw)
+            pool = []
+
+            def fresh():
+                pool[:] = [_cloned(kw) for _ in range(reps)]
+            ms = _time_ms(lambda i: tup(kern(target, kind, *args, **pool[i])),
+                          reps, reps, before=fresh)
+            pool.clear()
+            n, nv, nl = r['rays'], r['visits'], r['leafs']
+            bound, by = _form_bound(target, kind, r['form'], n, r['alive'],
+                                    1 if any_hit else 28, nv, nl)
+            missed = r['missed'] if kind == 'line' else None
+            exit_bound = None if missed is None else _form_bound(
+                target, kind, r['form'], n, r['alive'], 1 if any_hit else 28,
+                nv, nl, missed)[0]
+            rec = out.setdefault(key, dict(launches=0, ms=0.0, bound_ms=0.0,
+                                           plain_ms=0.0, agree=1.0,
+                                           max_abs_err=0.0, calls=[]))
+            rec['launches'] += 1
+            rec['ms'] += ms
+            rec['bound_ms'] += bound
+            rec['plain_ms'] += r['plain_ms']
+            if exit_bound is not None:
+                rec['exit_bound_ms'] = rec.get('exit_bound_ms', 0.0) + \
+                    exit_bound
+            rec['agree'] = min(rec['agree'], r['agree'], r['slot_agree'])
+            rec['max_abs_err'] = max(rec['max_abs_err'], r['max_abs_err'])
+            rec['calls'].append(dict(
+                rays=n, alive=r['alive'], ms=ms, bound_ms=bound, bound_by=by,
+                exit_bound_ms=exit_bound, plain_ms=r['plain_ms'],
+                agree=r['agree'], slot_agree=r['slot_agree'],
+                max_abs_err=r['max_abs_err'], nodes_per_ray=nv / n,
+                leaves_per_ray=nl / n,
+                missed_rows_per_ray=None if missed is None else missed / n))
+            print(f'  {where:10s} {key:13s} launch {rec["launches"]}: {n} '
+                  f'rays, alive {r["alive"]}; kernel {ms:.4f} ms, bound '
+                  f'{bound:.4f} ms by {by} (share {bound / ms:.3f}), plain '
+                  f'{r["plain_ms"]:.1f} ms; skip-link walk {nv / n:.2f} '
+                  f'nodes / {nl / n:.2f} leaves a ray'
+                  + ('' if exit_bound is None else
+                     f'; {missed / n:.2f} rows a ray missed at the '
+                     f'discriminant, bound with the early exit '
+                     f'{exit_bound:.4f} ms (share {exit_bound / ms:.3f})'),
                   flush=True)
-            check(same, f'{where} {key}: two launches differ')
-            out[key] = dict(rays=n, alive=alive, agree=agree,
-                            slot_agree=slot, max_abs_err=err)
+    for key, rec in out.items():
+        rec['ms_per_launch'] = rec['ms'] / rec['launches']
+        rec['bound_ms_per_launch'] = rec['bound_ms'] / rec['launches']
+        rec['roofline_share'] = rec['bound_ms'] / rec['ms']
+        rec['loss_ms'] = rec['ms'] - rec['bound_ms']
+        if 'exit_bound_ms' in rec:
+            rec['exit_roofline_share'] = rec['exit_bound_ms'] / rec['ms']
+        print(f'  {where:10s} {key:13s} a frame: {rec["launches"]} launches, '
+              f'kernel {rec["ms"]:.4f} ms, bound {rec["bound_ms"]:.4f} ms '
+              f'(share {rec["roofline_share"]:.3f}), launches x (time - '
+              f'bound) {rec["loss_ms"]:.4f} ms, plain {rec["plain_ms"]:.1f} '
+              f'ms'
+              + (f', bound with the early exit {rec["exit_bound_ms"]:.4f} ms '
+                 f'(share {rec["exit_roofline_share"]:.3f})'
+                 if 'exit_bound_ms' in rec else '') + f', on {card}',
+              flush=True)
     return out
 
 
@@ -2413,7 +2742,9 @@ def main():
     build_phase()
     kres, bvhs, cases = kernel_phase(dev, smi)
     callers = callers_phase(bvhs, kres, smi)
-    fres, flaunches = forms_phase(dev, smi, bvhs)
+    fres, flaunches, line_sets = forms_phase(dev, smi, bvhs)
+    lcres, lclaunches = line_counters_phase(line_sets, smi)
+    del line_sets
 
     cornell = scene_mod.fit_film(testing.cornell_scene(sphere='diffuse',
                                                        device=dev), W, H)
@@ -2505,6 +2836,7 @@ def main():
                   'lit_share': lit2}, **media,
         **prims, '0031_hete/paths_vs_cpu': media_close,
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
+        'line_counter_cases': lcres,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
         'light_paths': light, 'ppm_mlt': mlt, 'sharded': sharded}),
         flush=True)
@@ -2520,6 +2852,33 @@ def main():
             key.rsplit('_', 1)[0], (flaunches, None))
         m = fres[key]
         dense = key.startswith('dense')
+        # the line and moving forms: beside 3b's numbers at the soup's
+        # shapes, the kernel at its frame's own shapes (hair, 0002_mb; phase
+        # 8c), the frame's sum and a launch's mean
+        frame = prims['frame_forms']['hair' if key.startswith('line')
+                                     else '0002_mb'].get(key)
+        at_frame = {}
+        if frame:
+            nf = frame['launches']
+            at_frame = {
+                'frame_shapes': ('hair' if key.startswith('line') else
+                                 '0002_mb') + f' frame, {nf} launches',
+                'frame_ms': frame['ms'], 'frame_bound_ms': frame['bound_ms'],
+                'frame_plain_ms': frame['plain_ms'],
+                'frame_ms_per_launch': frame['ms_per_launch'],
+                'frame_bound_ms_per_launch': frame['bound_ms_per_launch'],
+                'frame_plain_ms_per_launch': frame['plain_ms'] / nf,
+                'frame_bound_by': max(frame['calls'],
+                                      key=lambda c: c['bound_ms'])['bound_by'],
+                'frame_roofline_share': frame['roofline_share'],
+                'frame_max_abs_err': frame['max_abs_err']}
+            if 'exit_bound_ms' in frame:
+                at_frame.update(
+                    frame_exit_bound_ms=frame['exit_bound_ms'],
+                    frame_exit_roofline_share=frame['exit_roofline_share'])
+        if 'exit_bound_ms' in m:
+            at_frame.update(exit_bound_ms=m['exit_bound_ms'],
+                            exit_roofline_share=m['exit_bound_ms'] / m['ms'])
         return {'name': f'trace {key.replace("_", " ")}', **common,
                 'replaces': 'corona13_tpu/ops/trace.py:' + (
                     '605-614,630-638' if dense else '359-440')
@@ -2534,10 +2893,18 @@ def main():
                 'ms': m['ms'],
                 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
                 'bound_by': m['bound_by'],
-                'roofline_share': m['bound_ms'] / m['ms']}
+                'roofline_share': m['bound_ms'] / m['ms'], **at_frame}
+    m = lcres['closest']   # the line counters on the soup's bounce rays
+    line_counters = {
+        'name': 'trace line counters', **common,
+        'replaces': 'corona13_tpu/ops/trace.py:359-440 (XLA, not Pallas)',
+        'launches': lclaunches['line_counters'], 'launches_per_frame': 0,
+        'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
+        'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
+        'bound_by': m['bound_by'], 'roofline_share': m['bound_ms'] / m['ms']}
     kernels = [entry('closest', 'traverse_tris closest-hit'),
                entry('any', 'traverse_tris any-hit'), counters] + [
-        form_entry(k) for k in fres]
+        form_entry(k) for k in fres] + [line_counters]
     for k in kernels:
         check(k['launches'] > 0, f'{k["name"]} was never launched on its path')
     print(json.dumps({'kernels': kernels}), flush=True)

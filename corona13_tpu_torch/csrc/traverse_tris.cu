@@ -26,8 +26,13 @@
 //            wdepth*7+8 as computed at upload (at most 192), and sizes the
 //            dynamic shared memory: 128 threads x depth x 4 B, i.e. 7.5 KB
 //            for a one-node tree, 25 KB at wdepth 6, 96 KB at the limit
-//            (above 48 KB through cudaFuncSetAttribute).  The push guard
-//            sp < depth stays.
+//            (above 48 KB through cudaFuncSetAttribute).  The line form's
+//            closest-hit keeps an entry distance beside each entry, 8 B:
+//            51 KB at the hair tree's depth of 50, 192 KB at the limit,
+//            where one block is resident an SM whatever kMinBlocks asks
+//            (4 warps; a line tree deeper than about 56 entries holds
+//            fewer than the four blocks its registers allow, since an SM
+//            has 228 KB).  The push guard sp < depth stays.
 //   loop     Aila and Laine's while-while: pop inner nodes until a leaf is
 //            on top, then leaves until an inner node is on top.  Each
 //            thread pops its own entries in the same order as a single
@@ -48,7 +53,8 @@
 //            or one value for all rays, and writes prim and slot as int64
 //            (or only a blocked byte), so the callers add no passes.
 //
-// Order and rounding are the TPU kernel's: children are pushed in
+// Order and rounding are the TPU kernel's (the line form's closest-hit
+// order is its own, below): children are pushed in
 // ascending child index (its packet order restricted to this ray's hits),
 // an exact-t tie between leaves goes to the first visited (tt < t_best),
 // the winner inside a leaf is the minimum of (bits(t) & ~7) | row, and the
@@ -102,6 +108,58 @@
 //   These forms are bound as the triangle walk is: bytes on small trees
 //   and short lists, fp32 operations on deep ones; a simple kernel that is
 //   right comes first, and each policy states its own occupancy bound.
+//
+// The line form (ConeLeaf in the wide walk), laid out for this card.  Its
+// winner is _closest_select's, not the TPU kernel's encoding, so nothing
+// ties it to the index order.  What bounds it: fp32 operations on a deep
+// fibre tree (on the hair frame the plain skip-link walk visits 51 nodes
+// and tests 6.2 leaves a camera ray, on the 2^16-line soup 124 and 11.7; a
+// cone row is 75 operations, one sqrt and two IEEE divides among them).
+// What it waited on: leaves opened behind the ray's nearest hit, a fibre's
+// axis, length and slope recomputed for every ray, the root's sqrt and
+// divides on rows the ray misses.  Kept, each measured faster at the hair
+// frame's shapes and on the soup (NVIDIA H100 80GB HBM3, 700 W):
+//   order    closest-hit sorts a node's hit children by entry distance (a
+//            19-comparator network) and pushes them far to near, each with
+//            its distance in a second shared-memory stack, so the nearest
+//            pops first; an entry the running t has passed is dropped at
+//            its pop.  8 B an entry: 51 KB a block at the hair tree's depth
+//            of 50, four blocks an SM, as the registers allow.  Hair frame
+//            9.60 -> 3.31 ms, soup 1.98 -> 1.69 ms a launch.  Any-hit keeps
+//            the index order: its t does not move.
+//   terms    each fibre's unit axis, length, k and k*k come from its record
+//            (computed once at upload with the reference's expressions);
+//            the per-ray operations keep the reference's order, and the
+//            axial fraction's divide is taken for a leaf's winner only.
+//            Alone: hair 14.88 -> 9.93 ms closest-hit and 1.49 -> 1.11 ms
+//            any-hit a frame, soup 2.66 -> 2.01 ms.
+//   rows     a leaf pop tests its filled rows only (the count in each
+//            record's last word; build_bvh pads a leaf at its end): hair
+//            3.42 -> 3.31, soup 1.73 -> 1.69 ms.
+//   exit     a row whose discriminant is not positive leaves before the
+//            sqrt and divides (kMissExit; the dense list keeps the full
+//            test): hair 3.31 -> 2.82 ms closest-hit and 1.10 -> 0.96 ms
+//            any-hit a frame, soup 1.69 -> 1.54 and 0.59 -> 0.56 ms.  The
+//            exit changes no result (such a row misses in either form),
+//            so the template parameter is temporary: the dense list keeps
+//            <false> only so that its code stays as it was, and a later
+//            kernel change makes the exit unconditional.
+// The bound chip_smoke.py gives this form is the one it gives every tree:
+// the full 75-operation test on every filled row the plain skip-link walk
+// tests, and that walk's index-order visits.  The kernel does less: most
+// rows leave at the discriminant (45 operations), and near-first order
+// with the pop-time cull pops fewer nodes (its counters launch prints its
+// pops beside the walk's).  So the printed share reads higher than the
+// kernel earns; chip_smoke.py prints beside it the share with missed rows
+// counted up to the discriminant.
+// Measured and dropped (closest-hit, hair frame / soup): 6 blocks an SM
+// (80 registers, no spills), 2.84 / 1.58 against 2.82 / 1.54 ms (any-hit
+// 0.961 against 0.964 ms a hair frame, inside the 0.964-0.973 that one
+// tree reads from run to run: not kept for any-hit alone either); the
+// nearest child alone on top of the others in index order, 3.34
+// / 1.60 against 2.82 / 1.53; the sort skipped under two hit children,
+// 2.87 / 1.56.  Four blocks: 96 registers closest-hit, 89 any-hit, no
+// spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,6 +298,26 @@ __device__ __forceinline__ void store_ray(const Params& p, int i,
   }
 }
 
+// Slab test of child c of the wide node at `rec`: true where the ray's
+// segment (0, r.t) meets the child's box; tn is the entry distance, w the
+// push weight (0: an empty slot, >= 256: a leaf), link the child's link.
+__device__ __forceinline__ bool child_hit(const float4* __restrict__ rec,
+                                          int c, const Ray& r, float& tn,
+                                          float& w, int& link) {
+  const float4 a = __ldg(rec + 2 * c);      // min.xyz, max.x
+  const float4 b = __ldg(rec + 2 * c + 1);  // max.yz, weight, link
+  w = b.z;
+  link = __float_as_int(b.w);
+  const float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
+  const float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
+  const float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
+  tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+             fmaxf(fminf(t0z, t1z), 0.f));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fminf(fmaxf(t0z, t1z), r.t));
+  return w != 0.f && tn <= tf && tf > 0.f;
+}
+
 // One inner pop: slab-test the 8 children of the wide node at `rec` and
 // push the hit ones in ascending child index (a leaf as -link-1).
 __device__ __forceinline__ void pop_inner(const float4* __restrict__ rec,
@@ -249,25 +327,76 @@ __device__ __forceinline__ void pop_inner(const float4* __restrict__ rec,
   int link[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const float4 a = __ldg(rec + 2 * c);      // min.xyz, max.x
-    const float4 b = __ldg(rec + 2 * c + 1);  // max.yz, weight, link
-    const float w = b.z;
-    const float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
-    const float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
-    const float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), 0.f));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fminf(fmaxf(t0z, t1z), r.t));
-    if (w != 0.f && tn <= tf && tf > 0.f) hit |= 1u << c;
+    float tn, w;
+    if (child_hit(rec, c, r, tn, w, link[c])) hit |= 1u << c;
     if (w >= 256.f) leafm |= 1u << c;
-    link[c] = __float_as_int(b.w);
   }
 #pragma unroll
   for (int c = 0; c < 8; ++c)
     if ((hit >> c) & 1u)
       if (sp < depth)
         stack[sp++ * kThreads] = ((leafm >> c) & 1u) ? -link[c] - 1 : link[c];
+}
+
+// Sort step of pop_inner_near: the larger key first.
+__device__ __forceinline__ void order_desc(float& ka, int& va, float& kb,
+                                           int& vb) {
+  const bool swap = ka < kb;
+  const float k = swap ? kb : ka;
+  const int v = swap ? vb : va;
+  kb = swap ? ka : kb;
+  vb = swap ? va : vb;
+  ka = k;
+  va = v;
+}
+
+// One inner pop in near-first order: the slab test of pop_inner, then the
+// hit children sorted by entry distance (19-comparator network over the 8
+// slots, a missed slot keyed -1) and pushed far to near, each with its
+// entry distance in tstack, so that the nearest is popped first and an
+// entry that the running t has passed is dropped at its pop.
+__device__ __forceinline__ void pop_inner_near(const float4* __restrict__ rec,
+                                               const Ray& r, int* stack,
+                                               float* tstack, int& sp,
+                                               int depth) {
+  float key[8];
+  int val[8];
+  int n_hit = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float tn, w;
+    int link;
+    const bool hit = child_hit(rec, c, r, tn, w, link);
+    key[c] = hit ? tn : -1.f;
+    val[c] = w >= 256.f ? -link - 1 : link;
+    n_hit += hit;
+  }
+  order_desc(key[0], val[0], key[2], val[2]);
+  order_desc(key[1], val[1], key[3], val[3]);
+  order_desc(key[4], val[4], key[6], val[6]);
+  order_desc(key[5], val[5], key[7], val[7]);
+  order_desc(key[0], val[0], key[4], val[4]);
+  order_desc(key[1], val[1], key[5], val[5]);
+  order_desc(key[2], val[2], key[6], val[6]);
+  order_desc(key[3], val[3], key[7], val[7]);
+  order_desc(key[0], val[0], key[1], val[1]);
+  order_desc(key[2], val[2], key[3], val[3]);
+  order_desc(key[4], val[4], key[5], val[5]);
+  order_desc(key[6], val[6], key[7], val[7]);
+  order_desc(key[2], val[2], key[4], val[4]);
+  order_desc(key[3], val[3], key[5], val[5]);
+  order_desc(key[1], val[1], key[4], val[4]);
+  order_desc(key[3], val[3], key[6], val[6]);
+  order_desc(key[1], val[1], key[2], val[2]);
+  order_desc(key[3], val[3], key[4], val[4]);
+  order_desc(key[5], val[5], key[6], val[6]);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    if (c < n_hit && sp < depth) {
+      stack[sp * kThreads] = val[c];
+      tstack[sp * kThreads] = key[c];
+      ++sp;
+    }
 }
 
 // Moeller-Trumbore on (v0, e1, e2).  True where the triangle is hit in
@@ -306,26 +435,34 @@ __device__ __forceinline__ bool sphere_hit(float cx, float cy, float cz,
   return disc > 0.f && tt > 0.f && tt < r.t;
 }
 
-// A line prim: the truncated cone through the circles (v0, r0), (v1, r1).
-// y is the axial fraction of the hit in [0, 1].
-__device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
-                                         float v1x, float v1y, float v1z,
-                                         float r0, float r1, const Ray& r,
-                                         float& tt, float& y) {
-  float ax = v1x - v0x, ay = v1y - v0y, az = v1z - v0z;
-  const float length = sqrtf(fmaxf(ax * ax + ay * ay + az * az, 1e-20f));
-  ax = ax / length; ay = ay / length; az = az / length;
+// The cone test of a line prim from its own terms (unit axis, length, the
+// slope k and k*k, the root radius r0), which depend on the prim alone and
+// are computed once a prim: the per-ray operations of the reference's
+// test, in its order.  True where hit in (0, r.t); yt is the hit's axial
+// coordinate (yt / length is the axial fraction).  kMissExit: a ray whose
+// discriminant is not positive misses, so it leaves before the root's
+// sqrt and divides (tt and yt then 0).
+template <bool kMissExit>
+__device__ __forceinline__ bool cone_test(float v0x, float v0y, float v0z,
+                                          float ax, float ay, float az,
+                                          float length, float k, float kk,
+                                          float r0, const Ray& r, float& tt,
+                                          float& yt) {
   const float ox = r.ox - v0x, oy = r.oy - v0y, oz = r.oz - v0z;
   const float ya = ox * ax + oy * ay + oz * az;
   const float wd = r.dx * ax + r.dy * ay + r.dz * az;
-  const float k = (r1 - r0) / length;
   const float ow = ox * r.dx + oy * r.dy + oz * r.dz;
   const float oo = ox * ox + oy * oy + oz * oz;
   const float s = r0 + k * ya;
-  const float a = 1.f - wd * wd - k * k * wd * wd;
+  const float a = 1.f - wd * wd - kk * wd * wd;
   const float b = 2.f * (ow - ya * wd - k * wd * s);
   const float c = oo - ya * ya - s * s;
   const float disc = b * b - 4.f * a * c;
+  if (kMissExit && !(disc > 0.f)) {
+    tt = 0.f;
+    yt = 0.f;
+    return false;
+  }
   const float sq = sqrtf(fmaxf(disc, 0.f));
   const float sgn = b > 0.f ? 1.f : (b < 0.f ? -1.f : b);
   const float q = -0.5f * (b + sgn * sq);
@@ -336,9 +473,31 @@ __device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
   const float tlo = fminf(t0, t1), thi = fmaxf(t0, t1);
   const float ylo = ya + tlo * wd;
   tt = (tlo > 0.f && ylo >= 0.f && ylo <= length) ? tlo : thi;
-  const float yt = ya + tt * wd;
-  y = fminf(fmaxf(yt / length, 0.f), 1.f);
+  yt = ya + tt * wd;
   return disc > 0.f && tt > 0.f && yt >= 0.f && yt <= length && tt < r.t;
+}
+
+// A line prim's axial fraction of the hit, from cone_test's yt.
+__device__ __forceinline__ float cone_fraction(float yt, float length) {
+  return fminf(fmaxf(yt / length, 0.f), 1.f);
+}
+
+// A line prim: the truncated cone through the circles (v0, r0), (v1, r1),
+// its terms computed here (the dense list, which reads the geometry's own
+// arrays).  y is the axial fraction of the hit in [0, 1].
+__device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
+                                         float v1x, float v1y, float v1z,
+                                         float r0, float r1, const Ray& r,
+                                         float& tt, float& y) {
+  float ax = v1x - v0x, ay = v1y - v0y, az = v1z - v0z;
+  const float length = sqrtf(fmaxf(ax * ax + ay * ay + az * az, 1e-20f));
+  ax = ax / length; ay = ay / length; az = az / length;
+  const float k = (r1 - r0) / length;
+  float yt;
+  const bool hit = cone_test<false>(v0x, v0y, v0z, ax, ay, az, length, k,
+                                    k * k, r0, r, tt, yt);
+  y = cone_fraction(yt, length);
+  return hit;
 }
 
 // Leaf policies.  test(): true where row `row` (leaf id * 8 + row in the
@@ -348,10 +507,25 @@ __device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
 // kSets*: which of u, v, slot a hit of this kind defines.  kDenseList: the
 // kind has a dense small-list form (kCone: of lines).  kMinBlocks:
 // __launch_bounds__' resident blocks per SM for the wide walk (6 caps a
-// thread at 80 registers, 4 at 128).
+// thread at 80 registers, 4 at 128).  kNearFirst: the wide closest-hit
+// walk pushes children near-first and drops entries the running t has
+// passed (pop_inner_near).  rows(): the rows of leaf `lid` to test, from
+// the first; u_of(): the u of a leaf's winner from what test() gave it.
+
+// What a policy does not set: every row tested, children in index order,
+// u as test() gives it.
+struct LeafDefaults {
+  static constexpr bool kNearFirst = false;
+  static __device__ __forceinline__ int rows(const Params&, int) {
+    return kLeaf;
+  }
+  static __device__ __forceinline__ float u_of(float b_u, float) {
+    return b_u;
+  }
+};
 
 // (v0.xyz, prim bits | e1.xyz, - | e2.xyz, -)
-struct TriangleLeaf {
+struct TriangleLeaf : LeafDefaults {
   static constexpr int kRowVec = 3;
   static constexpr bool kEncoded = true;
   static constexpr bool kSetsU = true, kSetsV = true, kSetsSlot = true;
@@ -372,7 +546,7 @@ struct TriangleLeaf {
 
 // Two TriangleLeaf rows, shutter open (p.leaves) and close (p.leaves_t1),
 // lerped at the ray's time.
-struct MovingTriangleLeaf {
+struct MovingTriangleLeaf : LeafDefaults {
   static constexpr int kRowVec = 3;
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = true, kSetsV = true, kSetsSlot = true;
@@ -398,7 +572,7 @@ struct MovingTriangleLeaf {
 };
 
 // (c.xyz, radius | prim bits, -, -, -)
-struct SphereLeaf {
+struct SphereLeaf : LeafDefaults {
   static constexpr int kRowVec = 2;
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = false, kSetsV = false, kSetsSlot = false;
@@ -417,13 +591,24 @@ struct SphereLeaf {
   }
 };
 
-// (v0.xyz, prim bits | v1.xyz, r0 | r1, -, -, -); u is the axial fraction
+// (v0.xyz, prim bits | unit axis.xyz, r0 | length, k, k*k, filled rows of
+// the leaf as int bits): the prim's own terms of the cone test, computed
+// once at upload (ops/trace_cuda.py: pack_line_rows); u is the axial
+// fraction, divided out for the leaf's winner only.
 struct ConeLeaf {
   static constexpr int kRowVec = 3;
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = true, kSetsV = false, kSetsSlot = false;
   static constexpr bool kDenseList = true, kCone = true;
   static constexpr int kMinBlocks = 4;
+  static constexpr bool kNearFirst = true;
+  static __device__ __forceinline__ int rows(const Params& p, int lid) {
+    return __float_as_int(
+        __ldg(p.leaves + (size_t)lid * kLeaf * kRowVec + 2).w);
+  }
+  static __device__ __forceinline__ float u_of(float yt, float length) {
+    return cone_fraction(yt, length);
+  }
   static __device__ __forceinline__ bool test(const Params& p, int row,
                                               const Ray& r, float& tt,
                                               float& b_u, float& b_v,
@@ -431,9 +616,9 @@ struct ConeLeaf {
     const float4* q = p.leaves + (size_t)row * kRowVec;
     const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
     cand = __float_as_int(q0.w);
-    b_v = 0.f;
-    return cone_hit(q0.x, q0.y, q0.z, q1.x, q1.y, q1.z, q1.w, q2.x, r, tt,
-                    b_u) &&
+    b_v = q2.x;  // the length, for u_of
+    return cone_test<true>(q0.x, q0.y, q0.z, q1.x, q1.y, q1.z, q2.x, q2.y,
+                           q2.z, q1.w, r, tt, b_u) &&
            cand >= 0 && cand != r.ig1 && cand != r.ig2;
   }
 };
@@ -459,8 +644,10 @@ __device__ __forceinline__ bool pop_leaf(const Params& p, int lid, Ray& r) {
   int best = kNoHit;
   float bt = r.t, bu = 0.f, bv = 0.f;
   int bc = -1, bk = 0;
+  const int rows = Leaf::rows(p, lid);
 #pragma unroll
   for (int k = 0; k < kLeaf; ++k) {
+    if (k >= rows) break;
     float tt, b_u, b_v;
     int cand;
     if (Leaf::test(p, lid * kLeaf + k, r, tt, b_u, b_v, cand)) {
@@ -481,7 +668,7 @@ __device__ __forceinline__ bool pop_leaf(const Params& p, int lid, Ray& r) {
       r.t = -1.f;
       return true;
     }
-    take_hit<Leaf>(p, r, bt, bu, bv, bc, lid * kLeaf + bk);
+    take_hit<Leaf>(p, r, bt, Leaf::u_of(bu, bv), bv, bc, lid * kLeaf + bk);
   }
   return false;
 }
@@ -491,8 +678,12 @@ __device__ __forceinline__ bool pop_leaf(const Params& p, int lid, Ray& r) {
 template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
 __global__ void __launch_bounds__(kThreads, Leaf::kMinBlocks)
 traverse_kernel(const Params p) {
+  constexpr bool kNear = Leaf::kNearFirst && !kAnyHit;
   extern __shared__ int smem[];
   int* stack = smem + threadIdx.x;  // entry e of this thread: stack[e * kThreads]
+  // kNear: each entry's distance, beside it (a second depth x kThreads)
+  float* tstack = reinterpret_cast<float*>(smem) + p.depth * kThreads +
+                  threadIdx.x;
   const int lane = threadIdx.x & 31;
   const unsigned lanes_below = (1u << lane) - 1u;
 
@@ -555,6 +746,7 @@ traverse_kernel(const Params p) {
           ray = pend_base + src;
           load_ray(p, ray, t0, r);
           stack[0] = 0;  // the root
+          if (kNear) tstack[0] = 0.f;
           sp = 1;
         }
         // drop the `take` lowest pending rays
@@ -569,17 +761,29 @@ traverse_kernel(const Params p) {
 
     if (ray >= 0) {
       // while-while: inner nodes until a leaf is on top ...
+      // (kNear: an entry farther than the running t is dropped)
       while (sp > 0) {
         const int entry = stack[(sp - 1) * kThreads];
+        if (kNear && tstack[(sp - 1) * kThreads] > r.t) {
+          --sp;
+          continue;
+        }
         if (entry < 0) break;
         --sp;
         if (kCounters) ++r.iters;
         const float4* rec = p.nodes + (size_t)entry * kNodeVec;
-        pop_inner(rec, r, stack, sp, p.depth);
+        if (kNear)
+          pop_inner_near(rec, r, stack, tstack, sp, p.depth);
+        else
+          pop_inner(rec, r, stack, sp, p.depth);
       }
       // ... then leaves until an inner node is on top
       while (sp > 0) {
         const int entry = stack[(sp - 1) * kThreads];
+        if (kNear && tstack[(sp - 1) * kThreads] > r.t) {
+          --sp;
+          continue;
+        }
         if (entry >= 0) break;
         --sp;
         if (kCounters) ++r.leafs;
@@ -715,7 +919,8 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Params p) {
 template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
 cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
   auto kern = traverse_kernel<Leaf, kAnyHit, kCounters, kPersistent>;
-  const size_t smem = (size_t)p.depth * kThreads * sizeof(int);
+  constexpr size_t kEntry = Leaf::kNearFirst && !kAnyHit ? 8 : 4;
+  const size_t smem = (size_t)p.depth * kThreads * kEntry;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
@@ -803,8 +1008,8 @@ struct Corona13TraceArgs {
   float* v_out;
   long long* slot_out;
   unsigned char* blocked_out;  // [n] bytes or null
-  int* iters_out;  // both non-null: the counters launch (wide triangles,
-  int* leafs_out;  // thread i walks ray i, per-ray pop counts)
+  int* iters_out;  // both non-null: the counters launch (wide triangles or
+  int* leafs_out;  // lines, thread i walks ray i, per-ray pop counts)
   int* work;       // wide, not counters: two int32 zeros, left zero again
   void* stream;
 };
@@ -860,9 +1065,13 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)a->stream;
   if (a->iters_out != nullptr) {
-    if (a->leafs_out == nullptr || form != kWide || kind != kTriangle ||
-        a->carry)
+    if (a->leafs_out == nullptr || form != kWide ||
+        (kind != kTriangle && kind != kLine) || a->carry)
       return (int)cudaErrorInvalidValue;
+    if (kind == kLine)
+      return (int)(a->any_hit
+                       ? launch_wide<ConeLeaf, true, true, false>(p, s)
+                       : launch_wide<ConeLeaf, false, true, false>(p, s));
     return (int)(a->any_hit
                      ? launch_wide<TriangleLeaf, true, true, false>(p, s)
                      : launch_wide<TriangleLeaf, false, true, false>(p, s));

@@ -49,9 +49,10 @@ class DeviceBVH:
     wlinks: torch.Tensor | None = None       # [Wn*8] i32
     leaf_packed: torch.Tensor | None = None  # [n_leaves, 8, 16] f32
     leaf_data_t1: torch.Tensor | None = None  # [slots, D] shutter close
-    # the CUDA kernel's own records (trace_cuda.pack_nodes, pack_leaf_rows)
-    # and the stack entries a thread needs; kleaves also serve the deep-tree
-    # walk, which reads ``nodes``
+    # the CUDA kernel's own records (trace_cuda.pack_nodes, pack_leaf_rows,
+    # pack_line_rows) and the stack entries a thread needs; kleaves also
+    # serve the deep-tree walk, which reads ``nodes``, and for lines the
+    # plain walk, which reads each prim's terms there
     knodes: torch.Tensor | None = None       # [Wn, 8, 8] f32, link in [.., 7]
     kleaves: torch.Tensor | None = None      # [n_leaves, 8, ROW] f32
     kleaves_t1: torch.Tensor | None = None   # [n_leaves, 8, ROW] shutter close
@@ -72,8 +73,9 @@ class DeviceBVH:
         kind = _KIND_OF_WIDTH[leaf_data.shape[-1]]
         fields = {}
         if len(b.leaf_prims) and (kind == 'tri' or b.n_prims):
-            fields['kleaves'] = dev(trace_cuda.pack_leaf_rows(
-                kind, leaf_data, b.leaf_prims))
+            fields['kleaves'] = trace_cuda.pack_line_rows(
+                dev(leaf_data), dev(b.leaf_prims)) if kind == 'line' else \
+                dev(trace_cuda.pack_leaf_rows(kind, leaf_data, b.leaf_prims))
             if leaf_data_t1 is not None:
                 fields['kleaves_t1'] = dev(trace_cuda.pack_leaf_rows(
                     kind, leaf_data_t1, b.leaf_prims))

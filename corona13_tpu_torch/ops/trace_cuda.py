@@ -46,7 +46,11 @@ child index (its packet order restricted to the ray's own hits), an
 exact-t tie between leaves to the first visited, the winner inside a leaf
 the minimum of ``(bits(t) & ~7) | k``, ``-fmad=false``.  The counters
 launches keep the simple assignment (thread i walks ray i) and share the
-rest.
+rest.  The line policy's closest-hit walk is near-first instead (children
+sorted by entry distance, an entry the running t has passed dropped at
+its pop; an exact-t tie between two fibres may then go to another fibre
+than the plain walk's), and its records carry each fibre's own terms of
+the cone test (``pack_line_rows``), which the plain walk reads as well.
 
 Build: ``nvcc`` compiles ``csrc/traverse_tris.cu`` (plain C interface)
 for sm_90a into ``_build/`` and ``ctypes`` loads it; the launch's
@@ -126,11 +130,13 @@ _KINDS = {'tri': 0, 'moving': 1, 'sphere': 2, 'line': 3}
 # ('closest', 'any', 'counters': static triangles, wide walk), then the
 # forms that replace XLA's _traverse, each closest-hit and any-hit: the
 # wide walk with the moving-triangle, sphere and line policies, the
-# deep-tree walk (any policy) and the dense sphere and line lists
+# deep-tree walk (any policy) and the dense sphere and line lists; and the
+# line policy's counters launch ('line_counters', simple_walk)
 launches = {k: 0 for k in (
     'closest', 'any', 'counters',
     *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'dense_sphere',
-                           'dense_line') for m in ('closest', 'any')))}
+                           'dense_line') for m in ('closest', 'any')),
+    'line_counters')}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
@@ -240,7 +246,7 @@ def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
     'tri' (and each shutter time of 'moving'), D = 9:
         v0.xyz, id | e1.xyz, 0 | e2.xyz, 0
     'sphere', D = 4:  c.xyz, r | id, 0, 0, 0
-    'line', D = 8:    v0.xyz, id | v1.xyz, r0 | r1, 0, 0, 0"""
+    Lines have their own records (``pack_line_rows``)."""
     d = np.ascontiguousarray(leaf_data, np.float32)
     ids = np.ascontiguousarray(leaf_prims).astype(np.int32).view(np.float32)
     rows = np.zeros((d.shape[0], ROW_FLOATS[kind]), np.float32)
@@ -250,9 +256,49 @@ def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
     elif kind == 'sphere':
         rows[:, 0:4], rows[:, 4] = d[:, 0:4], ids
     else:
-        rows[:, 0:3], rows[:, 3] = d[:, 0:3], ids
-        rows[:, 4:7], rows[:, 7], rows[:, 8] = d[:, 3:6], d[:, 6], d[:, 7]
+        raise ValueError(f'pack_leaf_rows: no rows of kind {kind!r} here')
     return rows.reshape(-1, LEAF, ROW_FLOATS[kind])
+
+
+def line_rows(v0, ids, axis, r0, length, k, kk, filled):
+    """The kernel's line records [n_leaves, 8, 12] from their fields, one
+    entry a leaf slot: v0 [S, 3], ids [S] int32 (-1: padding), the unit
+    axis [S, 3], r0, length, k, k*k [S] f32 and the filled rows of the
+    slot's leaf [S] int32:
+        v0.xyz, id | axis.xyz, r0 | length, k, k*k, filled rows
+    (ints as their bits).  The inverse of ``unpack_line_rows``."""
+    col = lambda x: x.reshape(-1, 1)
+    rows = torch.cat([v0, col(ids.view(torch.float32)), axis, col(r0),
+                      col(length), col(k), col(kk),
+                      col(filled.view(torch.float32))], dim=1)
+    return rows.reshape(-1, LEAF, ROW_FLOATS['line'])
+
+
+def unpack_line_rows(rows):
+    """The fields of the kernel's line records, as ``line_rows`` takes
+    them, bit for bit."""
+    r = rows.reshape(-1, ROW_FLOATS['line'])
+    as_int = lambda x: x.contiguous().view(torch.int32)
+    return (r[:, 0:3], as_int(r[:, 3]), r[:, 4:7], r[:, 7], r[:, 8], r[:, 9],
+            r[:, 10], as_int(r[:, 11]))
+
+
+def pack_line_rows(leaf_data, leaf_prims):
+    """A line BVH's leaf-slot-major rows [slots, 8] (v0, v1, r0, r1) and
+    local prim ids [slots] (-1: padding), tensors on the device the
+    records are for -> the kernel's records (``line_rows``).  Each prim's
+    own terms of the cone test (``trace_plain.line_terms``) are computed
+    here once, by torch on that device: the bits the reference test
+    computes there for every ray, which the kernel and the plain walk then
+    both read.  Filled rows come first in a leaf (``bvh.build_bvh`` pads
+    at the end), so a leaf pop tests only the first ``filled``."""
+    d = leaf_data.to(torch.float32)
+    v0, r0 = d[:, 0:3].contiguous(), d[:, 6].contiguous()
+    axis, length, k, kk = trace_plain.line_terms(v0, d[:, 3:6], r0, d[:, 7])
+    ids = leaf_prims.to(torch.int32)
+    filled = (ids.reshape(-1, LEAF) >= 0).sum(dim=1, dtype=torch.int32)
+    return line_rows(v0, ids, axis, r0, length, k, kk,
+                     filled.repeat_interleave(LEAF))
 
 
 def pack_kernel_layout(wbounds: np.ndarray, wlinks: np.ndarray,
@@ -550,15 +596,25 @@ def traverse_tris(bvh, org, direction, t_init, ignore_prim=None,
 
 
 def simple_walk(bvh, org, direction, t_init, ignore_prim=None,
-                ignore_prim2=None, any_hit=False):
+                ignore_prim2=None, any_hit=False, kind='tri', prim_offset=0):
     """The counters launch as it comes from the card: (t, prim, u, v, slot,
     iters, leafs) with per-ray pop counts [N] i32, not summed per block.
-    CUDA tensors only; the yardstick the persistent launch is timed
-    against."""
+    CUDA tensors only.  kind 'tri': the yardstick the persistent launch is
+    timed against; kind 'line': the line policy's own walk (near-first
+    order for closest-hit), its inner and leaf pops a ray, counted as
+    'line_counters' (ids global, from ``prim_offset`` as in
+    ``closest_hit``).  Debug only: no render calls it."""
     n = _check_rays(org, direction, t_init, ignore_prim, ignore_prim2)
-    _check_wide_tris(bvh, org.device)
     if org.device.type != 'cuda' or n == 0:
         raise ValueError('simple_walk: needs rays on a CUDA device')
+    if kind == 'line':
+        _check_bvh(bvh, 'line', 'wide', org.device)
+        return _launch('wide', 'line', org, direction, t_init, ignore_prim,
+                       ignore_prim2, n, any_hit, bvh=bvh, want_counters=True,
+                       prim_offset=prim_offset, key='line_counters')
+    if kind != 'tri':
+        raise ValueError(f'simple_walk: no counters launch for kind {kind!r}')
+    _check_wide_tris(bvh, org.device)
     return _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2,
                         n, any_hit, True, blocked_only=False)
 
@@ -627,7 +683,8 @@ def _trace_plain(target, kind, org, direction, t_init, ignore_prim,
                  want_counts=False):
     """What ``_trace`` computes, by the plain versions, on any device;
     ``carry`` is not modified.  want_counts (a tree, not a dense list):
-    also the per-ray numbers of nodes visited and leaves tested."""
+    also the per-ray numbers of nodes visited, of leaves tested and of line
+    rows missed at the discriminant (``trace_plain.walk_plain``)."""
     n, dev = org.shape[0], org.device
     if (_form_of(target, kind), kind) == ('wide', 'tri'):
         if want_counts:
@@ -651,7 +708,7 @@ def _trace_plain(target, kind, org, direction, t_init, ignore_prim,
         out = trace_plain.walk_plain(target, kind, org, direction, *hit,
                                      want_counts=want_counts, **kw)
     res = out[1] >= 0 if any_hit else out[:5]
-    return (res, out[5], out[6]) if want_counts else res
+    return (res,) + out[5:] if want_counts else res
 
 
 def _trace(target, kind, org, direction, t_init, ignore_prim, ignore_prim2,
@@ -714,8 +771,9 @@ def closest_hit_plain(target, kind, org, direction, t_init, ignore_prim=None,
                       want_counts=False):
     """``closest_hit`` by the plain torch versions (``trace_plain``), on
     the CPU or on the card: what the CUDA forms are held against.
-    want_counts (trees only): returns (hit, visits, leafs), the per-ray
-    numbers of nodes visited and leaves tested by the skip-link walk."""
+    want_counts (trees only): returns (hit, visits, leafs, missed), the
+    per-ray numbers of nodes visited, leaves tested and (lines) filled rows
+    whose discriminant is not positive, by the skip-link walk."""
     return _trace_plain(target, kind, org, direction, t_init, ignore_prim,
                         None, time, prim_offset, carry, False, want_counts)
 

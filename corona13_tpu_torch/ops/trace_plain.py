@@ -86,27 +86,46 @@ def ray_sphere_intersect(c, r, org, direction):
     return t, ok
 
 
-def ray_cone_intersect(v0, v1, r0, r1, org, direction):
-    """Truncated cone through the circles (v0, r0) -> (v1, r1): a line prim.
-
-    All [N, K] candidates.  Returns (t, y_frac, ok) with y_frac in [0, 1]
-    the axial coordinate (the hit's u along the fibre)."""
+def line_terms(v0, v1, r0, r1):
+    """A line prim's own terms of the cone test: (unit axis [..., 3],
+    length, k, k*k) of the truncated cone through (v0, r0) -> (v1, r1),
+    by the reference test's expressions.  The kernel's line records carry
+    them (``trace_cuda.pack_line_rows``), computed once a prim."""
     ax, ay, az = _xyz(v1 - v0)
     length = torch.sqrt(torch.clamp(_dot(ax, ay, az, ax, ay, az), min=1e-20))
-    ax, ay, az = ax / length, ay / length, az / length
+    axis = torch.stack([ax / length, ay / length, az / length], dim=-1)
+    k = (r1 - r0) / length
+    return axis, length, k, k * k
+
+
+def _cone_disc(v0, axis, k, kk, r0, org, direction):
+    """What the cone test computes up to its discriminant: (ya, wd, a, b,
+    c, disc) of ``ray_cone_test``, in its order."""
+    ax, ay, az = _xyz(axis)
     ox, oy, oz = _xyz(org[..., None, :] - v0)
     wx, wy, wz = _xyz(direction[..., None, :])
     ya = _dot(ox, oy, oz, ax, ay, az)
     wd = _dot(wx, wy, wz, ax, ay, az)
-    k = (r1 - r0) / length
     ow = _dot(ox, oy, oz, wx, wy, wz)
     oo = _dot(ox, oy, oz, ox, oy, oz)
     s = r0 + k * ya
-    a = 1.0 - wd * wd - k * k * wd * wd
+    a = 1.0 - wd * wd - kk * wd * wd
     b = 2.0 * (ow - ya * wd - k * wd * s)
     c = oo - ya * ya - s * s
+    return ya, wd, a, b, c, b * b - 4.0 * a * c
+
+
+def ray_cone_test(v0, axis, length, k, kk, r0, org, direction):
+    """The cone test from a prim's own terms (``line_terms``): [N, K]
+    candidates, the per-ray operations of ``ray_cone_intersect`` in its
+    order.  Returns (t, y_frac, ok)."""
+    return _cone_roots(*_cone_disc(v0, axis, k, kk, r0, org, direction),
+                       length)
+
+
+def _cone_roots(ya, wd, a, b, c, disc, length):
+    """The cone test from its discriminant on (``_cone_disc``)."""
     # robust quadratic
-    disc = b * b - 4.0 * a * c
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     q = -0.5 * (b + torch.sign(b) * sq)
     asafe = torch.where(torch.abs(a) < 1e-12, 1e-12, a)
@@ -124,6 +143,14 @@ def ray_cone_intersect(v0, v1, r0, r1, org, direction):
     ok = (disc > 0.0) & accept(t)
     y = torch.clamp((ya + t * wd) / length, 0.0, 1.0)
     return t, y, ok
+
+
+def ray_cone_intersect(v0, v1, r0, r1, org, direction):
+    """Truncated cone through the circles (v0, r0) -> (v1, r1): a line prim.
+
+    All [N, K] candidates.  Returns (t, y_frac, ok) with y_frac in [0, 1]
+    the axial coordinate (the hit's u along the fibre)."""
+    return ray_cone_test(v0, *line_terms(v0, v1, r0, r1), r0, org, direction)
 
 
 def lerp_rows(rows, rows1, w):
@@ -154,19 +181,22 @@ def _closest_select(tt, ok, t, prim, u, v, cand, uu=None, vv=None,
 
 
 def _candidates(kind, rows, rows1, org, direction, time):
-    """(tt, uu, vv, ok) of one prim kind's test on candidate rows [N, K, D]
-    ('tri' and 'moving': D = 9, 'sphere': 4, 'line': 8)."""
+    """(tt, uu, vv, ok, disc) of one prim kind's test on candidate rows
+    [N, K, D] ('tri' and 'moving': D = 9, 'sphere': 4; 'line': the kernel's
+    records, D = 12, whose terms ``ray_cone_test`` reads); disc: the cone
+    test's discriminant, None for the other kinds."""
     if kind == 'moving':
         rows = lerp_rows(rows, rows1, time[..., None, None])
     if kind in ('tri', 'moving'):
-        return ray_tri_intersect_packed(rows, org, direction)
+        return ray_tri_intersect_packed(rows, org, direction) + (None,)
     if kind == 'sphere':
         tt, ok = ray_sphere_intersect(rows[..., 0:3], rows[..., 3], org,
                                       direction)
-        return tt, None, None, ok
-    tt, y, ok = ray_cone_intersect(rows[..., 0:3], rows[..., 3:6],
-                                   rows[..., 6], rows[..., 7], org, direction)
-    return tt, y, None, ok
+        return tt, None, None, ok, None
+    quad = _cone_disc(rows[..., 0:3], rows[..., 4:7], rows[..., 9],
+                      rows[..., 10], rows[..., 7], org, direction)
+    tt, y, ok = _cone_roots(*quad, rows[..., 8])
+    return tt, y, None, ok, quad[5]
 
 
 def _not_ignored(gid, ig1, ig2):
@@ -184,14 +214,17 @@ def walk_plain(bvh, kind, org, direction, t, prim, u, v, slot,
     that are still under way; each step visits one node per ray.
 
     ``bvh``: a ``trace.DeviceBVH`` (``nodes``, ``leaf_prims``,
-    ``leaf_data`` and, for kind 'moving', ``leaf_data_t1``).  t, prim, u,
-    v, slot [N]: the running hit, which the walk starts from and returns
-    updated (new tensors); lanes with t <= 0 do no work.  any_hit: lanes
+    ``leaf_data`` and, for kind 'moving', ``leaf_data_t1``; for kind 'line'
+    the kernel's records ``kleaves``, which carry each prim's own terms).
+    t, prim, u, v, slot [N]: the running hit, which the walk starts from
+    and returns updated (new tensors); lanes with t <= 0 do no work.
+    any_hit: lanes
     with prim >= 0 are blocked already and do no work; a blocker sets
     prim = 0 and ends the lane.  Ids are global: a leaf's local id plus
     ``prim_offset`` is what the ignore ids exclude and what prim receives.
-    want_counts appends the per-ray numbers of nodes visited and leaves
-    tested."""
+    want_counts appends the per-ray numbers of nodes visited, of leaves
+    tested and (kind 'line') of filled rows tested whose discriminant is not
+    positive, which the kernel's cone test leaves early."""
     n_nodes = bvh.nodes.shape[0]
     skip_of = bvh.nodes[:, 6].contiguous().view(torch.int32).to(torch.int64)
     first_of = bvh.nodes[:, 7].contiguous().view(torch.int32).to(torch.int64)
@@ -201,7 +234,10 @@ def walk_plain(bvh, kind, org, direction, t, prim, u, v, slot,
     node = torch.zeros(org.shape[0], dtype=torch.int64, device=dev)
     visits = torch.zeros_like(node)
     leafs = torch.zeros_like(node)
+    missed = torch.zeros_like(node)
     ls = torch.arange(LEAF, device=dev)
+    data = bvh.kleaves.reshape(-1, bvh.kleaves.shape[-1]) if kind == 'line' \
+        else bvh.leaf_data
     live = t > 0
     if any_hit:
         live = live & (prim < 0)
@@ -227,9 +263,11 @@ def walk_plain(bvh, kind, org, direction, t, prim, u, v, slot,
             cslot = first[at_leaf][:, None] + ls
             cand = bvh.leaf_prims[cslot]
             rows1 = bvh.leaf_data_t1[cslot] if kind == 'moving' else None
-            tt, uu, vv, ok = _candidates(
-                kind, bvh.leaf_data[cslot], rows1, org[al], direction[al],
+            tt, uu, vv, ok, disc = _candidates(
+                kind, data[cslot], rows1, org[al], direction[al],
                 None if time is None else time[al])
+            if want_counts and disc is not None:
+                missed[al] += ((cand >= 0) & ~(disc > 0.0)).sum(dim=-1)
             gid = cand + prim_offset
             ok = ok & (cand >= 0) & (tt < t[al][:, None]) & _not_ignored(
                 gid, None if ignore_prim is None else ignore_prim[al],
@@ -250,7 +288,7 @@ def walk_plain(bvh, kind, org, direction, t, prim, u, v, slot,
             keep = keep & (prim[act] < 0)
         act = act[keep]
     if want_counts:
-        return t, prim, u, v, slot, visits, leafs
+        return t, prim, u, v, slot, visits, leafs, missed
     return t, prim, u, v, slot
 
 

@@ -4,10 +4,11 @@
 
 Renders one 1024x576 progression (mf=4, NEE on) of each cell through
 render.render: cornell and plane at max_verts=6, 0031_hete and
-0030_subsurf at max_verts=8 with media on, and the plane scene under a
-1024x2048 sun envmap (sky) and under a daylight sky at max_verts=6
-(--cells names a subset: a tree from before the skies has only the first
-four).  Two warm-up frames per cell,
+0030_subsurf at max_verts=8 with media on, the plane scene under a
+1024x2048 sun envmap (sky) and under a daylight sky, 0002_mb (moving
+triangles) and chip_smoke.py's hair scene (65,536 fibres: the line BVH
+form) at max_verts=6 (--cells names a subset: a tree from before the
+skies has only the first four).  Two warm-up frames per cell,
 then N timed ones (default 8), each ending with the image on the host.
 Prints seconds per frame as min / median / max with the card's name and
 power limit.  --root names another checkout whose corona13_tpu_torch to
@@ -18,6 +19,7 @@ once per tree, in turns); the default is this script's own tree.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -49,6 +51,12 @@ def main():
     from corona13_tpu_torch import testing
     from corona13_tpu_torch.samplers import pt as pt_mod
     dev = torch.device('cuda')
+    # the hair scene is chip_smoke.py's, made from a seed by this tree's
+    # script with the package under test
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_here', os.path.join(HERE, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     golden = os.path.join(root, 'data', 'golden', 'scenes')
     load = lambda name: scene_mod.load_scene(
         os.path.join(golden, name, 'test.nra2'), device=dev)[0]
@@ -61,6 +69,8 @@ def main():
         'sky': (lambda: _under_envmap(testing.plane_scene(device=dev)), 6, {}),
         'daylight': (lambda: _under_daylight(testing.plane_scene(device=dev)),
                      6, {}),
+        '0002_mb': (lambda: load('0002_mb'), 6, {}),
+        'hair': (lambda: cs._hair_scene(dev), 6, {}),
     }
     names = [c for c in args.cells.split(',') if c] or list(cells)
     out = {}

@@ -371,6 +371,43 @@ def test_forms_reject_bad_inputs(cuda):
                            t0)
 
 
+def test_line_form_at_hair_shapes(cuda):
+    """Both line instantiations (line_closest, line_any) at the hair
+    frame's shapes: chip_smoke.py's 65,536-fibre hair scene, every line
+    launch of one 1024x576 progression captured from its own intersect /
+    occluded calls and launched again on the same tensors, twice
+    bit-identical and against the plain walk (prim and blocked on >=
+    99.9% of rays, t rtol 1e-6 where prim agrees: chip_smoke._form_compare);
+    and the line counters launch on the first bounce's rays against the
+    same plain walk."""
+    import importlib.util
+    import os
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    spec = importlib.util.spec_from_file_location('chip_smoke', os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    hair = scene_mod.fit_film(cs._hair_scene(cuda), 1024, 576)
+    cfg = pt_mod.PTConfig(width=1024, height=576, max_verts=6, mf=4,
+                          use_nee=True)
+    kept = cs.frame_calls(hair, cfg)
+    lines = {m: [c for c in calls if c[1] == 'line']
+             for m, calls in kept.items()}
+    assert all(len(c) == cfg.max_verts - 1 for c in lines.values())
+    out = cs._hold_calls('hair frame', lines)
+    assert set(out) == {'line_closest', 'line_any'}
+    target, _, args, kw = lines['closest_hit'][0]
+    before = trace_cuda.launches['line_counters']
+    pops = cs.line_counts('hair first bounce', target, kw['prim_offset'],
+                          'closest', (args[0], args[1], kw['carry'][0],
+                                      args[3], None), 'the card',
+                          time_it=False)
+    assert trace_cuda.launches['line_counters'] == before + 1
+    assert 0 < pops['leaf_per_ray'] <= pops['plain_leaves_per_ray']
+
+
 def test_intersect_mixed_scene_on_the_card(cuda):
     """trace.intersect / occluded on triangles, spheres and lines at once:
     the card's kernels against the CPU's plain versions of the same
