@@ -24,7 +24,8 @@ Phases (each prints its results; any failure exits non-zero):
      sphere and the line policy (2^16 prims each), the
      deep-tree skip-link walk on the triangle soup, and the dense list on
      cornell's one sphere and on 64 lines; two launches bit-identical;
-     then trace.intersect / trace.occluded on geometries that route to
+     the moving form bit-equal to its plain walk on every ray, fresh and
+     carried; then trace.intersect / trace.occluded on geometries that route to
      the forms no render below reaches (launch counts asserted);
   3c. line counters: the line policy's counters launch (simple_walk
      kind='line', thread i on ray i, near-first for closest-hit) on the
@@ -58,12 +59,17 @@ Phases (each prints its results; any failure exits non-zero):
      of one hair and one 0002_mb progression captured from the frame's
      own calls (frame_calls) and launched again on the same tensors
      (frame_forms): each held against its plain version, two launches
-     bit-identical, by the hold of 16 and 17 (_hold_launch), timed (a
+     bit-identical, by the hold of 16 and 17 (_hold_launch; the moving
+     form bit-equal on every ray, as in 3b), timed (a
      fresh carry each launch) and bound from the plain walk's visits on the
      same rays (the line form also with its early exit at the
-     discriminant); launches, ms, bound and share a frame; the line
-     counters on the hair frame's first bounce and shadow rays; one hair
-     progression under torch.profiler (device ms a form);
+     discriminant); launches, ms, bound and share a frame, the moving form
+     beside the static walk of the same tree on the same rays (its
+     yardstick) with its record bytes a leaf pop, before and now; the line
+     counters on the hair frame's first bounce and shadow rays; the moving
+     form on 65,536 rays aimed at edges that two leaves of the 0002_mb
+     plane share (edge_rays), every bit equal to the plain walk's; one
+     hair progression under torch.profiler (device ms a form);
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
  10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp;
@@ -132,10 +138,12 @@ pops this run's rays needed, on occupied children and rows; for the forms
 of 3b the box and leaf tests of the plain skip-link walk on the same rays)
 over 67 TFLOP/s.  The line and moving forms' rows give 3b's launch at the
 soup's shapes as ms, bound and plain, and their frame's (8c) as frame_*:
-the frame's sums and a launch's mean.  The line rows add exit_*, the bound
-with rows that miss at the discriminant counted up to it (the kernel leaves
-them there), beside the bound above, which counts the full test.  The
-last line is
+the frame's sums and a launch's mean.  The line rows, the dense line list's
+too, add exit_*, the bound with rows that miss at the discriminant counted
+up to it (the kernel leaves them there), beside the bound above, which
+counts the full test.  The moving rows add frame_static_*, the static walk
+of the same tree on the same rays, and the edge rays on which the kernel
+differs from the plain walk (0).  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -188,11 +196,19 @@ def build_phase():
     trace_cuda.build()
     print(f'built corona13_tpu_torch/csrc/traverse_tris.cu for sm_90a with '
           f'nvcc in {time.time() - t0:.1f} s', flush=True)
-    # ptxas -v: registers, stack frame and spills of each instantiation
-    # (kernel, leaf policy, then the template flags: any-hit, and for the
-    # wide walk counters and persistent)
-    name, n_kernels = None, 0
-    for line in trace_cuda.build_log.splitlines():
+    report = ptxas_report(trace_cuda.build_log)
+    for name, lines in report.items():
+        for line in lines:
+            print(f'  {name}: {line}', flush=True)
+    print(f'{len(report)} kernel instantiations', flush=True)
+
+
+def ptxas_report(build_log):
+    """ptxas -v's lines of each instantiation (registers, stack frame and
+    spills), keyed by kernel, leaf policy, then the template flags:
+    any-hit, and for the wide walk counters and persistent."""
+    out, name = {}, None
+    for line in build_log.splitlines():
         if 'Compiling entry function' in line:
             m = re.search(r'\d+(traverse|skip|dense)_kernelINS_\d+(\w+?)Leaf'
                           r'E((?:Lb[01]E)+)', line)
@@ -203,10 +219,10 @@ def build_phase():
             if m.group(1) == 'traverse':
                 name += (' counters' if flags[1] == '1' else '') + \
                     (' persistent' if flags[2] == '1' else ' simple')
-            n_kernels += 1
+            out[name] = []
         elif name and ('registers' in line or 'stack frame' in line):
-            print(f'  {name}: {line.split(":", 1)[-1].strip()}', flush=True)
-    print(f'{n_kernels} kernel instantiations', flush=True)
+            out[name].append(line.split(':', 1)[-1].strip())
+    return out
 
 
 # --- phase 3: kernel against plain ------------------------------------------
@@ -478,16 +494,25 @@ def kernel_phase(dev, card):
 
 def _cuda_launches(fn):
     """Names of the CUDA kernels, copies and memsets that one call of fn
-    puts on the card, from torch.profiler."""
+    puts on the card, from torch.profiler.  A trace that holds no device
+    event at all has lost the call's (every caller here launches at least
+    one kernel; the tracer has dropped them once on an H100): it is taken
+    again, at most three times, and the last is returned."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for i in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        print(f'  (trace {i + 1} of one call holds no device event; taken '
+              f'again)', flush=True)
+    return names
 
 
 def callers_phase(bvhs, kres, card):
@@ -555,6 +580,22 @@ def callers_phase(bvhs, kres, card):
 OPS_ROW_OF = {'tri': OPS_ROW, 'moving': OPS_ROW + 28, 'sphere': 25, 'line': 75}
 OPS_PRIM_OF = {'tri': 0, 'moving': 0, 'sphere': 1, 'line': 15}
 OPS_LINE_DISC = 45
+# The prim kinds whose form _form_compare holds bit for bit on every ray:
+# the moving form walks in the reference's order (scripts/trace_times.py
+# empties it to time an older checkout, whose moving form did not).
+EXACT_KINDS = ('moving',)
+
+
+def moving_soup(dev):
+    """Phase 3b's moving soup: 2^17 random triangles (_soup), each moved by
+    up to one unit on every axis over the shutter, so that every row
+    moves."""
+    from corona13_tpu_torch.ops import trace as trace_mod
+    tri = _soup(1 << 17, 7)
+    g = np.random.default_rng(8)
+    return trace_mod.make_device_geometry(
+        tri_v=tri, tri_v_t1=tri + g.uniform(
+            -1, 1, (len(tri), 1, 3)).astype(np.float32), device=dev)
 
 
 def _sphere_soup(n, seed):
@@ -585,15 +626,16 @@ def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs,
     node visited and the leaf rows tested, as the plain skip-link walk
     counted them on these rays, at the tree's mean row fill; a dense list:
     every live ray against every prim.  ``missed`` (0: the definition
-    above): line rows the plain walk found with a discriminant that is not
-    positive, counted at OPS_LINE_DISC, where the kernel leaves them, and
-    not at the full test."""
+    above): line rows the plain walk or the plain dense list found with a
+    discriminant that is not positive, counted at OPS_LINE_DISC, where the
+    kernel leaves them, and not at the full test."""
     if form == 'dense':
         recs = sum(x.numel() for x in target if x is not None) * 4
         n_prims = target[0].shape[0]
         lerps = kind == 'sphere' and target[2] is not None
         ops = (alive * (OPS_RAY + n_prims * (OPS_ROW_OF[kind] + 10 * lerps))
-               + n_prims * OPS_PRIM_OF[kind])
+               + n_prims * OPS_PRIM_OF[kind]
+               - missed * (OPS_ROW_OF[kind] - OPS_LINE_DISC))
     else:
         nodes = target.knodes if form == 'wide' else target.nodes
         lerps = kind == 'moving'
@@ -613,13 +655,17 @@ def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs,
 def _plain_counts(form, kind, plain, *args, **kw):
     """A form's plain version and, for a tree the skip-link walk serves,
     its per-ray counts: (hit, nodes visited, leaves tested, line rows
-    missed at the discriminant); a dense list and the static wide triangles
-    give (hit, 0, 0, None).  The last is None where the package's plain
-    walk does not count such rows (scripts/trace_times.py --root imports
-    another checkout's)."""
-    if form == 'dense' or (form, kind) == ('wide', 'tri'):
+    missed at the discriminant); a dense line list gives (hit, 0, 0, lines
+    missed at the discriminant), a dense sphere list and the static wide
+    triangles (hit, 0, 0, None).  The last is None where the package's
+    plain versions do not count such rows (scripts/trace_times.py --root
+    imports another checkout's)."""
+    if (form == 'dense' and kind != 'line') or (form, kind) == ('wide', 'tri'):
         return plain(*args, **kw), 0, 0, None
-    hit, visits, leafs, *missed = plain(*args, want_counts=True, **kw)
+    hit, *counts = plain(*args, want_counts=True, **kw)
+    if not counts:     # a checkout whose dense list counts nothing
+        return hit, 0, 0, None
+    visits, leafs, *missed = counts
     return hit, visits, leafs, missed[0] if missed else None
 
 
@@ -628,11 +674,18 @@ def _total(count):
     return int(count.sum()) if torch.is_tensor(count) else count
 
 
-def _form_compare(k, p, any_hit, where):
+def _form_compare(k, p, any_hit, where, exact=False):
     """A form's kernel against its plain version: the shares of rays that
     agree on prim, on slot and (any-hit) on blocked, and max |dt| where
     prim agrees.  Threshold: >= 99.9% on each, t within rtol 1e-6; the
-    aim is 1.000000 and max |dt| 0, as the triangle cases have."""
+    aim is 1.000000 and max |dt| 0, as the triangle cases have.  exact
+    (the moving form, which walks in the reference's order): t, prim, u,
+    v, slot and blocked equal bit for bit on every ray."""
+    if exact:
+        pairs = zip((k,), (p,)) if any_hit else zip(k, p)
+        differ = sum(int((_bits(a) != _bits(b)).sum()) for a, b in pairs)
+        check(differ == 0, f'{where}: {differ} outputs differ from the '
+              f'plain walk in a bit')
     if any_hit:
         agree = float((k == p).float().mean())
         check(agree >= 0.999, f'{where}: blocked agrees on only {agree}')
@@ -690,7 +743,8 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     visits, leafs, missed = map(_total, counts)
-    agree, slot, err = _form_compare(first, p, any_hit, name)
+    exact = kind in EXACT_KINDS
+    agree, slot, err = _form_compare(first, p, any_hit, name, exact)
     # the same rays with a running hit carried in
     n = argsets[0][0].shape[0]
     dev = argsets[0][0].device
@@ -713,7 +767,8 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
     torch.cuda.synchronize()
     check(same_bits(c1, c2), f'{name}: two carried launches differ')
     pc = plain(run)
-    c_agree, c_slot, c_err = _form_compare(c1, pc, any_hit, name + ' carried')
+    c_agree, c_slot, c_err = _form_compare(c1, pc, any_hit, name + ' carried',
+                                           exact)
     if any_hit:
         check(bool((c1 | ~run).all()), f'{name}: a blocked lane came unset')
         improved = int((c1 & ~run).sum())
@@ -751,33 +806,39 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
     return rec
 
 
-def forms_phase(dev, card, bvhs):
+def forms_phase(dev, card, bvhs, only=None):
     """Phase 3b: see the module docstring.  Returns the per-case results
     keyed by the entry of trace_cuda.launches each case exercises, and the
     launch counts of the intersect / occluded calls that reach the forms no
-    render reaches."""
+    render reaches.  ``only``: the targets to run ('moving', 'dense_line',
+    ...; scripts/trace_times.py), without the intersect / occluded calls
+    (their launch counts are then None)."""
     import dataclasses
     from corona13_tpu_torch.ops import trace as trace_mod
     from corona13_tpu_torch.ops import trace_cuda
     phase(f'forms that replace _traverse against plain, {N_RAYS} rays per '
           f'call, on {card}')
     t0 = time.time()
-    tri = _soup(1 << 17, 7)
-    g = np.random.default_rng(8)
-    moving = trace_mod.make_device_geometry(
-        tri_v=tri, tri_v_t1=tri + g.uniform(
-            -1, 1, (len(tri), 1, 3)).astype(np.float32), device=dev)
-    spheres = trace_mod.make_device_geometry(**_sphere_soup(1 << 16, 9),
-                                             device=dev)
-    lines = trace_mod.make_device_geometry(**_line_soup(1 << 16, 10),
-                                           device=dev)
-    print(f'moving soup (131072 triangles), sphere soup and line soup (65536 '
-          f'each) built in {time.time() - t0:.1f} s; wide nodes '
-          f'{moving.tri_bvh.knodes.shape[0]} / '
-          f'{spheres.sph_bvh.knodes.shape[0]} / '
-          f'{lines.line_bvh.knodes.shape[0]}, stack depths '
-          f'{moving.tri_bvh.stack_depth} / {spheres.sph_bvh.stack_depth} / '
-          f'{lines.line_bvh.stack_depth}', flush=True)
+    want = lambda *keys: only is None or any(k in only for k in keys)
+    moving = spheres = lines = None
+    if want('moving'):
+        moving = moving_soup(dev)
+    if want('sphere'):
+        spheres = trace_mod.make_device_geometry(**_sphere_soup(1 << 16, 9),
+                                                 device=dev)
+    if want('line'):
+        lines = trace_mod.make_device_geometry(**_line_soup(1 << 16, 10),
+                                               device=dev)
+    built = {k: g for k, g in (('moving soup (131072 triangles)', moving),
+                               ('sphere soup (65536)', spheres),
+                               ('line soup (65536)', lines)) if g is not None}
+    bvh_of = lambda g: next(b for b in (g.tri_bvh, g.sph_bvh, g.line_bvh)
+                            if b.knodes is not None and b.n_nodes > 1)
+    print(f'{", ".join(built)} built in {time.time() - t0:.1f} s; wide nodes '
+          + ' / '.join(str(bvh_of(g).knodes.shape[0]) for g in built.values())
+          + ', stack depths '
+          + ' / '.join(str(bvh_of(g).stack_depth) for g in built.values()),
+          flush=True)
     soup, soup_a, soup_b = bvhs['soup']
     # the static soup's tree without its wide layout: walked by skip links
     deep = dataclasses.replace(soup.tri_bvh, wbounds=None, wlinks=None,
@@ -787,15 +848,20 @@ def forms_phase(dev, card, bvhs):
     box['line_vtx'] = box['line_vtx'] + np.array([0, 0, 15], np.float32)
     few = trace_mod.make_device_geometry(**box, device=dev)
     dense_sph = (cornell.sph_c, cornell.sph_r, None)
-    dense_line = (few.line_v0, few.line_v1, few.line_r0, few.line_r1)
+    # the records packed at upload (a checkout from before them, timed by
+    # scripts/trace_times.py --root, takes the lines' own arrays)
+    dense_line = (few.line_dense,) if hasattr(few, 'line_dense') else \
+        (few.line_v0, few.line_v1, few.line_r0, few.line_r1)
     targets = {
-        'moving': (moving.tri_bvh, 'moving', 0, (soup_a, soup_b)),
-        'sphere': (spheres.sph_bvh, 'sphere', 1000, (soup_a, soup_b)),
-        'line': (lines.line_bvh, 'line', 2000, (soup_a, soup_b)),
+        'moving': (moving and moving.tri_bvh, 'moving', 0, (soup_a, soup_b)),
+        'sphere': (spheres and spheres.sph_bvh, 'sphere', 1000,
+                   (soup_a, soup_b)),
+        'line': (lines and lines.line_bvh, 'line', 2000, (soup_a, soup_b)),
         'deep': (deep, 'tri', 0, (soup_a, soup_b)),
         'dense_sphere': (dense_sph, 'sphere', cornell.n_tris, (corn_a, corn_b)),
         'dense_line': (dense_line, 'line', 12, (corn_a, corn_b)),
     }
+    targets = {k: v for k, v in targets.items() if want(k)}
     gen = torch.Generator(device='cpu').manual_seed(13)
     res, line_sets = {}, {}
     for key, (target, kind, offset, sets) in targets.items():
@@ -822,10 +888,14 @@ def forms_phase(dev, card, bvhs):
                 argsets.append((o, d, t, ig, tm))
             res[f'{key}_{mode}'] = _run_form(f'{key}/{ray_kind}', target, kind,
                                              offset, mode == 'any', argsets)
-    print('tolerance: prim, slot and blocked identical on >= 99.9% of rays, t '
-          'within rtol 1e-6 where prim agrees (the aim, 1.000000 and max |dt| '
-          '0, is printed per case); two launches of a case bit-identical',
+    print('tolerance: moving triangles: t, prim, u, v, slot and blocked '
+          'bit-equal on every ray, fresh and carried; the other forms: prim, '
+          'slot and blocked identical on >= 99.9% of rays, t within rtol '
+          '1e-6 where prim agrees (the aim, 1.000000 and max |dt| 0, is '
+          'printed per case); two launches of a case bit-identical',
           flush=True)
+    if only is not None:
+        return res, None, line_sets
     # the forms no render of this script reaches, through the entry points
     for k in trace_cuda.launches:
         trace_cuda.launches[k] = 0
@@ -935,13 +1005,113 @@ def line_counters_phase(line_sets, card):
     return outs, launches
 
 
+def edge_rays(geom, n, seed, dev):
+    """Rays aimed at the edges that two triangles of different leaves of
+    the triangle BVH share (a point along the edge, a quarter of them at
+    its midpoint), from points above the scene along its thinnest axis:
+    on a planar mesh each hits two triangles at once, often at the same t,
+    where the walk's order and its box culls decide the winner.  Returns
+    (org, dir, time, seg) on dev: ray times in [0, 1] with 0 and 1 among
+    them, and shadow segments that end just short of or just past the
+    edge."""
+    b = geom.tri_bvh
+    v0 = geom.tri_v0.cpu().numpy()
+    tri = np.stack([v0, v0 + geom.tri_e1.cpu().numpy(),
+                    v0 + geom.tri_e2.cpu().numpy()], axis=1)
+    prims = b.leaf_prims.cpu().numpy()
+    leaf_of = np.empty(len(tri), np.int64)
+    leaf_of[prims[prims >= 0]] = np.nonzero(prims >= 0)[0] // 8
+    first_leaf = {}
+    shared = []
+    for t in range(len(tri)):
+        for i, j in ((0, 1), (1, 2), (2, 0)):
+            key = tuple(sorted((tuple(tri[t, i]), tuple(tri[t, j]))))
+            other = first_leaf.setdefault(key, leaf_of[t])
+            if other != leaf_of[t]:
+                shared.append(key)
+    check(shared, 'edge_rays: no edge is shared across leaves')
+    ends = np.asarray(shared, np.float32)                # [E, 2, 3]
+    g = np.random.default_rng(seed)
+    e = g.integers(0, len(ends), n)
+    a = g.uniform(0.0, 1.0, (n, 1)).astype(np.float32)
+    a[: n // 4] = 0.5
+    aim = (ends[e, 0] * (1 - a) + ends[e, 1] * a).astype(np.float32)
+    root = b.nodes[0].cpu().numpy()
+    lo, hi = root[0:3], root[3:6]
+    ext = hi - lo
+    up = int(np.argmin(ext))
+    org = ((lo + hi) / 2 + g.uniform(-0.6, 0.6, (n, 3)) * ext).astype(
+        np.float32)
+    org[:, up] = hi[up] + g.uniform(0.5, 5.0, n) * max(float(ext[up]), 1.0)
+    d = aim - org
+    dist = np.linalg.norm(d, axis=1)
+    d = (d / dist[:, None]).astype(np.float32)
+    tm = g.uniform(0.0, 1.0, n).astype(np.float32)
+    tm[::7], tm[1::7] = 0.0, 1.0
+    seg = (dist * np.where(np.arange(n) % 2 == 0, 0.999, 1.001)).astype(
+        np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (org, d, tm, seg))
+
+
+def edge_forms(where, geom, dev, card, n=1 << 16, strict=True):
+    """The moving form on edge_rays of geom's triangles, closest-hit and
+    any-hit, against its plain walk: the rays on which any of (t, prim, u,
+    v, slot), or the blocked flag, differ in a bit, two launches
+    bit-identical.  strict: no ray may differ.  Returns the counts."""
+    from corona13_tpu_torch.ops import trace_cuda
+    org, d, tm, seg = edge_rays(geom, n, 21, dev)
+    t = torch.full((n,), MAX_DIST, device=dev)
+    out = {}
+    for mode, t_max in (('closest_hit', t), ('any_hit', seg)):
+        run = lambda f: f(geom.tri_bvh, 'moving', org, d, t_max, time=tm)
+        k, k2 = run(getattr(trace_cuda, mode)), run(getattr(trace_cuda, mode))
+        p = run(getattr(trace_cuda, mode + '_plain'))
+        tup = (lambda x: (x,)) if mode == 'any_hit' else (lambda x: x)
+        bits = lambda x: _bits(x) if x.dtype == torch.float32 else x
+        differ = torch.zeros(n, dtype=torch.bool, device=dev)
+        for a, b in zip(tup(k), tup(p)):
+            differ |= bits(a) != bits(b)
+        same = all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(tup(k), tup(k2)))
+        found = k if mode == 'any_hit' else k[1] >= 0
+        out[mode] = dict(rays=n, hit_share=float(found.float().mean()),
+                         differ=int(differ.sum()), same_twice=same)
+        print(f'  {where} edge rays, moving {mode.replace("_", "-")}: {n} '
+              f'rays aimed at edges shared across leaves, hit share '
+              f'{out[mode]["hit_share"]:.4f}; rays whose bits differ from the '
+              f'plain walk {out[mode]["differ"]}; two launches identical '
+              f'{same}, on {card}', flush=True)
+        check(same, f'{where} edge rays {mode}: two launches differ')
+        if strict:
+            check(out[mode]['differ'] == 0,
+                  f'{where} edge rays {mode}: {out[mode]["differ"]} rays '
+                  f'differ from the plain walk')
+    return out
+
+
+def leaf_pop_bytes(bvh):
+    """Record bytes a moving leaf pop reads, mean over the tree's leaves:
+    (before, now).  Before: 8 rows of two 48 B records (shutter open and
+    close).  Now: the filled rows' shutter-open records, and a second
+    record for each row that moves; None where the tree carries the old
+    records (scripts/trace_times.py --root with an older checkout)."""
+    old = 8 * 2 * 48
+    if bvh.kleaves_t1 is None or bvh.kleaves_t1.dim() != 2:
+        return old, None
+    words = bvh.kleaves.reshape(-1, 8, 12).contiguous().view(torch.int32)
+    filled = words[:, 0, 11].double()
+    moving = (words[:, :, 7] >= 0).double().sum(dim=1)
+    return old, float(((filled + moving) * 48).mean())
+
+
 def frame_shapes_phase(hair, mb, card):
     """Phase 8c: the line and moving forms at the hair and 0002_mb frames'
     own shapes: every launch of one 1024x576 progression captured and held
     by frame_forms (time, bound, share, launches a frame), the line
     counters launch on the hair frame's first bounce and first shadow rays
     (kernel pops a ray beside the plain walk's), and one hair progression
-    under torch.profiler (device ms of each form)."""
+    under torch.profiler (device ms of each form); the moving form on rays
+    aimed at the 0002_mb plane's shared edges (edge_forms)."""
     from corona13_tpu_torch.samplers import pt as pt_mod
     phase(f'the line and moving forms at the hair and 0002_mb frames\' '
           f'shapes, {W}x{H}, mf=4, max_verts=6, NEE, on {card}')
@@ -964,6 +1134,7 @@ def frame_shapes_phase(hair, mb, card):
     del kept
     out['0002_mb'] = frame_forms('0002_mb', frame_calls(mb, cfg),
                                  ('moving_closest', 'moving_any'), card)
+    out['0002_mb_edges'] = edge_forms('0002_mb', mb.geom, mb.device, card)
     out['hair_profile'] = _profile_frame('hair frame', hair, cfg, card)
     return out
 
@@ -2221,7 +2392,8 @@ def _hold_launch(where, mode, target, kind, args, kw):
     visits, leafs, missed = map(_total, counts)
     same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(
         (k,) if any_hit else k, (k2,) if any_hit else k2))
-    agree, slot, err = _form_compare(k, p, any_hit, f'{where} {key}')
+    agree, slot, err = _form_compare(k, p, any_hit, f'{where} {key}',
+                                     kind in EXACT_KINDS)
     t, n = args[2], args[0].shape[0]
     alive = int((t > 0).sum()) if torch.is_tensor(t) else n
     print(f'  {where:34s} {key:22s} {n} rays, alive {alive}: '
@@ -2292,6 +2464,13 @@ def frame_forms(where, kept, keys, card, reps=20):
                 pool[:] = [_cloned(kw) for _ in range(reps)]
             ms = _time_ms(lambda i: tup(kern(target, kind, *args, **pool[i])),
                           reps, reps, before=fresh)
+            static_ms = None
+            if kind == 'moving':
+                # the yardstick: the static walk (TriangleLeaf) of the same
+                # tree on the same rays, shutter-open rows and no time
+                static_ms = _time_ms(lambda i: tup(kern(
+                    target, 'tri', *args, **dict(pool[i], time=None))),
+                    reps, reps, before=fresh)
             pool.clear()
             n, nv, nl = r['rays'], r['visits'], r['leafs']
             bound, by = _form_bound(target, kind, r['form'], n, r['alive'],
@@ -2305,6 +2484,9 @@ def frame_forms(where, kept, keys, card, reps=20):
                                            max_abs_err=0.0, calls=[]))
             rec['launches'] += 1
             rec['ms'] += ms
+            if static_ms is not None:
+                rec['static_ms'] = rec.get('static_ms', 0.0) + static_ms
+                rec['leaf_pop_bytes'] = leaf_pop_bytes(target)
             rec['bound_ms'] += bound
             rec['plain_ms'] += r['plain_ms']
             if exit_bound is not None:
@@ -2318,9 +2500,13 @@ def frame_forms(where, kept, keys, card, reps=20):
                 agree=r['agree'], slot_agree=r['slot_agree'],
                 max_abs_err=r['max_abs_err'], nodes_per_ray=nv / n,
                 leaves_per_ray=nl / n,
-                missed_rows_per_ray=None if missed is None else missed / n))
+                missed_rows_per_ray=None if missed is None else missed / n,
+                static_ms=static_ms))
             print(f'  {where:10s} {key:13s} launch {rec["launches"]}: {n} '
-                  f'rays, alive {r["alive"]}; kernel {ms:.4f} ms, bound '
+                  f'rays, alive {r["alive"]}; kernel {ms:.4f} ms'
+                  + ('' if static_ms is None else
+                     f' (static walk of the same tree {static_ms:.4f} ms)')
+                  + f', bound '
                   f'{bound:.4f} ms by {by} (share {bound / ms:.3f}), plain '
                   f'{r["plain_ms"]:.1f} ms; skip-link walk {nv / n:.2f} '
                   f'nodes / {nl / n:.2f} leaves a ray'
@@ -2336,8 +2522,20 @@ def frame_forms(where, kept, keys, card, reps=20):
         rec['loss_ms'] = rec['ms'] - rec['bound_ms']
         if 'exit_bound_ms' in rec:
             rec['exit_roofline_share'] = rec['exit_bound_ms'] / rec['ms']
+        if 'static_ms' in rec:
+            rec['static_ms_per_launch'] = rec['static_ms'] / rec['launches']
+            before, now = rec['leaf_pop_bytes']
+            print(f'  {where:10s} {key:13s} record bytes a leaf pop: before '
+                  f'{before} B (8 rows, two records each), now '
+                  + ('not in this tree' if now is None else
+                     f'{now:.1f} B (filled rows, a second record where a '
+                     f'row moves), mean over the leaves'), flush=True)
         print(f'  {where:10s} {key:13s} a frame: {rec["launches"]} launches, '
-              f'kernel {rec["ms"]:.4f} ms, bound {rec["bound_ms"]:.4f} ms '
+              f'kernel {rec["ms"]:.4f} ms'
+              + ('' if 'static_ms' not in rec else
+                 f' (static walk of the same tree on the same rays '
+                 f'{rec["static_ms"]:.4f} ms)')
+              + f', bound {rec["bound_ms"]:.4f} ms '
               f'(share {rec["roofline_share"]:.3f}), launches x (time - '
               f'bound) {rec["loss_ms"]:.4f} ms, plain {rec["plain_ms"]:.1f} '
               f'ms'
@@ -2876,6 +3074,14 @@ def main():
                 at_frame.update(
                     frame_exit_bound_ms=frame['exit_bound_ms'],
                     frame_exit_roofline_share=frame['exit_roofline_share'])
+            if 'static_ms' in frame:
+                at_frame.update(
+                    frame_static_ms=frame['static_ms'],
+                    frame_static_ms_per_launch=frame['static_ms_per_launch'],
+                    frame_edge_rays_differ=prims['frame_forms'][
+                        '0002_mb_edges'][
+                        'any_hit' if key.endswith('any') else 'closest_hit'][
+                        'differ'])
         if 'exit_bound_ms' in m:
             at_frame.update(exit_bound_ms=m['exit_bound_ms'],
                             exit_roofline_share=m['exit_bound_ms'] / m['ms'])

@@ -99,8 +99,9 @@
 //            blocker.  No pass runs between the launches of one call.
 //   dense    dense_kernel: up to 64 spheres or lines staged in shared
 //            memory, every ray against every prim, no tree and no box (the
-//            only form that lerps sphere centres in time).  It reads the
-//            geometry's own arrays, not a repack.
+//            only form that lerps sphere centres in time).  Spheres come
+//            from the geometry's own arrays, lines from records that carry
+//            each line's terms of the cone test, packed once at upload.
 //   deep     skip_kernel: a tree whose wdepth*7+8 exceeds the stack limit
 //            has no wide layout; its binary nodes [n, 8] are walked
 //            stacklessly by skip links, one ray a thread, with the same
@@ -137,13 +138,13 @@
 //            record's last word; build_bvh pads a leaf at its end): hair
 //            3.42 -> 3.31, soup 1.73 -> 1.69 ms.
 //   exit     a row whose discriminant is not positive leaves before the
-//            sqrt and divides (kMissExit; the dense list keeps the full
-//            test): hair 3.31 -> 2.82 ms closest-hit and 1.10 -> 0.96 ms
-//            any-hit a frame, soup 1.69 -> 1.54 and 0.59 -> 0.56 ms.  The
-//            exit changes no result (such a row misses in either form),
-//            so the template parameter is temporary: the dense list keeps
-//            <false> only so that its code stays as it was, and a later
-//            kernel change makes the exit unconditional.
+//            sqrt and divides: hair 3.31 -> 2.82 ms closest-hit and 1.10 ->
+//            0.96 ms any-hit a frame, soup 1.69 -> 1.54 and 0.59 -> 0.56
+//            ms.  The exit changes no result (such a row misses either
+//            way); the dense line list takes it too, and reads each line's
+//            terms from its record instead of computing them a ray (64
+//            lines in the cornell box: 0.269 -> 0.140 ms closest-hit,
+//            0.247 -> 0.132 ms any-hit).
 // The bound chip_smoke.py gives this form is the one it gives every tree:
 // the full 75-operation test on every filled row the plain skip-link walk
 // tests, and that walk's index-order visits.  The kernel does less: most
@@ -160,6 +161,48 @@
 // / 1.60 against 2.82 / 1.53; the sort skipped under two hit children,
 // 2.87 / 1.56.  Four blocks: 96 registers closest-hit, 89 any-hit, no
 // spills.
+//
+// The moving form (MovingTriangleLeaf in the wide walk), laid out for this
+// card.  On the 0002_mb frame it walks the plane scene's tree (487 wide
+// nodes, 1,315 leaves) with 12 moving triangles among 8,210; the static
+// walk of the same tree on the same rays is the least it could approach.
+// What it waited on: a second record loaded for every row, though 1,303 of
+// 1,315 leaves do not move; padded rows tested in full (78% of the slots
+// are filled).  What it got wrong: its order.  The reference's winner on a
+// ray that meets two leaves at once (an edge two leaves of a planar mesh
+// share) is not the smallest t with a fixed tie rule: its skip-link walk
+// tests each box at the running t, and a hit can lie an ulp before its own
+// box's entry, so the leaf it reaches first decides.  In index order the
+// kernel differed from the plain walk on 5,805 of 65,536 rays aimed at the
+// 0002_mb plane's shared edges (scripts/moving_order.py predicted the
+// count).  Kept (NVIDIA H100 80GB HBM3, 700 W; ms a 0002_mb frame of five
+// launches, closest / any-hit, then the 2^17-triangle moving soup):
+//   order    closest-hit walks nodes whose children are in reverse binary
+//            preorder and tests a leaf's box again at its pop: it tests
+//            the leaves the skip-link walk tests, in its order, and equals
+//            it on every ray.  Dearer than index order, which the rays of
+//            this scene favour: 0.618 -> 0.696 ms a frame, 3.38 -> 3.68 ms
+//            on the soup, against the same records in index order without
+//            a cull.  Any-hit's flag does not depend on the order and keeps
+//            the index order (in preorder: 0.304 -> 0.384 ms a frame).
+//   records  a row's second (shutter-close) record only where it moves,
+//            its index in the row's free word, -1 for a static row, which
+//            is lerped with itself (the bits of two equal records): 0.766
+//            / 0.312 -> 0.696 / 0.303 ms; the soup, where every row moves,
+//            unchanged (3.68 / 1.09 ms).
+//   rows     a leaf pop tests its filled rows only (the count in each
+//            record's last word): 0.703 / 0.354 -> 0.696 / 0.303 ms, soup
+//            4.15 / 1.19 -> 3.68 / 1.09 ms.
+//   blocks   closest-hit at 6 blocks an SM (80 registers, no spills):
+//            0.696 -> 0.681 ms, soup 3.68 -> 3.54 ms.  Any-hit stays at 4
+//            (91 registers): at 6, 0.303 -> 0.307 ms a frame.
+// Measured and dropped: the children's preorder rank in the push weight's
+// exponent, the positions computed a pop (111 registers, 0.757 ms a
+// frame); the entry distance in a second stack instead of the test again
+// at the pop (8 B entries: 0.704 against 0.701 ms a frame, 3.85 against
+// 3.70 ms on the soup).  Not built: near-first order, which cannot keep
+// the reference's winner on those edges (emulated with a leaf-rank tie
+// rule, it differs on 459 of the 65,536 rays).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -196,17 +239,16 @@ struct Params {
   int* leafs_out;
   int* work;  // persistent launches: [0] batches dealt out by the counter,
               // [1] warps that are done; both zero between launches
-  const float4* leaves_t1;  // MovingTriangleLeaf: the shutter-close rows
+  const float4* leaves_t1;  // MovingTriangleLeaf: the moving rows' close records
   const float* time;        // [n] ray times in [0, 1], or null
   int prim_offset;          // global id of the kind's prim 0
   int carry;                // start from and update t_out / blocked_out
   int n_nodes;              // skip_kernel: binary nodes
   // dense_kernel: spheres c [S,3], r [S], c_t1 [S,3] or null; lines
-  // v0 [L,3], v1 [L,3], r0 [L], r1 [L]
+  // their records [L,12] in d0
   const float* d0;
   const float* d1;
   const float* d2;
-  const float* d3;
   int n_prims;
 };
 
@@ -338,6 +380,35 @@ __device__ __forceinline__ void pop_inner(const float4* __restrict__ rec,
         stack[sp++ * kThreads] = ((leafm >> c) & 1u) ? -link[c] - 1 : link[c];
 }
 
+// pop_inner for the pop-time box test: a leaf child is pushed as
+// -(node * 8 + child) - 1, the place of its box and link, which
+// leaf_at_pop reads again when the entry is popped.
+__device__ __forceinline__ void pop_inner_slot(const float4* __restrict__ rec,
+                                               int node, const Ray& r,
+                                               int* stack, int& sp,
+                                               int depth) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float tn, w;
+    int link;
+    if (child_hit(rec, c, r, tn, w, link) && sp < depth)
+      stack[sp++ * kThreads] = w >= 256.f ? -(node * 8 + c) - 1 : link;
+  }
+}
+
+// The leaf of a pop_inner_slot entry (-entry - 1 = node * 8 + child), or
+// -1 where its box, tested again at the running t, is missed: the test the
+// skip-link walk makes when it reaches that leaf.
+__device__ __forceinline__ int leaf_at_pop(const Params& p, int at,
+                                           const Ray& r) {
+  float tn, w;
+  int link;
+  return child_hit(p.nodes + (size_t)(at >> 3) * kNodeVec, at & 7, r, tn, w,
+                   link)
+             ? link
+             : -1;
+}
+
 // Sort step of pop_inner_near: the larger key first.
 __device__ __forceinline__ void order_desc(float& ka, int& va, float& kb,
                                            int& vb) {
@@ -437,12 +508,11 @@ __device__ __forceinline__ bool sphere_hit(float cx, float cy, float cz,
 
 // The cone test of a line prim from its own terms (unit axis, length, the
 // slope k and k*k, the root radius r0), which depend on the prim alone and
-// are computed once a prim: the per-ray operations of the reference's
-// test, in its order.  True where hit in (0, r.t); yt is the hit's axial
-// coordinate (yt / length is the axial fraction).  kMissExit: a ray whose
-// discriminant is not positive misses, so it leaves before the root's
-// sqrt and divides (tt and yt then 0).
-template <bool kMissExit>
+// are computed once a prim, at upload: the per-ray operations of the
+// reference's test, in its order.  True where hit in (0, r.t); yt is the
+// hit's axial coordinate (yt / length is the axial fraction).  A ray whose
+// discriminant is not positive misses, so it leaves before the root's sqrt
+// and divides (tt and yt then 0).
 __device__ __forceinline__ bool cone_test(float v0x, float v0y, float v0z,
                                           float ax, float ay, float az,
                                           float length, float k, float kk,
@@ -458,12 +528,12 @@ __device__ __forceinline__ bool cone_test(float v0x, float v0y, float v0z,
   const float b = 2.f * (ow - ya * wd - k * wd * s);
   const float c = oo - ya * ya - s * s;
   const float disc = b * b - 4.f * a * c;
-  if (kMissExit && !(disc > 0.f)) {
+  if (!(disc > 0.f)) {
     tt = 0.f;
     yt = 0.f;
     return false;
   }
-  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const float sq = sqrtf(disc);
   const float sgn = b > 0.f ? 1.f : (b < 0.f ? -1.f : b);
   const float q = -0.5f * (b + sgn * sq);
   const float asafe = fabsf(a) < 1e-12f ? 1e-12f : a;
@@ -474,7 +544,7 @@ __device__ __forceinline__ bool cone_test(float v0x, float v0y, float v0z,
   const float ylo = ya + tlo * wd;
   tt = (tlo > 0.f && ylo >= 0.f && ylo <= length) ? tlo : thi;
   yt = ya + tt * wd;
-  return disc > 0.f && tt > 0.f && yt >= 0.f && yt <= length && tt < r.t;
+  return tt > 0.f && yt >= 0.f && yt <= length && tt < r.t;
 }
 
 // A line prim's axial fraction of the hit, from cone_test's yt.
@@ -482,22 +552,13 @@ __device__ __forceinline__ float cone_fraction(float yt, float length) {
   return fminf(fmaxf(yt / length, 0.f), 1.f);
 }
 
-// A line prim: the truncated cone through the circles (v0, r0), (v1, r1),
-// its terms computed here (the dense list, which reads the geometry's own
-// arrays).  y is the axial fraction of the hit in [0, 1].
-__device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
-                                         float v1x, float v1y, float v1z,
-                                         float r0, float r1, const Ray& r,
-                                         float& tt, float& y) {
-  float ax = v1x - v0x, ay = v1y - v0y, az = v1z - v0z;
-  const float length = sqrtf(fmaxf(ax * ax + ay * ay + az * az, 1e-20f));
-  ax = ax / length; ay = ay / length; az = az / length;
-  const float k = (r1 - r0) / length;
-  float yt;
-  const bool hit = cone_test<false>(v0x, v0y, v0z, ax, ay, az, length, k,
-                                    k * k, r0, r, tt, yt);
-  y = cone_fraction(yt, length);
-  return hit;
+// The cone test on a line record (v0.xyz, - | unit axis.xyz, r0 | length,
+// k, k*k, -): what the line BVH's rows and the dense list's records hold.
+__device__ __forceinline__ bool cone_record(float4 q0, float4 q1, float4 q2,
+                                            const Ray& r, float& tt,
+                                            float& yt) {
+  return cone_test(q0.x, q0.y, q0.z, q1.x, q1.y, q1.z, q2.x, q2.y, q2.z,
+                   q1.w, r, tt, yt);
 }
 
 // Leaf policies.  test(): true where row `row` (leaf id * 8 + row in the
@@ -505,17 +566,21 @@ __device__ __forceinline__ bool cone_hit(float v0x, float v0y, float v0z,
 // prim's id local to its kind.  kRowVec: float4 per row.  kEncoded: the
 // wide walk picks the winner by the TPU kernel's (bits(t) & ~7) | row.
 // kSets*: which of u, v, slot a hit of this kind defines.  kDenseList: the
-// kind has a dense small-list form (kCone: of lines).  kMinBlocks:
-// __launch_bounds__' resident blocks per SM for the wide walk (6 caps a
-// thread at 80 registers, 4 at 128).  kNearFirst: the wide closest-hit
+// kind has a dense small-list form (kCone: of lines).  kMinBlocks,
+// kMinBlocksAny: __launch_bounds__' resident blocks per SM for the wide
+// walk's closest-hit and any-hit (6 caps a thread at 80 registers, 4 at
+// 128).  kNearFirst: the wide closest-hit
 // walk pushes children near-first and drops entries the running t has
-// passed (pop_inner_near).  rows(): the rows of leaf `lid` to test, from
-// the first; u_of(): the u of a leaf's winner from what test() gave it.
+// passed (pop_inner_near).  kBoxAtPop: the wide closest-hit walk keeps
+// the order of its node records and tests a leaf's box again when it pops
+// it (pop_inner_slot, leaf_at_pop).  rows(): the rows of leaf `lid` to
+// test, from the first; u_of(): the u of a leaf's winner from what test()
+// gave it.
 
 // What a policy does not set: every row tested, children in index order,
 // u as test() gives it.
 struct LeafDefaults {
-  static constexpr bool kNearFirst = false;
+  static constexpr bool kNearFirst = false, kBoxAtPop = false;
   static __device__ __forceinline__ int rows(const Params&, int) {
     return kLeaf;
   }
@@ -524,13 +589,19 @@ struct LeafDefaults {
   }
 };
 
+// The filled rows of a leaf whose records keep their count in the last
+// word of a row (build_bvh pads a leaf at its end).
+__device__ __forceinline__ int filled_rows(const Params& p, int lid) {
+  return __float_as_int(__ldg(p.leaves + (size_t)lid * kLeaf * 3 + 2).w);
+}
+
 // (v0.xyz, prim bits | e1.xyz, - | e2.xyz, -)
 struct TriangleLeaf : LeafDefaults {
   static constexpr int kRowVec = 3;
   static constexpr bool kEncoded = true;
   static constexpr bool kSetsU = true, kSetsV = true, kSetsSlot = true;
   static constexpr bool kDenseList = false, kCone = false;
-  static constexpr int kMinBlocks = 6;
+  static constexpr int kMinBlocks = 6, kMinBlocksAny = 6;
   static __device__ __forceinline__ bool test(const Params& p, int row,
                                               const Ray& r, float& tt,
                                               float& b_u, float& b_v,
@@ -544,22 +615,41 @@ struct TriangleLeaf : LeafDefaults {
   }
 };
 
-// Two TriangleLeaf rows, shutter open (p.leaves) and close (p.leaves_t1),
-// lerped at the ray's time.
+// Shutter-open rows (v0.xyz, prim bits | e1.xyz, index of the row's
+// shutter-close record in p.leaves_t1 or -1 | e2.xyz, filled rows of the
+// leaf; ints as their bits), lerped at the ray's time as a*(1-w) + b*w.  A
+// row that does not move (its two records bit-equal at upload) has no
+// second record and is lerped with itself, which gives the bits of the two
+// equal records.  Closest-hit walks nodes whose children are in reverse
+// binary preorder (ops/trace_cuda.py: pack_nodes_preorder), so they pop in
+// the skip-link walk's order, and tests a leaf's box again at its pop, at
+// the running t, as that walk does when it reaches the leaf: every ray
+// tests the leaves the skip-link walk tests, in its order, so an exact-t
+// tie or a hit an ulp before its box goes where the reference sends it.
+// Any-hit's flag does not depend on the order: it walks the nodes of the
+// other forms, whose order measured faster.
 struct MovingTriangleLeaf : LeafDefaults {
   static constexpr int kRowVec = 3;
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = true, kSetsV = true, kSetsSlot = true;
   static constexpr bool kDenseList = false, kCone = false;
-  static constexpr int kMinBlocks = 4;
+  static constexpr int kMinBlocks = 6, kMinBlocksAny = 4;
+  static constexpr bool kBoxAtPop = true;
+  static __device__ __forceinline__ int rows(const Params& p, int lid) {
+    return filled_rows(p, lid);
+  }
   static __device__ __forceinline__ bool test(const Params& p, int row,
                                               const Ray& r, float& tt,
                                               float& b_u, float& b_v,
                                               int& cand) {
     const float4* q = p.leaves + (size_t)row * kRowVec;
-    const float4* s = p.leaves_t1 + (size_t)row * kRowVec;
     const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
-    const float4 s0 = __ldg(s), s1 = __ldg(s + 1), s2 = __ldg(s + 2);
+    const int moved = __float_as_int(q1.w);
+    float4 s0 = q0, s1 = q1, s2 = q2;
+    if (moved >= 0) {
+      const float4* s = p.leaves_t1 + (size_t)moved * kRowVec;
+      s0 = __ldg(s); s1 = __ldg(s + 1); s2 = __ldg(s + 2);
+    }
     const float w = r.time, w0 = 1.f - r.time;
     cand = __float_as_int(q0.w);
     return triangle_hit(q0.x * w0 + s0.x * w, q0.y * w0 + s0.y * w,
@@ -577,7 +667,7 @@ struct SphereLeaf : LeafDefaults {
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = false, kSetsV = false, kSetsSlot = false;
   static constexpr bool kDenseList = true, kCone = false;
-  static constexpr int kMinBlocks = 6;
+  static constexpr int kMinBlocks = 6, kMinBlocksAny = 6;
   static __device__ __forceinline__ bool test(const Params& p, int row,
                                               const Ray& r, float& tt,
                                               float& b_u, float& b_v,
@@ -600,11 +690,10 @@ struct ConeLeaf {
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = true, kSetsV = false, kSetsSlot = false;
   static constexpr bool kDenseList = true, kCone = true;
-  static constexpr int kMinBlocks = 4;
-  static constexpr bool kNearFirst = true;
+  static constexpr int kMinBlocks = 4, kMinBlocksAny = 4;
+  static constexpr bool kNearFirst = true, kBoxAtPop = false;
   static __device__ __forceinline__ int rows(const Params& p, int lid) {
-    return __float_as_int(
-        __ldg(p.leaves + (size_t)lid * kLeaf * kRowVec + 2).w);
+    return filled_rows(p, lid);
   }
   static __device__ __forceinline__ float u_of(float yt, float length) {
     return cone_fraction(yt, length);
@@ -617,9 +706,8 @@ struct ConeLeaf {
     const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
     cand = __float_as_int(q0.w);
     b_v = q2.x;  // the length, for u_of
-    return cone_test<true>(q0.x, q0.y, q0.z, q1.x, q1.y, q1.z, q2.x, q2.y,
-                           q2.z, q1.w, r, tt, b_u) &&
-           cand >= 0 && cand != r.ig1 && cand != r.ig2;
+    return cone_record(q0, q1, q2, r, tt, b_u) && cand >= 0 &&
+           cand != r.ig1 && cand != r.ig2;
   }
 };
 
@@ -676,9 +764,11 @@ __device__ __forceinline__ bool pop_leaf(const Params& p, int lid, Ray& r) {
 // kPersistent: warps fetch rays from p.work until none are left.
 // Otherwise thread i of the grid walks ray i (the counters launches).
 template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
-__global__ void __launch_bounds__(kThreads, Leaf::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kAnyHit ? Leaf::kMinBlocksAny
+                                                    : Leaf::kMinBlocks)
 traverse_kernel(const Params p) {
   constexpr bool kNear = Leaf::kNearFirst && !kAnyHit;
+  constexpr bool kBox = Leaf::kBoxAtPop && !kAnyHit;
   extern __shared__ int smem[];
   int* stack = smem + threadIdx.x;  // entry e of this thread: stack[e * kThreads]
   // kNear: each entry's distance, beside it (a second depth x kThreads)
@@ -774,6 +864,8 @@ traverse_kernel(const Params p) {
         const float4* rec = p.nodes + (size_t)entry * kNodeVec;
         if (kNear)
           pop_inner_near(rec, r, stack, tstack, sp, p.depth);
+        else if (kBox)
+          pop_inner_slot(rec, entry, r, stack, sp, p.depth);
         else
           pop_inner(rec, r, stack, sp, p.depth);
       }
@@ -787,7 +879,8 @@ traverse_kernel(const Params p) {
         if (entry >= 0) break;
         --sp;
         if (kCounters) ++r.leafs;
-        const int lid = -entry - 1;
+        const int lid = kBox ? leaf_at_pop(p, -entry - 1, r) : -entry - 1;
+        if (kBox && lid < 0) continue;
         if (pop_leaf<Leaf, kAnyHit, Leaf::kEncoded>(p, lid, r)) sp = 0;
       }
       if (sp == 0) {
@@ -848,28 +941,30 @@ __global__ void __launch_bounds__(kThreads) skip_kernel(const Params p) {
   store_ray<Leaf, false>(p, i, r);
 }
 
-// The dense small-list form: the block stages the list (8 floats a prim)
-// in shared memory, then thread i tests ray i against every prim in list
-// order.  Spheres: (c.xyz, r, c_t1.xyz, -), the centre lerped at the ray's
-// time when the launch has both; lines: (v0.xyz, v1.xyz, r0, r1).  The id
-// of a prim is its index in the list.
+// The dense small-list form: the block stages the list (kDenseVec floats
+// a prim) in shared memory, then thread i tests ray i against every prim in
+// list order.  Spheres: (c.xyz, r, c_t1.xyz, -), the centre lerped at the
+// ray's time when the launch has both; lines: the line record (v0.xyz, id |
+// unit axis.xyz, r0 | length, k, k*k, count) packed once at upload
+// (ops/trace_cuda.py: pack_dense_lines), whose terms the cone test reads.
+// The id of a prim is its index in the list.
+constexpr int kDenseVec = 12;
+
 template <class Leaf, bool kAnyHit>
 __global__ void __launch_bounds__(kThreads) dense_kernel(const Params p) {
-  __shared__ float rec[kDenseMax * 8];
+  __shared__ __align__(16) float rec[kDenseMax * kDenseVec];
   constexpr bool kCone = Leaf::kCone;
   const bool lerp = !kCone && p.d2 != nullptr && p.time != nullptr;
   for (int j = threadIdx.x; j < p.n_prims; j += kThreads) {
-    float* q = rec + 8 * j;
-    q[0] = p.d0[3 * j]; q[1] = p.d0[3 * j + 1]; q[2] = p.d0[3 * j + 2];
+    float* q = rec + kDenseVec * j;
     if (kCone) {
-      q[3] = p.d1[3 * j]; q[4] = p.d1[3 * j + 1]; q[5] = p.d1[3 * j + 2];
-      q[6] = p.d2[j]; q[7] = p.d3[j];
+      for (int i = 0; i < kDenseVec; ++i) q[i] = p.d0[kDenseVec * j + i];
     } else {
+      q[0] = p.d0[3 * j]; q[1] = p.d0[3 * j + 1]; q[2] = p.d0[3 * j + 2];
       q[3] = p.d1[j];
       q[4] = lerp ? p.d2[3 * j] : 0.f;
       q[5] = lerp ? p.d2[3 * j + 1] : 0.f;
       q[6] = lerp ? p.d2[3 * j + 2] : 0.f;
-      q[7] = 0.f;
     }
   }
   __syncthreads();
@@ -887,11 +982,12 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Params p) {
   float bt = r.t, bu = 0.f;
   int bc = -1;
   for (int j = 0; j < p.n_prims; ++j) {
-    const float* q = rec + 8 * j;
-    float tt, y = 0.f;
+    const float* q = rec + kDenseVec * j;
+    float tt, yt = 0.f;
     bool ok;
     if (kCone) {
-      ok = cone_hit(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], r, tt, y);
+      const float4* q4 = reinterpret_cast<const float4*>(q);
+      ok = cone_record(q4[0], q4[1], q4[2], r, tt, yt);
     } else if (lerp) {
       ok = sphere_hit(q[0] * w0 + q[4] * w, q[1] * w0 + q[5] * w,
                       q[2] * w0 + q[6] * w, q[3], r, tt);
@@ -899,7 +995,8 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Params p) {
       ok = sphere_hit(q[0], q[1], q[2], q[3], r, tt);
     }
     if (ok && tt < bt && j != r.ig1 && j != r.ig2) {
-      bt = tt; bu = y; bc = j;
+      bt = tt; bc = j;
+      if (kCone) bu = cone_fraction(yt, q[8]);
       if (kAnyHit) break;
     }
   }
@@ -984,13 +1081,12 @@ struct Corona13TraceArgs {
   int carry;  // start from t_out / blocked_out and update them
   const void* nodes;      // wide: kernel nodes; deep: binary nodes [n, 8]
   const void* leaves;     // the kind's leaf rows
-  const void* leaves_t1;  // moving triangles: shutter-close rows
+  const void* leaves_t1;  // moving triangles: the moving rows' close records
   int depth;              // wide: stack entries a thread
   int n_nodes;            // deep: binary nodes
   const float* d0;        // dense: see dense_kernel
   const float* d1;
   const float* d2;
-  const float* d3;
   int n_prims;
   int prim_offset;
   const float* org;
@@ -1034,7 +1130,7 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   p.n_nodes = a->n_nodes;
   p.prim_offset = a->prim_offset;
   p.carry = a->carry;
-  p.d0 = a->d0; p.d1 = a->d1; p.d2 = a->d2; p.d3 = a->d3;
+  p.d0 = a->d0; p.d1 = a->d1; p.d2 = a->d2;
   p.n_prims = a->n_prims;
   p.t_out = a->t_out;
   p.prim_out = a->prim_out;
@@ -1052,14 +1148,12 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   if (form == kDeep && (a->n_nodes < 1 || a->nodes == nullptr))
     return (int)cudaErrorInvalidValue;
   if (form == kDense && (a->n_prims < 1 || a->n_prims > kDenseMax ||
-                         a->d0 == nullptr || a->d1 == nullptr))
+                         a->d0 == nullptr ||
+                         (kind == kSphere && a->d1 == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (form != kDense && a->leaves == nullptr)
     return (int)cudaErrorInvalidValue;
   if (kind == kMoving && (a->leaves_t1 == nullptr || a->time == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (kind == kLine && form == kDense &&
-      (a->d2 == nullptr || a->d3 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (a->carry && a->t_out == nullptr && a->blocked_out == nullptr)
     return (int)cudaErrorInvalidValue;

@@ -50,12 +50,14 @@ class DeviceBVH:
     leaf_packed: torch.Tensor | None = None  # [n_leaves, 8, 16] f32
     leaf_data_t1: torch.Tensor | None = None  # [slots, D] shutter close
     # the CUDA kernel's own records (trace_cuda.pack_nodes, pack_leaf_rows,
-    # pack_line_rows) and the stack entries a thread needs; kleaves also
-    # serve the deep-tree walk, which reads ``nodes``, and for lines the
-    # plain walk, which reads each prim's terms there
+    # pack_line_rows, pack_moving_rows, pack_nodes_preorder) and the stack
+    # entries a thread needs; kleaves also serve the deep-tree walk, which
+    # reads ``nodes``, and for lines the plain walk, which reads each
+    # prim's terms there
     knodes: torch.Tensor | None = None       # [Wn, 8, 8] f32, link in [.., 7]
+    knodes_pre: torch.Tensor | None = None   # moving: children in preorder
     kleaves: torch.Tensor | None = None      # [n_leaves, 8, ROW] f32
-    kleaves_t1: torch.Tensor | None = None   # [n_leaves, 8, ROW] shutter close
+    kleaves_t1: torch.Tensor | None = None   # [M, 12] the moving rows' close
     stack_depth: int = 0
 
     @classmethod
@@ -73,12 +75,16 @@ class DeviceBVH:
         kind = _KIND_OF_WIDTH[leaf_data.shape[-1]]
         fields = {}
         if len(b.leaf_prims) and (kind == 'tri' or b.n_prims):
-            fields['kleaves'] = trace_cuda.pack_line_rows(
-                dev(leaf_data), dev(b.leaf_prims)) if kind == 'line' else \
-                dev(trace_cuda.pack_leaf_rows(kind, leaf_data, b.leaf_prims))
             if leaf_data_t1 is not None:
-                fields['kleaves_t1'] = dev(trace_cuda.pack_leaf_rows(
-                    kind, leaf_data_t1, b.leaf_prims))
+                kl, kl1 = trace_cuda.pack_moving_rows(leaf_data, leaf_data_t1,
+                                                      b.leaf_prims)
+                fields.update(kleaves=dev(kl), kleaves_t1=dev(kl1))
+            elif kind == 'line':
+                fields['kleaves'] = trace_cuda.pack_line_rows(
+                    dev(leaf_data), dev(b.leaf_prims))
+            else:
+                fields['kleaves'] = dev(trace_cuda.pack_leaf_rows(
+                    kind, leaf_data, b.leaf_prims))
             wb, wl, wdepth = bvh_mod.collapse8(b)
             # stack guard: each inner pop nets at most +7, so the worst
             # case is wdepth*7 + 8; a deeper tree gets no wide layout and
@@ -88,6 +94,9 @@ class DeviceBVH:
                     wbounds=dev(wb), wlinks=dev(wl.astype(np.int32)),
                     knodes=dev(trace_cuda.pack_nodes(wb, wl)),
                     stack_depth=trace_cuda.stack_depth(wdepth))
+                if leaf_data_t1 is not None:
+                    fields['knodes_pre'] = dev(
+                        trace_cuda.pack_nodes_preorder(wb, wl))
                 if kind == 'tri':
                     n_leaves = len(b.leaf_prims) // bvh_mod.LEAF_SIZE
                     lp = np.zeros((n_leaves, bvh_mod.LEAF_SIZE, 16),
@@ -135,6 +144,14 @@ class DeviceGeometry:
     tri_prim_slot: torch.Tensor | None = None
     sph_c_t1: torch.Tensor | None = None
     has_motion: bool = False
+    # a line list short enough for the dense form: its records with each
+    # line's terms (trace_cuda.pack_dense_lines), made where the lines are
+    line_dense: torch.Tensor | None = None   # [L, 12] f32
+
+    def __post_init__(self):
+        if self.line_dense is None and 0 < self.n_lines <= BRUTE_FORCE_MAX:
+            self.line_dense = trace_cuda.pack_dense_lines(
+                self.line_v0, self.line_v1, self.line_r0, self.line_r1)
 
     @property
     def n_tris(self):
@@ -281,7 +298,7 @@ def _kinds(geom: DeviceGeometry, moving: bool):
         out.append((dense if geom.n_spheres <= BRUTE_FORCE_MAX
                     else geom.sph_bvh, 'sphere', geom.n_tris))
     if geom.n_lines:
-        dense = (geom.line_v0, geom.line_v1, geom.line_r0, geom.line_r1)
+        dense = (geom.line_dense,)
         out.append((dense if geom.n_lines <= BRUTE_FORCE_MAX
                     else geom.line_bvh, 'line', geom.n_tris + geom.n_spheres))
     return out

@@ -51,6 +51,13 @@ sorted by entry distance, an entry the running t has passed dropped at
 its pop; an exact-t tie between two fibres may then go to another fibre
 than the plain walk's), and its records carry each fibre's own terms of
 the cone test (``pack_line_rows``), which the plain walk reads as well.
+The moving-triangle policy's closest-hit walk takes the reference's own
+order: it walks the nodes with each node's children in reverse binary
+preorder (``pack_nodes_preorder``), so that they pop in preorder, and
+tests a leaf's box again at its pop, at the running t, so that it tests
+the leaves the skip-link walk tests, in its order, and gives its bits on
+every ray, ties and hits an ulp before their box included.  Its records (``pack_moving_rows``) give a row a second,
+shutter-close record only where the row moves, and a leaf's filled rows.
 
 Build: ``nvcc`` compiles ``csrc/traverse_tris.cu`` (plain C interface)
 for sm_90a into ``_build/`` and ``ctypes`` loads it; the launch's
@@ -68,8 +75,9 @@ step: the wide walk with a moving-triangle, a sphere or a cone (line) leaf
 policy ('moving', 'sphere', 'line'), a stackless skip-link walk over
 ``DeviceBVH.nodes`` for a tree too deep for ``MAX_STACK`` ('deep'), and
 the dense test of a list of at most ``DENSE_MAX`` spheres or lines
-('dense_sphere', 'dense_line'), which reads the geometry's own arrays and
-is the only form that lerps sphere centres in time.  Their winner is
+('dense_sphere', 'dense_line'), which reads the geometry's own arrays
+(a line list: its records with each line's terms, ``pack_dense_lines``)
+and is the only form that lerps sphere centres in time.  Their winner is
 ``_closest_select``'s (smallest t, first row on a tie), not the TPU
 kernel's encoding, which stays with the static triangles of the wide walk.
 Prim ids are global: a launch takes the kind's offset.
@@ -154,7 +162,7 @@ class _Args(ctypes.Structure):
     _fields_ = [
         ('form', _i), ('kind', _i), ('any_hit', _i), ('carry', _i),
         ('nodes', _p), ('leaves', _p), ('leaves_t1', _p), ('depth', _i),
-        ('n_nodes', _i), ('d0', _p), ('d1', _p), ('d2', _p), ('d3', _p),
+        ('n_nodes', _i), ('d0', _p), ('d1', _p), ('d2', _p),
         ('n_prims', _i), ('prim_offset', _i), ('org', _p), ('dir', _p),
         ('time', _p), ('t_init', _p), ('t_all', _f), ('ignore_is64', _i),
         ('ignore1', _p), ('ignore2', _p), ('n', _i), ('t_out', _p),
@@ -227,6 +235,25 @@ def wide_depth(wbounds: np.ndarray, wlinks: np.ndarray) -> int:
     return depth
 
 
+def preorder_ranks(wbounds: np.ndarray, wlinks: np.ndarray) -> np.ndarray:
+    """[Wn, 8] int: each child's rank among its node's children in the
+    binary tree's preorder (0 first), which the skip-link walk follows.
+    A child's place there is the least leaf id below it: ``build_bvh``
+    numbers leaves in preorder and a subtree's leaves are consecutive.
+    Empty slots rank last."""
+    w = wbounds[:, :, 6]
+    links = np.ascontiguousarray(wlinks, np.int32).reshape(-1, 8)
+    key = np.full(w.shape, np.iinfo(np.int64).max, np.int64)
+    least = np.zeros(len(w), np.int64)
+    for i in range(len(w) - 1, -1, -1):   # breadth first: children later
+        leaf, inner = w[i] >= 256.0, (w[i] > 0.0) & (w[i] < 256.0)
+        key[i, leaf] = links[i, leaf]
+        key[i, inner] = least[links[i, inner]]
+        least[i] = key[i].min()
+    return np.argsort(np.argsort(key, axis=1, kind='stable'), axis=1,
+                      kind='stable')
+
+
 def pack_nodes(wbounds: np.ndarray, wlinks: np.ndarray) -> np.ndarray:
     """knodes [Wn, 8, 8] f32: per child min3, max3, push weight, and the
     child's link as int32 bits in the reference pad word: one
@@ -235,6 +262,19 @@ def pack_nodes(wbounds: np.ndarray, wlinks: np.ndarray) -> np.ndarray:
     knodes[:, :, 7] = np.ascontiguousarray(
         wlinks, np.int32).reshape(-1, 8).view(np.float32)
     return knodes
+
+
+def pack_nodes_preorder(wbounds: np.ndarray,
+                        wlinks: np.ndarray) -> np.ndarray:
+    """The moving form's nodes: ``pack_nodes``' records with each node's
+    children in reverse binary preorder (``preorder_ranks``; empty slots
+    first), so that the walk, which pushes a node's hit children in
+    ascending slot, pops them in the skip-link walk's order.  Node ids,
+    and so the links, are ``pack_nodes``'."""
+    knodes = pack_nodes(wbounds, wlinks)
+    order = np.argsort(-preorder_ranks(wbounds, wlinks), axis=1,
+                       kind='stable')
+    return np.take_along_axis(knodes, order[:, :, None], axis=1)
 
 
 def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
@@ -260,6 +300,50 @@ def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
     return rows.reshape(-1, LEAF, ROW_FLOATS[kind])
 
 
+def pack_moving_rows(leaf_data: np.ndarray, leaf_data_t1: np.ndarray,
+                     leaf_prims: np.ndarray):
+    """A moving triangle BVH's leaf-slot-major rows at shutter open and
+    close [slots, 9] and local prim ids [slots] (-1: padding) -> the
+    kernel's records (kleaves [n_leaves, 8, 12], kleaves_t1 [M, 12]):
+
+        kleaves:    v0.xyz, id | e1.xyz, moved | e2.xyz, filled rows
+        kleaves_t1: v0.xyz, 0  | e1.xyz, 0     | e2.xyz, 0
+
+    (ints as their bits).  A slot moves where its nine shutter-close
+    floats differ from its shutter-open ones in a bit; ``moved`` is its
+    index into kleaves_t1, which holds the moving slots' shutter-close
+    rows in slot order, or -1 for a slot that does not move (the kernel
+    then lerps its one record with itself).  kleaves_t1 keeps one zero row
+    when no slot moves.  ``filled``: the filled rows of the slot's leaf,
+    which come first (``bvh.build_bvh`` pads at the end).  The inverse of
+    ``unpack_moving_rows``."""
+    d0 = np.ascontiguousarray(leaf_data, np.float32)
+    d1 = np.ascontiguousarray(leaf_data_t1, np.float32)
+    rows = pack_leaf_rows('moving', d0, leaf_prims).reshape(-1, 12)
+    moves = (d0.view(np.int32) != d1.view(np.int32)).any(axis=1)
+    moved = np.where(moves, np.cumsum(moves) - 1, -1).astype(np.int32)
+    filled = (np.asarray(leaf_prims).reshape(-1, LEAF) >= 0).sum(axis=1)
+    rows[:, 7] = moved.view(np.float32)
+    rows[:, 11] = np.repeat(filled.astype(np.int32), LEAF).view(np.float32)
+    m = d1[moves]
+    t1 = np.zeros((max(len(m), 1), 12), np.float32)
+    t1[:len(m), 0:3], t1[:len(m), 4:7], t1[:len(m), 8:11] = \
+        m[:, 0:3], m[:, 3:6], m[:, 6:9]
+    return rows.reshape(-1, LEAF, 12), t1
+
+
+def unpack_moving_rows(kleaves, kleaves_t1):
+    """The inverse of ``pack_moving_rows``: (leaf_data, leaf_data_t1,
+    leaf_prims) as numpy, bit for bit."""
+    rows = np.ascontiguousarray(kleaves, np.float32).reshape(-1, 12)
+    t1 = np.ascontiguousarray(kleaves_t1, np.float32).reshape(-1, 12)
+    data = lambda r: np.concatenate([r[:, 0:3], r[:, 4:7], r[:, 8:11]], 1)
+    moved = rows[:, 7].copy().view(np.int32)
+    d0 = data(rows)
+    d1 = np.where((moved >= 0)[:, None], data(t1)[np.maximum(moved, 0)], d0)
+    return d0, d1, rows[:, 3].copy().view(np.int32)
+
+
 def line_rows(v0, ids, axis, r0, length, k, kk, filled):
     """The kernel's line records [n_leaves, 8, 12] from their fields, one
     entry a leaf slot: v0 [S, 3], ids [S] int32 (-1: padding), the unit
@@ -267,11 +351,16 @@ def line_rows(v0, ids, axis, r0, length, k, kk, filled):
     slot's leaf [S] int32:
         v0.xyz, id | axis.xyz, r0 | length, k, k*k, filled rows
     (ints as their bits).  The inverse of ``unpack_line_rows``."""
+    return _line_records(v0, ids, axis, r0, length, k, kk, filled).reshape(
+        -1, LEAF, ROW_FLOATS['line'])
+
+
+def _line_records(v0, ids, axis, r0, length, k, kk, last):
+    """[S, 12] line records from their fields (``line_rows``)."""
     col = lambda x: x.reshape(-1, 1)
-    rows = torch.cat([v0, col(ids.view(torch.float32)), axis, col(r0),
+    return torch.cat([v0, col(ids.view(torch.float32)), axis, col(r0),
                       col(length), col(k), col(kk),
-                      col(filled.view(torch.float32))], dim=1)
-    return rows.reshape(-1, LEAF, ROW_FLOATS['line'])
+                      col(last.view(torch.float32))], dim=1)
 
 
 def unpack_line_rows(rows):
@@ -299,6 +388,21 @@ def pack_line_rows(leaf_data, leaf_prims):
     filled = (ids.reshape(-1, LEAF) >= 0).sum(dim=1, dtype=torch.int32)
     return line_rows(v0, ids, axis, r0, length, k, kk,
                      filled.repeat_interleave(LEAF))
+
+
+def pack_dense_lines(v0, v1, r0, r1):
+    """A dense line list (v0, v1 [L, 3], r0, r1 [L], L <= DENSE_MAX) on
+    the device the records are for -> its records [L, 12], laid out as
+    ``line_rows``: each line's own terms of the cone test
+    (``trace_plain.line_terms``, computed once, by torch on that device;
+    the bits the reference's dense branch computes there for every ray),
+    the line's index in the list as its id and L in the last word.  The
+    dense kernel and ``trace_plain.dense_plain`` both read them."""
+    axis, length, k, kk = trace_plain.line_terms(v0, v1, r0, r1)
+    n = v0.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=v0.device)
+    count = torch.full((n,), n, dtype=torch.int32, device=v0.device)
+    return _line_records(v0, ids, axis, r0, length, k, kk, count)
 
 
 def pack_kernel_layout(wbounds: np.ndarray, wlinks: np.ndarray,
@@ -402,7 +506,7 @@ def _check_dense(kind, recs, dev):
     if kind not in ('sphere', 'line'):
         raise ValueError(f'traverse_tris: no dense form for kind {kind!r}')
     f32 = (torch.float32,)
-    if len(recs) != (3 if kind == 'sphere' else 4):
+    if len(recs) != (3 if kind == 'sphere' else 1):
         raise ValueError(f'traverse_tris: {len(recs)} arrays for a dense '
                          f'{kind} list')
     k = recs[0].shape[0] if isinstance(recs[0], torch.Tensor) else -1
@@ -414,9 +518,7 @@ def _check_dense(kind, recs, dev):
         if recs[2] is not None:
             want.append(('sph_c_t1', recs[2], f32, (k, 3)))
     else:
-        want = [('line_v0', recs[0], f32, (k, 3)),
-                ('line_v1', recs[1], f32, (k, 3)),
-                ('line_r0', recs[2], f32, (k,)), ('line_r1', recs[3], f32, (k,))]
+        want = [('line records', recs[0], f32, (k, ROW_FLOATS['line']))]
     _check_tensors(want, dev)
     return k
 
@@ -433,13 +535,19 @@ def _check_bvh(bvh, kind, form, dev):
     shape = (kl.shape[0], LEAF, ROW_FLOATS[kind])
     want = [('kleaves', kl, f32, shape)]
     if kind == 'moving':
-        want.append(('kleaves_t1', bvh.kleaves_t1, f32, shape))
+        t1 = bvh.kleaves_t1
+        if not isinstance(t1, torch.Tensor) or t1.dim() != 2:
+            raise ValueError('traverse_tris: the BVH carries no moving '
+                             'records for this device (kleaves_t1)')
+        want.append(('kleaves_t1', t1, f32, (t1.shape[0], ROW_FLOATS[kind])))
     if form == 'wide':
         kn = bvh.knodes
         if not isinstance(kn, torch.Tensor) or kn.dim() != 3:
             raise ValueError('traverse_tris: the BVH carries no kernel '
                              'layout for this device (knodes)')
         want.append(('knodes', kn, f32, (kn.shape[0], 8, 8)))
+        if kind == 'moving':
+            want.append(('knodes_pre', bvh.knodes_pre, f32, tuple(kn.shape)))
         if not 1 <= bvh.stack_depth <= MAX_STACK:
             raise ValueError(f'traverse_tris: stack depth {bvh.stack_depth}')
     else:
@@ -521,13 +629,17 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
               stream=stream)
     if form == 'dense':
         a.n_prims = recs[0].shape[0]
-        a.d0, a.d1, a.d2 = ptr(recs[0]), ptr(recs[1]), ptr(recs[2])
-        a.d3 = ptr(recs[3]) if len(recs) > 3 else None
+        a.d0 = ptr(recs[0])
+        if kind == 'sphere':
+            a.d1, a.d2 = ptr(recs[1]), ptr(recs[2])
     else:
         a.leaves = bvh.kleaves.data_ptr()
         a.leaves_t1 = ptr(bvh.kleaves_t1) if kind == 'moving' else None
         if form == 'wide':
-            a.nodes, a.depth = bvh.knodes.data_ptr(), bvh.stack_depth
+            # the moving form's closest-hit pops children in preorder
+            pre = kind == 'moving' and not any_hit
+            nodes = bvh.knodes_pre if pre else bvh.knodes
+            a.nodes, a.depth = nodes.data_ptr(), bvh.stack_depth
         else:
             a.nodes, a.n_nodes = bvh.nodes.data_ptr(), bvh.nodes.shape[0]
     with torch.cuda.device(dev):
@@ -682,9 +794,10 @@ def _trace_plain(target, kind, org, direction, t_init, ignore_prim,
                  ignore_prim2, time, prim_offset, carry, any_hit,
                  want_counts=False):
     """What ``_trace`` computes, by the plain versions, on any device;
-    ``carry`` is not modified.  want_counts (a tree, not a dense list):
+    ``carry`` is not modified.  want_counts (a tree or a dense line list):
     also the per-ray numbers of nodes visited, of leaves tested and of line
-    rows missed at the discriminant (``trace_plain.walk_plain``)."""
+    rows missed at the discriminant (``trace_plain.walk_plain``; a dense
+    list visits no node and tests no leaf)."""
     n, dev = org.shape[0], org.device
     if (_form_of(target, kind), kind) == ('wide', 'tri'):
         if want_counts:
@@ -703,7 +816,10 @@ def _trace_plain(target, kind, org, direction, t_init, ignore_prim,
               prim_offset=prim_offset, any_hit=any_hit)
     if _form_of(target, kind) == 'dense':
         out = trace_plain.dense_plain(kind, target, org, direction, *hit[:4],
-                                      **kw) + (hit[4],)
+                                      want_counts=want_counts, **kw)
+        zero = torch.zeros(n, dtype=torch.int64, device=dev)
+        out = out[:4] + (hit[4],) + ((zero, zero) + out[4:] if want_counts
+                                     else ())
     else:
         out = trace_plain.walk_plain(target, kind, org, direction, *hit,
                                      want_counts=want_counts, **kw)
@@ -771,9 +887,10 @@ def closest_hit_plain(target, kind, org, direction, t_init, ignore_prim=None,
                       want_counts=False):
     """``closest_hit`` by the plain torch versions (``trace_plain``), on
     the CPU or on the card: what the CUDA forms are held against.
-    want_counts (trees only): returns (hit, visits, leafs, missed), the
-    per-ray numbers of nodes visited, leaves tested and (lines) filled rows
-    whose discriminant is not positive, by the skip-link walk."""
+    want_counts (trees and dense line lists): returns (hit, visits, leafs,
+    missed), the per-ray numbers of nodes visited, leaves tested and
+    (lines) filled rows whose discriminant is not positive, by the
+    skip-link walk (a dense list: 0 nodes and leaves, its lines)."""
     return _trace_plain(target, kind, org, direction, t_init, ignore_prim,
                         None, time, prim_offset, carry, False, want_counts)
 

@@ -294,16 +294,24 @@ def walk_plain(bvh, kind, org, direction, t, prim, u, v, slot,
 
 def dense_plain(kind, recs, org, direction, t, prim, u, v,
                 ignore_prim=None, ignore_prim2=None, time=None, prim_offset=0,
-                any_hit=False):
+                any_hit=False, want_counts=False):
     """Every ray against every prim of a short list, no tree and no box.
 
     kind 'sphere': recs = (c [S, 3], r [S], c_t1 [S, 3] or None; with
     ``time`` and c_t1 the centres are lerped per ray); kind 'line': recs =
-    (v0, v1 [L, 3], r0, r1 [L]).  The running hit and the any-hit
-    convention are ``walk_plain``'s; returns (t, prim, u, v)."""
+    (records [L, 12],), each line's terms packed once
+    (``trace_cuda.pack_dense_lines``), which ``ray_cone_test`` reads.  The
+    running hit and the any-hit convention are ``walk_plain``'s; returns
+    (t, prim, u, v).  want_counts (kind 'line') appends the per-ray number
+    of lines a live lane tests whose discriminant is not positive, which
+    the kernel's cone test leaves early."""
     n_prims = recs[0].shape[0]
     gid = torch.arange(n_prims, device=org.device) + prim_offset
+    live = (t > 0) & (prim < 0) if any_hit else t > 0
     if kind == 'sphere':
+        if want_counts:
+            raise ValueError('dense_plain: only a line list counts rows '
+                             'missed at the discriminant')
         c, r, c_t1 = recs
         c = c[None]
         if time is not None and c_t1 is not None:
@@ -311,12 +319,13 @@ def dense_plain(kind, recs, org, direction, t, prim, u, v,
         tt, ok = ray_sphere_intersect(c, r[None], org, direction)
         uu = None
     else:
-        v0, v1, r0, r1 = recs
-        tt, uu, ok = ray_cone_intersect(v0[None], v1[None], r0[None],
-                                        r1[None], org, direction)
+        tt, uu, _, ok, disc = _candidates('line', recs[0][None], None, org,
+                                          direction, None)
+        missed = (live[..., None] & ~(disc > 0.0)).sum(dim=-1)
     ok = ok & (tt < t[..., None]) & _not_ignored(gid[None], ignore_prim,
                                                  ignore_prim2)
     if any_hit:
-        live = (t > 0) & (prim < 0)
-        return (t, torch.where(live & ok.any(dim=-1), 0, prim), u, v)
-    return _closest_select(tt, ok, t, prim, u, v, gid.expand(tt.shape), uu)
+        out = (t, torch.where(live & ok.any(dim=-1), 0, prim), u, v)
+    else:
+        out = _closest_select(tt, ok, t, prim, u, v, gid.expand(tt.shape), uu)
+    return out + (missed,) if want_counts else out

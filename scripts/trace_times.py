@@ -20,13 +20,21 @@ Cases (--cases names a subset; all by default):
          given its bound (chip_smoke._form_bound, from the plain skip-link
          walk's visits on the same rays) and held against its plain
          version: chip_smoke.frame_forms;
-  mb     the same for the moving-triangle launches of the 0002_mb frame;
+  mb     the same for the moving-triangle launches of the 0002_mb frame,
+         each beside the static walk of the same tree on the same rays
+         (shutter-open rows, no time: the least the moving form could
+         approach), the records' bytes a leaf pop, ptxas' registers of the
+         moving instantiations, and the moving form on rays aimed at the
+         edges the 0002_mb plane's leaves share (chip_smoke.edge_forms:
+         the rays on which it differs from the plain walk, counted);
   profile  one hair progression under torch.profiler: device ms of each
          traversal form, total device ms, CUDA launches, busy share;
   forms  chip_smoke.py's phase 3b: every form that replaces XLA's
          _traverse (moving triangles, sphere and line BVHs, the deep tree,
          the dense lists) against its plain version at 589,824 rays,
-         timed, with its bound.
+         timed, with its bound;
+  moving, dense_line  one form of 3b alone: the 2^17-triangle moving soup,
+         or the 64 lines in the cornell box.
 The timer is chip_smoke.py's: CUDA events behind a spin kernel that
 outlasts the host's enqueueing, mean of 20 calls (a captured launch
 that updates its carry in place gets a fresh clone each time, made
@@ -34,7 +42,9 @@ outside the timed window).  Prints card ms and host us per call with the
 card's name and power limit.  --root names another checkout whose
 corona13_tpu_torch to import: the calls have one signature across the
 port's history, so two trees are compared under one timer by running this
-script once per tree, in turns, on one card in one sitting.
+script once per tree, in turns, on one card in one sitting.  This tree's
+moving form is held bit for bit to its plain walk (chip_smoke.EXACT_KINDS,
+edge rays included); another tree's as the other forms are.
 """
 
 from __future__ import annotations
@@ -63,6 +73,11 @@ def main():
         'chip_smoke_here', os.path.join(HERE, 'chip_smoke.py'))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    if root != HERE:
+        # an older checkout's moving form may differ from its plain walk in
+        # a bit (before its walk took the reference's order): held as the
+        # other forms are, and its edge rays counted, not gated
+        cs.EXACT_KINDS = ()
     card = cs.device_phase()
     from corona13_tpu_torch import scene as scene_mod
     from corona13_tpu_torch import testing
@@ -95,7 +110,8 @@ def main():
         sets['lines'] = (lines, [cs._soup_sets(dev, s) for s in (5, 6)])
     t_live = torch.full((cs.N_RAYS,), cs.MAX_DIST, device=dev)
     out = {}
-    if 'forms' in cases:
+    only = [c for c in ('moving', 'dense_line') if c in cases]
+    if 'forms' in cases or only:
         soup = sets['soup'][0] if 'soup' in sets else \
             trace_mod.make_device_geometry(tri_v=cs._soup(1 << 17, 7),
                                            device=dev)
@@ -105,7 +121,8 @@ def main():
         forms = cs.forms_phase(dev, card, {
             'soup': (soup, cs._soup_sets(dev, 5), cs._soup_sets(dev, 6)),
             'cornell': (ball.geom, cs._ray_sets(ball.geom, ball, dev, 1),
-                        cs._ray_sets(ball.geom, ball, dev, 2))})[0]
+                        cs._ray_sets(ball.geom, ball, dev, 2))},
+            only=None if 'forms' in cases else only)[0]
         out.update({f'form/{k}': dict(ms=v['ms'], bound_ms=v['bound_ms'])
                     for k, v in forms.items()})
     for name, (geom, rays) in sets.items():
@@ -142,6 +159,14 @@ def main():
         frames['0002_mb'] = cs.frame_forms(
             '0002_mb', cs.frame_calls(mb, cfg),
             ('moving_closest', 'moving_any'), card)
+        frames['0002_mb edges'] = cs.edge_forms('0002_mb', mb.geom, dev,
+                                                card, strict=root == HERE)
+        from corona13_tpu_torch.ops import trace_cuda
+        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+                if 'MovingTriangle' in k}
+        for k, v in regs.items():
+            print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
+        frames['moving registers'] = regs
     print(json.dumps({'device': card, 'root': root, 'calls': out,
                       'frames': frames}), flush=True)
 

@@ -320,14 +320,17 @@ def test_deep_form_matches_plain(cuda, monkeypatch, kind, any_hit):
 @pytest.mark.parametrize('any_hit', [False, True])
 @pytest.mark.parametrize('kind', ['sphere', 'moving sphere', 'line'])
 def test_dense_forms_match_plain(cuda, kind, any_hit):
-    """The dense list of at most 64 prims: the geometry's own arrays, no
-    tree; sphere centres lerped at the ray time when c_t1 is given."""
+    """The dense list of at most 64 prims, no tree: spheres from the
+    geometry's own arrays, their centres lerped at the ray time when c_t1
+    is given; lines from their records with each line's terms packed on
+    the card (trace_cuda.pack_dense_lines)."""
     g = np.random.default_rng(5)
     T = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
     c = g.uniform(-8, 8, (64, 3))
     if kind == 'line':
-        target = (T(c), T(c + g.uniform(-3, 3, (64, 3))),
-                  T(g.uniform(0.2, 1, 64)), T(g.uniform(0.2, 1, 64)))
+        target = (trace_cuda.pack_dense_lines(
+            T(c), T(c + g.uniform(-3, 3, (64, 3))), T(g.uniform(0.2, 1, 64)),
+            T(g.uniform(0.2, 1, 64))),)
     else:
         target = (T(c), T(g.uniform(0.5, 2, 64)),
                   T(c + g.uniform(-2, 2, (64, 3))) if 'moving' in kind
@@ -406,6 +409,70 @@ def test_line_form_at_hair_shapes(cuda):
                           time_it=False)
     assert trace_cuda.launches['line_counters'] == before + 1
     assert 0 < pops['leaf_per_ray'] <= pops['plain_leaves_per_ray']
+
+
+def _smoke():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location('chip_smoke', os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_moving_form_at_0002_mb_shapes(cuda, any_hit):
+    """One moving instantiation (moving_closest or moving_any) at the
+    0002_mb frame's shapes: every moving launch of one 1024x576
+    progression captured from the frame's own calls and launched again on
+    the same tensors, twice bit-identical and against the plain walk
+    (chip_smoke._hold_calls, which holds the moving form bit for bit);
+    then, bit for bit on every ray, on every captured launch and on rays
+    aimed at the edges two leaves of the plane share (chip_smoke.
+    edge_rays), where a tie or a hit an ulp before its box is decided by
+    the reference's walk order."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cs = _smoke()
+    mb = scene_mod.fit_film(scene_mod.load_scene(
+        cs._scene_path('0002_mb'), device=cuda)[0], 1024, 576)
+    cfg = pt_mod.PTConfig(width=1024, height=576, max_verts=6, mf=4,
+                          use_nee=True)
+    mode = 'any_hit' if any_hit else 'closest_hit'
+    calls = [c for c in cs.frame_calls(mb, cfg)[mode] if c[1] == 'moving']
+    assert len(calls) == cfg.max_verts - 1
+    key = 'moving_any' if any_hit else 'moving_closest'
+    assert set(cs._hold_calls('0002_mb frame', {mode: calls})) == {key}
+    tup = (lambda x: (x,)) if any_hit else (lambda x: x)
+    for target, kind, args, kw in calls:
+        k = getattr(trace_cuda, mode)(target, kind, *args, **cs._cloned(kw))
+        p = getattr(trace_cuda, mode + '_plain')(target, kind, *args,
+                                                 **cs._cloned(kw))
+        for x, y in zip(tup(k), tup(p)):
+            assert torch.equal(_bits(x), _bits(y))
+    edges = cs.edge_forms('0002_mb', mb.geom, cuda, 'the card', n=1 << 14)
+    assert edges[mode]['differ'] == 0 and edges[mode]['hit_share'] > 0.3
+
+
+def test_moving_records_on_the_card(cuda):
+    """The moving records the card carries: what pack_moving_rows gives
+    for the tree's leaf_data / leaf_data_t1 (12 moving rows on 0002_mb),
+    and the preorder push weights of pack_nodes."""
+    from corona13_tpu_torch import scene as scene_mod
+    cs = _smoke()
+    b = scene_mod.load_scene(cs._scene_path('0002_mb'),
+                             device=cuda)[0].geom.tri_bvh
+    kl, kl1 = trace_cuda.pack_moving_rows(b.leaf_data.cpu().numpy(),
+                                          b.leaf_data_t1.cpu().numpy(),
+                                          b.leaf_prims.cpu().numpy())
+    assert torch.equal(_bits(b.kleaves.cpu()), _bits(torch.as_tensor(kl)))
+    assert torch.equal(_bits(b.kleaves_t1.cpu()), _bits(torch.as_tensor(kl1)))
+    assert tuple(b.kleaves_t1.shape) == (12, 12)
+    kn = trace_cuda.pack_nodes(b.wbounds.cpu().numpy(),
+                               b.wlinks.cpu().numpy())
+    assert torch.equal(_bits(b.knodes.cpu()), _bits(torch.as_tensor(kn)))
 
 
 def test_intersect_mixed_scene_on_the_card(cuda):
