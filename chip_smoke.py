@@ -580,10 +580,17 @@ def callers_phase(bvhs, kres, card):
 OPS_ROW_OF = {'tri': OPS_ROW, 'moving': OPS_ROW + 28, 'sphere': 25, 'line': 75}
 OPS_PRIM_OF = {'tri': 0, 'moving': 0, 'sphere': 1, 'line': 15}
 OPS_LINE_DISC = 45
-# The prim kinds whose form _form_compare holds bit for bit on every ray:
-# the moving form walks in the reference's order (scripts/trace_times.py
-# empties it to time an older checkout, whose moving form did not).
-EXACT_KINDS = ('moving',)
+# The forms _form_compare holds bit for bit on every ray: the wide walk of
+# each prim kind named here, which walks in the reference's order, and
+# ('deep') the skip-link walk of a tree without a wide layout
+# (scripts/trace_times.py empties it to time an older checkout).
+EXACT_KINDS = ('moving', 'sphere', 'deep')
+
+
+def _exact(form, kind):
+    """Whether a form of a kind is held bit for bit (EXACT_KINDS)."""
+    return (form == 'deep' and 'deep' in EXACT_KINDS) or (
+        form == 'wide' and kind in EXACT_KINDS)
 
 
 def moving_soup(dev):
@@ -617,7 +624,8 @@ def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs,
                 missed=0):
     """The least time the card could take for one fresh launch of a form:
     (ms, 'bytes' or 'operations').  Bytes: the records the form reads once
-    (a tree's nodes and leaf rows, a dense list's arrays), 24 B of origin
+    (a tree's nodes and leaf rows, and the sphere form's ids where its rows
+    leave them out; a dense list's arrays), 24 B of origin
     and direction and 8 B of ignore id for a live ray, 4 B of ray time for
     a live ray of a form that lerps (moving triangles, a dense sphere list
     with shutter-close centres; the others are given no time), t_init and
@@ -639,8 +647,10 @@ def _form_bound(target, kind, form, n, alive, out_bytes, visits, leafs,
     else:
         nodes = target.knodes if form == 'wide' else target.nodes
         lerps = kind == 'moving'
-        rows = [target.kleaves] + ([target.kleaves_t1] if lerps else [])
-        recs = (nodes.numel() + sum(r.numel() for r in rows)) * 4
+        rows = [nodes, target.kleaves] + ([target.kleaves_t1] if lerps else [])
+        if kind == 'sphere' and target.kleaves.shape[-1] == 4:
+            rows.append(target.leaf_prims)   # 16 B rows: the ids apart
+        recs = sum(r.numel() * r.element_size() for r in rows)
         filled = target.leaf_prims >= 0
         ops = (alive * OPS_RAY + visits * OPS_CHILD
                + leafs * 8 * float(filled.float().mean()) * OPS_ROW_OF[kind]
@@ -743,7 +753,7 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     visits, leafs, missed = map(_total, counts)
-    exact = kind in EXACT_KINDS
+    exact = _exact(form, kind)
     agree, slot, err = _form_compare(first, p, any_hit, name, exact)
     # the same rays with a running hit carried in
     n = argsets[0][0].shape[0]
@@ -1053,22 +1063,100 @@ def edge_rays(geom, n, seed, dev):
     return tuple(torch.as_tensor(x, device=dev) for x in (org, d, tm, seg))
 
 
-def edge_forms(where, geom, dev, card, n=1 << 16, strict=True):
-    """The moving form on edge_rays of geom's triangles, closest-hit and
+def _near_pairs(c, cell):
+    """(i, j) with i < j of the points c [n, 3] whose grid cells of size
+    ``cell`` touch (the same cell or one of its 26 neighbours): every pair
+    closer than ``cell``, among others."""
+    q = np.floor((c - c.min(axis=0)) / cell).astype(np.int64) + 1
+    span = q.max(axis=0) + 2
+    key = lambda x: (x[:, 0] * span[1] + x[:, 1]) * span[2] + x[:, 2]
+    order = np.argsort(key(q), kind='stable')
+    sk = key(q)[order]
+    out_i, out_j = [], []
+    for off in np.stack(np.meshgrid(*[[-1, 0, 1]] * 3, indexing='ij'),
+                        -1).reshape(-1, 3):
+        nk = key(q + off)
+        lo = np.searchsorted(sk, nk, 'left')
+        cnt = np.searchsorted(sk, nk, 'right') - lo
+        i = np.repeat(np.arange(len(c)), cnt)
+        start = np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+        j = order[start + np.arange(len(i))]
+        keep = i < j
+        out_i.append(i[keep])
+        out_j.append(j[keep])
+    return np.concatenate(out_i), np.concatenate(out_j)
+
+
+def sphere_edge_rays(geom, n, seed, dev):
+    """Rays aimed at points that two overlapping spheres of different
+    leaves of the sphere BVH share: points on the circle where the two
+    spheres meet, a quarter of them where that circle crosses the plane
+    through both centres parallel to the y axis (x for a pair along y),
+    each from a point outside both spheres at 1 to 20 mean radii, so that
+    it meets both at nearly the same t, where the walk's order and its box
+    culls decide the winner.  Returns (org, dir, seg) on dev, with shadow
+    segments that end just short of or just past the point."""
+    b = geom.sph_bvh
+    c = geom.sph_c.cpu().numpy().astype(np.float64)
+    r = geom.sph_r.cpu().numpy().astype(np.float64)
+    prims = b.leaf_prims.cpu().numpy()
+    leaf_of = np.empty(len(r), np.int64)
+    leaf_of[prims[prims >= 0]] = np.nonzero(prims >= 0)[0] // 8
+    i, j = _near_pairs(c, 2 * r.max())
+    dist = np.linalg.norm(c[j] - c[i], axis=1)
+    meet = (leaf_of[i] != leaf_of[j]) & (dist < r[i] + r[j]) & \
+        (dist > np.abs(r[i] - r[j]))
+    check(meet.any(), 'sphere_edge_rays: no two spheres of different leaves '
+          'meet')
+    g = np.random.default_rng(seed)
+    k = g.choice(np.nonzero(meet)[0], n)
+    i, j, dist = i[k], j[k], dist[k]
+    axis = (c[j] - c[i]) / dist[:, None]
+    along = (dist ** 2 + r[i] ** 2 - r[j] ** 2) / (2 * dist)
+    rc = np.sqrt(np.maximum(r[i] ** 2 - along ** 2, 0.0))
+    ref = np.where(np.abs(axis[:, 1:2]) < 0.9, [[0.0, 1.0, 0.0]],
+                   [[1.0, 0.0, 0.0]])
+    u = ref - (ref * axis).sum(1, keepdims=True) * axis
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    v = np.cross(axis, u)
+    theta = g.uniform(0.0, 2 * np.pi, n)
+    theta[: n // 4] = np.pi * (g.uniform(size=n // 4) < 0.5)
+    aim = c[i] + along[:, None] * axis + rc[:, None] * (
+        np.cos(theta)[:, None] * u + np.sin(theta)[:, None] * v)
+    out = (aim - c[i]) / r[i, None] + (aim - c[j]) / r[j, None]
+    out /= np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-30)
+    d = -out + 0.6 * g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    outside = (((d * (aim - c[i])).sum(1) < 0)
+               & ((d * (aim - c[j])).sum(1) < 0))[:, None]
+    d = np.where(outside, d, -out).astype(np.float32)
+    reach = g.uniform(1.0, 20.0, n) * r.mean()
+    org = (aim - d * reach[:, None]).astype(np.float32)
+    seg = (reach * np.where(np.arange(n) % 2 == 0, 0.999, 1.001)).astype(
+        np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (org, d, seg))
+
+
+def edge_forms(where, target, kind, rays, card, strict=True):
+    """One form of ``target`` (a tree of ``kind``) on edge rays (org, dir,
+    time or None, seg: edge_rays or sphere_edge_rays), closest-hit and
     any-hit, against its plain walk: the rays on which any of (t, prim, u,
     v, slot), or the blocked flag, differ in a bit, two launches
     bit-identical.  strict: no ray may differ.  Returns the counts."""
     from corona13_tpu_torch.ops import trace_cuda
-    org, d, tm, seg = edge_rays(geom, n, 21, dev)
-    t = torch.full((n,), MAX_DIST, device=dev)
+    org, d, tm, seg = rays
+    n = org.shape[0]
+    t = torch.full((n,), MAX_DIST, device=org.device)
+    form = trace_cuda._form_of(target, kind)
+    key = kind if form == 'wide' else form
     out = {}
     for mode, t_max in (('closest_hit', t), ('any_hit', seg)):
-        run = lambda f: f(geom.tri_bvh, 'moving', org, d, t_max, time=tm)
+        run = lambda f: f(target, kind, org, d, t_max, time=tm)
         k, k2 = run(getattr(trace_cuda, mode)), run(getattr(trace_cuda, mode))
         p = run(getattr(trace_cuda, mode + '_plain'))
         tup = (lambda x: (x,)) if mode == 'any_hit' else (lambda x: x)
         bits = lambda x: _bits(x) if x.dtype == torch.float32 else x
-        differ = torch.zeros(n, dtype=torch.bool, device=dev)
+        differ = torch.zeros(n, dtype=torch.bool, device=org.device)
         for a, b in zip(tup(k), tup(p)):
             differ |= bits(a) != bits(b)
         same = all(torch.equal(bits(a), bits(b))
@@ -1076,8 +1164,8 @@ def edge_forms(where, geom, dev, card, n=1 << 16, strict=True):
         found = k if mode == 'any_hit' else k[1] >= 0
         out[mode] = dict(rays=n, hit_share=float(found.float().mean()),
                          differ=int(differ.sum()), same_twice=same)
-        print(f'  {where} edge rays, moving {mode.replace("_", "-")}: {n} '
-              f'rays aimed at edges shared across leaves, hit share '
+        print(f'  {where} edge rays, {key} {mode.replace("_", "-")}: {n} '
+              f'rays aimed at points two leaves share, hit share '
               f'{out[mode]["hit_share"]:.4f}; rays whose bits differ from the '
               f'plain walk {out[mode]["differ"]}; two launches identical '
               f'{same}, on {card}', flush=True)
@@ -1134,9 +1222,91 @@ def frame_shapes_phase(hair, mb, card):
     del kept
     out['0002_mb'] = frame_forms('0002_mb', frame_calls(mb, cfg),
                                  ('moving_closest', 'moving_any'), card)
-    out['0002_mb_edges'] = edge_forms('0002_mb', mb.geom, mb.device, card)
+    out['0002_mb_edges'] = edge_forms(
+        '0002_mb', mb.geom.tri_bvh, 'moving',
+        edge_rays(mb.geom, 1 << 16, 21, mb.device), card)
     out['hair_profile'] = _profile_frame('hair frame', hair, cfg, card)
     return out
+
+
+def plane_edges_phase(plane, card):
+    """The plane scene's static tree on edge_rays (no ray times): its deep
+    form (the tree without a wide layout, walked by skip links as
+    forms_phase builds it) against the plain skip-link walk, held bit for
+    bit where EXACT_KINDS names 'deep'; the wide walk of the same tree
+    (the TPU kernel's order and winner) against its own plain version,
+    counted.  Returns the counts."""
+    import dataclasses
+    phase(f'edge rays of the plane scene\'s static tree, on {card}')
+    b = plane.geom.tri_bvh
+    deep = dataclasses.replace(b, wbounds=None, wlinks=None,
+                               leaf_packed=None, knodes=None, stack_depth=0)
+    org, d, _, seg = edge_rays(plane.geom, 1 << 16, 21, plane.device)
+    rays = (org, d, None, seg)
+    return {'deep': edge_forms('plane', deep, 'tri', rays, card,
+                               strict='deep' in EXACT_KINDS),
+            'wide': edge_forms('plane', b, 'tri', rays, card, strict=False)}
+
+
+def sphere_edges(geoms, card, strict):
+    """The sphere form of each of ``geoms`` ({name: geometry}) on 65,536
+    sphere_edge_rays, against its plain walk (edge_forms)."""
+    out = {}
+    for name, geom in geoms.items():
+        org, d, seg = sphere_edge_rays(geom, 1 << 16, 21, geom.sph_c.device)
+        out[name] = edge_forms(name, geom.sph_bvh, 'sphere',
+                               (org, d, None, seg), card, strict=strict)
+    return out
+
+
+def sphere_frame_phase(dev, card):
+    """Phase 8d: the sphere frame (_sphere_scene: 65,536 spheres, the
+    sphere BVH form) at full width, launch counts asserted; every sphere
+    launch of one progression held against its plain version and timed at
+    the frame's own shapes (frame_forms); its paths on the card against the
+    CPU at 64x36, read against the bar of 0.99 and reported; the sphere form on rays aimed at points two spheres of
+    different leaves share (sphere_edge_rays), on the frame's spheres and
+    on phase 3b's soup; one progression under torch.profiler."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.ops import trace as trace_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    t0 = time.time()
+    sc = scene_mod.fit_film(_sphere_scene(dev), W, H)
+    b = sc.geom.sph_bvh
+    print(f'sphere scene: {sc.geom.n_spheres} spheres, sphere BVH of '
+          f'{b.knodes.shape[0]} wide nodes (stack depth {b.stack_depth}) '
+          f'built in {time.time() - t0:.1f} s', flush=True)
+    res, lit, launches, rays = render_phase(
+        f'spheres ({sc.geom.n_spheres} spheres)', sc, 2, card,
+        forms=('closest', 'any', 'sphere_closest', 'sphere_any'))
+    check(lit > 0.5, f'sphere frame: only {lit} of the pixels are lit')
+    phase(f'the sphere form at the sphere frame\'s shapes, {W}x{H}, mf=4, '
+          f'max_verts=6, NEE, on {card}')
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    forms = frame_forms('spheres', frame_calls(sc, cfg),
+                        ('sphere_closest', 'sphere_any'), card)
+    soup = trace_mod.make_device_geometry(**_sphere_soup(1 << 16, 9),
+                                          device=dev)
+    edges = sphere_edges({'spheres': sc.geom, 'sphere soup': soup}, card,
+                         strict='sphere' in EXACT_KINDS)
+    del soup
+    profile = _profile_frame('sphere frame', sc, cfg, card)
+    # the card against the CPU, read against the bar of 0.99 and reported,
+    # not gated: a bounce off a small sphere carries an ulp of its hit
+    # point and normal into the next vertex (torch's CPU sqrt is not
+    # correctly rounded; on 300 of these spheres the JAX package agrees
+    # with itself, FMA on against off, on about 97% of paths:
+    # tests/test_torch_sphere_form.py)
+    close = paths_against_cpu('sphere paths', _sphere_scene, 64, 36, dev,
+                              gate=False, max_verts=6)
+    print(f'sphere paths: card against CPU {close:.4f}, '
+          f'{"at or above" if close >= 0.99 else "BELOW"} the bar of 0.99',
+          flush=True)
+    return dict(frame_s=res.seconds / 2, rays=rays,
+                mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
+                mean=float(res.image_xyz.mean()), launches=launches,
+                frame_forms=forms, edges=edges, profile=profile,
+                paths_vs_cpu=close, paths_vs_cpu_meets_bar=close >= 0.99)
 
 
 def _compare_hits(k, p, any_hit, where):
@@ -1383,6 +1553,51 @@ def _hair_scene(dev, n_fibers=1 << 16, seed=0, radii=(0.1, 0.06)):
         line_radii=np.tile(np.array([radii], np.float32),
                            (n_fibers, 1)),
         line_sh=np.ones(n_fibers, np.int32), device=dev)
+
+
+def _sphere_inputs(n_spheres=1 << 16, seed=0):
+    """The sphere frame's scene as arrays, for either package's
+    assemble_scene: (triangles, their shaders, materials as _ResolvedMat
+    keywords, CameraData keywords, the sphere and sky keywords).
+    n_spheres spheres (centres uniform over x in [-9, 9], y in [-3, 1], z
+    in [6, 29], radii uniform in [0.05, 0.25]; a quarter rough METAL, the
+    rest DIFFUSE, none dielectric) on the hair scene's 20 x 25 diffuse
+    ground under its constant sky and small area light, seen by its
+    camera, made from ``seed``."""
+    from corona13_tpu_torch import scene as scene_mod
+    g = np.random.default_rng(seed)
+    mats = [dict(d_rgb=(0.5, 0.5, 0.5)), dict(e_rgb=(30.0, 30.0, 30.0)),
+            dict(d_rgb=(0.6, 0.45, 0.3)),
+            dict(kind=scene_mod.METAL, g_rgb=(1.0, 1.0, 1.0), roughness=0.3)]
+    y0 = -3.0
+    ground = np.array([[[-10, y0, 5], [10, y0, 30], [10, y0, 5]],
+                       [[-10, y0, 5], [-10, y0, 30], [10, y0, 30]]],
+                      np.float32)
+    light = np.array([[[-1, 6, 14], [1, 6, 14], [1, 6, 16]],
+                      [[-1, 6, 14], [1, 6, 16], [-1, 6, 16]]], np.float32)
+    c = np.stack([g.uniform(-9, 9, n_spheres), g.uniform(-3, 1, n_spheres),
+                  g.uniform(6, 29, n_spheres)], axis=-1).astype(np.float32)
+    rad = g.uniform(0.05, 0.25, n_spheres).astype(np.float32)
+    sh = np.where(g.uniform(size=n_spheres) < 0.25, 3, 2).astype(np.int32)
+    cam = dict(pos=np.zeros(3, np.float32), pos_t1=np.zeros(3, np.float32),
+               orient=np.array([1, 0, 0, 0], np.float32),
+               orient_t1=np.array([1, 0, 0, 0], np.float32), focus=15.0)
+    return (np.concatenate([ground, light]), np.array([0, 0, 1, 1], np.int32),
+            mats, cam, dict(sky_rgb=(1.0, 1.0, 1.0), sph_c=c, sph_r=rad,
+                            sph_sh=sh))
+
+
+def _sphere_scene(dev, n_spheres=1 << 16, seed=0):
+    """_sphere_inputs assembled on ``dev``: a particle render, whose sphere
+    BVH the wide walk's sphere form serves (more than
+    trace.BRUTE_FORCE_MAX spheres)."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.io import cam as cam_io
+    tri_v, tri_sh, mats, cam, kw = _sphere_inputs(n_spheres, seed)
+    return testing.assemble_scene(
+        tri_v, tri_sh, [scene_mod._ResolvedMat(**m) for m in mats],
+        cam_io.CameraData(**cam), device=dev, **kw)
 
 
 def paths_against_cpu(name, build, w, h, dev, gate=True, **cfg_kw):
@@ -2393,7 +2608,7 @@ def _hold_launch(where, mode, target, kind, args, kw):
     same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(
         (k,) if any_hit else k, (k2,) if any_hit else k2))
     agree, slot, err = _form_compare(k, p, any_hit, f'{where} {key}',
-                                     kind in EXACT_KINDS)
+                                     _exact(form, kind))
     t, n = args[2], args[0].shape[0]
     alive = int((t > 0).sum()) if torch.is_tensor(t) else n
     print(f'  {where:34s} {key:22s} {n} rays, alive {alive}: '
@@ -2958,6 +3173,7 @@ def main():
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
     res2, lit2, launches2, rays2 = render_phase('plane (8198 triangles)', plane,
                                                 2, gpu)
+    plane_edges = plane_edges_phase(plane, smi)
     cres, claunches = counters_phase(cases, kres, smi)
     del bvhs, cases
     gold = golden_phase(dev)
@@ -2967,6 +3183,7 @@ def main():
             _scene_path('0031_hete'), device=d)[0], 64, 40, dev, max_verts=8,
         media=True)
     prims = prims_phase(dev, gpu)
+    spheres = sphere_frame_phase(dev, smi)
     cli_mean = cli_phase()
     sky, sky_scene = sky_phase(dev, smi)
     compact = compact_phase(dev, smi)
@@ -3031,8 +3248,8 @@ def main():
                     'lit_share': lit, 'paths_vs_cpu': path_close},
         'plane': {'frame_s': res2.seconds / 2, 'rays': rays2,
                   'mrays_per_s': rays2 / res2.seconds / 1e6,
-                  'lit_share': lit2}, **media,
-        **prims, '0031_hete/paths_vs_cpu': media_close,
+                  'lit_share': lit2, 'edge_rays': plane_edges}, **media,
+        **prims, 'spheres': spheres, '0031_hete/paths_vs_cpu': media_close,
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
         'line_counter_cases': lcres,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
@@ -3042,25 +3259,40 @@ def main():
     def form_entry(key):
         # launches: the render that reaches the form (cornell: the dense
         # sphere list, also in the light-path frames; 0002_mb: moving
-        # triangles; the hair frame: the line BVH), else the intersect /
-        # occluded calls of phase 3b
+        # triangles; the hair frame: the line BVH; the sphere frame: the
+        # sphere BVH), else the intersect / occluded calls of phase 3b
+        form = key.rsplit('_', 1)[0]
+        mode = 'any_hit' if key.endswith('any') else 'closest_hit'
         run, frames = {'dense_sphere': (launches, spp),
                        'moving': (prims['0002_mb']['launches'], 2),
-                       'line': (prims['hair']['launches'], 2)}.get(
-            key.rsplit('_', 1)[0], (flaunches, None))
+                       'line': (prims['hair']['launches'], 2),
+                       'sphere': (spheres['launches'], 2)}.get(
+            form, (flaunches, None))
         m = fres[key]
         dense = key.startswith('dense')
-        # the line and moving forms: beside 3b's numbers at the soup's
-        # shapes, the kernel at its frame's own shapes (hair, 0002_mb; phase
-        # 8c), the frame's sum and a launch's mean
-        frame = prims['frame_forms']['hair' if key.startswith('line')
-                                     else '0002_mb'].get(key)
+        # the line, moving and sphere forms: beside 3b's numbers at the
+        # soup's shapes, the kernel at its frame's own shapes (hair,
+        # 0002_mb: phase 8c; the sphere frame: 8d), the frame's sum and a
+        # launch's mean
+        shapes, frame = {
+            'line': ('hair', prims['frame_forms']['hair'].get(key)),
+            'moving': ('0002_mb', prims['frame_forms']['0002_mb'].get(key)),
+            'sphere': ('sphere', spheres['frame_forms'].get(key))}.get(
+            form, (None, None))
         at_frame = {}
+        if form == 'deep':
+            at_frame['plane_edge_rays_differ'] = \
+                plane_edges['deep'][mode]['differ']
+        if form == 'sphere':
+            at_frame.update(
+                frame_edge_rays_differ=spheres['edges']['spheres'][mode][
+                    'differ'],
+                soup_edge_rays_differ=spheres['edges']['sphere soup'][mode][
+                    'differ'])
         if frame:
             nf = frame['launches']
-            at_frame = {
-                'frame_shapes': ('hair' if key.startswith('line') else
-                                 '0002_mb') + f' frame, {nf} launches',
+            at_frame.update({
+                'frame_shapes': f'{shapes} frame, {nf} launches',
                 'frame_ms': frame['ms'], 'frame_bound_ms': frame['bound_ms'],
                 'frame_plain_ms': frame['plain_ms'],
                 'frame_ms_per_launch': frame['ms_per_launch'],
@@ -3069,7 +3301,7 @@ def main():
                 'frame_bound_by': max(frame['calls'],
                                       key=lambda c: c['bound_ms'])['bound_by'],
                 'frame_roofline_share': frame['roofline_share'],
-                'frame_max_abs_err': frame['max_abs_err']}
+                'frame_max_abs_err': frame['max_abs_err']})
             if 'exit_bound_ms' in frame:
                 at_frame.update(
                     frame_exit_bound_ms=frame['exit_bound_ms'],
@@ -3079,9 +3311,7 @@ def main():
                     frame_static_ms=frame['static_ms'],
                     frame_static_ms_per_launch=frame['static_ms_per_launch'],
                     frame_edge_rays_differ=prims['frame_forms'][
-                        '0002_mb_edges'][
-                        'any_hit' if key.endswith('any') else 'closest_hit'][
-                        'differ'])
+                        '0002_mb_edges'][mode]['differ'])
         if 'exit_bound_ms' in m:
             at_frame.update(exit_bound_ms=m['exit_bound_ms'],
                             exit_roofline_share=m['exit_bound_ms'] / m['ms'])

@@ -53,8 +53,8 @@
 //            or one value for all rays, and writes prim and slot as int64
 //            (or only a blocked byte), so the callers add no passes.
 //
-// Order and rounding are the TPU kernel's (the line form's closest-hit
-// order is its own, below): children are pushed in
+// Order and rounding are the TPU kernel's (the line, moving and sphere
+// forms' closest-hit orders are their own, below): children are pushed in
 // ascending child index (its packet order restricted to this ray's hits),
 // an exact-t tie between leaves goes to the first visited (tt < t_best),
 // the winner inside a leaf is the minimum of (bits(t) & ~7) | row, and the
@@ -203,6 +203,47 @@
 // 3.70 ms on the soup).  Not built: near-first order, which cannot keep
 // the reference's winner on those edges (emulated with a leaf-rank tie
 // rule, it differs on 459 of the 65,536 rays).
+//
+// The sphere form (SphereLeaf in the wide walk), laid out for this card.
+// It serves a sphere BVH of more than 64 spheres; chip_smoke.py's sphere
+// frame (65,536 spheres of radii 0.05-0.25 in a slab, a particle render)
+// launches it five times a progression for each of closest-hit and
+// any-hit.  What it waited on: the leaves behind a ray's nearest hit,
+// which the index order tests though the slab stops a camera ray in its
+// front layer (the frame's first launch: 1.04 ms, 0.014 of its bound); a
+// 32-byte row whose id was loaded for every row, hit or not; padded rows
+// tested in full (70.5% of the slots are filled).  What it got wrong: its
+// order.  In index order it differed from the plain skip-link walk on 55
+// of 65,536 rays aimed at points where two spheres of different leaves
+// meet on the frame's tree, and on 352 on the 2^16-sphere soup
+// (chip_smoke.sphere_edge_rays; scripts/moving_order.py --kind sphere
+// predicted 55 and 351 on the CPU, whose sqrt is not correctly rounded).
+// Kept (NVIDIA H100 80GB HBM3, 700 W; ms a sphere frame of five launches,
+// closest / any-hit, then the soup; each item against the tree without
+// it, means of two passes in turns):
+//   order    closest-hit walks the preorder nodes and tests a leaf's box
+//            again at its pop, as MovingTriangleLeaf's does: it equals the
+//            skip-link walk on every ray, and the test at the pop drops
+//            the leaves behind the nearest hit: 3.00 -> 2.27 ms a frame
+//            (the first launch 1.01 -> 0.34 ms).  The soup, a sparse cloud
+//            where a ray rarely stops early, pays for the second box test:
+//            1.06 -> 1.19 ms.  Any-hit keeps the index order.
+//   records  16 B a row, (c.xyz, r); the id comes from the tree's
+//            leaf_prims (p.ids), read for a row that is hit, before the
+//            ignore test: 2.30 -> 2.27 ms closest-hit, soup 1.22 / 0.395
+//            -> 1.19 / 0.387 ms (any-hit a frame 0.392 / 0.394, within one
+//            tree's spread).
+//   rows     a leaf pop tests its filled rows only; the count sits in the
+//            leaf child's link (lid * 8 + filled - 1, pack_nodes with
+//            leaf_fill), so the pop knows it from its entry without a
+//            gather: 2.36 -> 2.27 ms; any-hit and the soup unchanged.
+// Measured and dropped: r*r stored in the record instead of r (one
+// rounding either way, the same bits): 2.273 against 2.271 ms a frame,
+// 1.189 against 1.185 ms on the soup, no gain, so the record keeps r and
+// the test squares it as the reference does; four blocks an SM (90 / 87
+// registers): closest-hit 2.29 against 2.27 ms a frame, any-hit 0.383
+// against 0.394 ms a frame but 0.393 against 0.387 ms on the soup.  Six
+// blocks, 80 registers both, no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,6 +281,7 @@ struct Params {
   int* work;  // persistent launches: [0] batches dealt out by the counter,
               // [1] warps that are done; both zero between launches
   const float4* leaves_t1;  // MovingTriangleLeaf: the moving rows' close records
+  const long long* ids;     // SphereLeaf: each leaf slot's prim id, -1 padding
   const float* time;        // [n] ray times in [0, 1], or null
   int prim_offset;          // global id of the kind's prim 0
   int carry;                // start from and update t_out / blocked_out
@@ -573,14 +615,17 @@ __device__ __forceinline__ bool cone_record(float4 q0, float4 q1, float4 q2,
 // walk pushes children near-first and drops entries the running t has
 // passed (pop_inner_near).  kBoxAtPop: the wide closest-hit walk keeps
 // the order of its node records and tests a leaf's box again when it pops
-// it (pop_inner_slot, leaf_at_pop).  rows(): the rows of leaf `lid` to
-// test, from the first; u_of(): the u of a leaf's winner from what test()
-// gave it.
+// it (pop_inner_slot, leaf_at_pop).  A leaf child's link is its code:
+// leaf_of() its leaf id, rows() the rows to test, from the first;
+// code_of_leaf(): the code of a leaf the deep walk reaches by its id;
+// u_of(): the u of a leaf's winner from what test() gave it.
 
-// What a policy does not set: every row tested, children in index order,
-// u as test() gives it.
+// What a policy does not set: the code is the leaf id, every row tested,
+// children in index order, u as test() gives it.
 struct LeafDefaults {
   static constexpr bool kNearFirst = false, kBoxAtPop = false;
+  static __device__ __forceinline__ int leaf_of(int code) { return code; }
+  static __device__ __forceinline__ int code_of_leaf(int lid) { return lid; }
   static __device__ __forceinline__ int rows(const Params&, int) {
     return kLeaf;
   }
@@ -661,23 +706,36 @@ struct MovingTriangleLeaf : LeafDefaults {
   }
 };
 
-// (c.xyz, radius | prim bits, -, -, -)
+// One float4 a row, (c.xyz, radius); the prim id in p.ids, read for a row
+// that is hit.  A leaf child's link is lid * 8 + filled rows - 1
+// (ops/trace_cuda.py: pack_nodes with the leaves' filled counts), so a pop
+// knows its rows from the entry it popped.  Closest-hit walks the preorder
+// nodes and tests a leaf's box again at its pop, as MovingTriangleLeaf's
+// does, and equals the skip-link walk on every ray; any-hit walks the
+// nodes in index order.
 struct SphereLeaf : LeafDefaults {
-  static constexpr int kRowVec = 2;
+  static constexpr int kRowVec = 1;
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = false, kSetsV = false, kSetsSlot = false;
   static constexpr bool kDenseList = true, kCone = false;
   static constexpr int kMinBlocks = 6, kMinBlocksAny = 6;
+  static constexpr bool kBoxAtPop = true;
+  static __device__ __forceinline__ int leaf_of(int code) { return code >> 3; }
+  static __device__ __forceinline__ int code_of_leaf(int lid) {
+    return lid * kLeaf + kLeaf - 1;
+  }
+  static __device__ __forceinline__ int rows(const Params&, int code) {
+    return (code & (kLeaf - 1)) + 1;
+  }
   static __device__ __forceinline__ bool test(const Params& p, int row,
                                               const Ray& r, float& tt,
                                               float& b_u, float& b_v,
                                               int& cand) {
-    const float4* q = p.leaves + (size_t)row * kRowVec;
-    const float4 q0 = __ldg(q), q1 = __ldg(q + 1);
-    cand = __float_as_int(q1.x);
+    const float4 q = __ldg(p.leaves + (size_t)row * kRowVec);
     b_u = 0.f; b_v = 0.f;
-    return sphere_hit(q0.x, q0.y, q0.z, q0.w, r, tt) && cand >= 0 &&
-           cand != r.ig1 && cand != r.ig2;
+    if (!sphere_hit(q.x, q.y, q.z, q.w, r, tt)) return false;
+    cand = (int)__ldg(p.ids + row);
+    return cand >= 0 && cand != r.ig1 && cand != r.ig2;
   }
 };
 
@@ -685,13 +743,13 @@ struct SphereLeaf : LeafDefaults {
 // the leaf as int bits): the prim's own terms of the cone test, computed
 // once at upload (ops/trace_cuda.py: pack_line_rows); u is the axial
 // fraction, divided out for the leaf's winner only.
-struct ConeLeaf {
+struct ConeLeaf : LeafDefaults {
   static constexpr int kRowVec = 3;
   static constexpr bool kEncoded = false;
   static constexpr bool kSetsU = true, kSetsV = false, kSetsSlot = false;
   static constexpr bool kDenseList = true, kCone = true;
   static constexpr int kMinBlocks = 4, kMinBlocksAny = 4;
-  static constexpr bool kNearFirst = true, kBoxAtPop = false;
+  static constexpr bool kNearFirst = true;
   static __device__ __forceinline__ int rows(const Params& p, int lid) {
     return filled_rows(p, lid);
   }
@@ -723,16 +781,17 @@ __device__ __forceinline__ void take_hit(const Params& p, Ray& r, float bt,
   r.prim = cand + p.prim_offset;
 }
 
-// One leaf pop: test the 8 rows of leaf `lid`.  kEncoded: the winner is
-// the minimum of (bits(t) & ~7) | row; else the smallest t, the first row
-// on an exact tie.  Returns true when the ray is finished (any-hit found a
-// blocker).
+// One leaf pop: test the rows of the leaf whose code is `code`.  kEncoded:
+// the winner is the minimum of (bits(t) & ~7) | row; else the smallest t,
+// the first row on an exact tie.  Returns true when the ray is finished
+// (any-hit found a blocker).
 template <class Leaf, bool kAnyHit, bool kEncoded>
-__device__ __forceinline__ bool pop_leaf(const Params& p, int lid, Ray& r) {
+__device__ __forceinline__ bool pop_leaf(const Params& p, int code, Ray& r) {
   int best = kNoHit;
   float bt = r.t, bu = 0.f, bv = 0.f;
   int bc = -1, bk = 0;
-  const int rows = Leaf::rows(p, lid);
+  const int lid = Leaf::leaf_of(code);
+  const int rows = Leaf::rows(p, code);
 #pragma unroll
   for (int k = 0; k < kLeaf; ++k) {
     if (k >= rows) break;
@@ -879,9 +938,9 @@ traverse_kernel(const Params p) {
         if (entry >= 0) break;
         --sp;
         if (kCounters) ++r.leafs;
-        const int lid = kBox ? leaf_at_pop(p, -entry - 1, r) : -entry - 1;
-        if (kBox && lid < 0) continue;
-        if (pop_leaf<Leaf, kAnyHit, Leaf::kEncoded>(p, lid, r)) sp = 0;
+        const int code = kBox ? leaf_at_pop(p, -entry - 1, r) : -entry - 1;
+        if (kBox && code < 0) continue;
+        if (pop_leaf<Leaf, kAnyHit, Leaf::kEncoded>(p, code, r)) sp = 0;
       }
       if (sp == 0) {
         store_ray<Leaf, kCounters>(p, ray, r);
@@ -934,7 +993,9 @@ __global__ void __launch_bounds__(kThreads) skip_kernel(const Params p) {
         ++node;
         continue;
       }
-      if (pop_leaf<Leaf, kAnyHit, false>(p, first / kLeaf, r)) break;
+      if (pop_leaf<Leaf, kAnyHit, false>(
+              p, Leaf::code_of_leaf(first / kLeaf), r))
+        break;
     }
     node = skip;
   }
@@ -1082,6 +1143,7 @@ struct Corona13TraceArgs {
   const void* nodes;      // wide: kernel nodes; deep: binary nodes [n, 8]
   const void* leaves;     // the kind's leaf rows
   const void* leaves_t1;  // moving triangles: the moving rows' close records
+  const void* ids;        // spheres (wide, deep): leaf slots' prim ids, int64
   int depth;              // wide: stack entries a thread
   int n_nodes;            // deep: binary nodes
   const float* d0;        // dense: see dense_kernel
@@ -1117,6 +1179,7 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   p.nodes = (const float4*)a->nodes;
   p.leaves = (const float4*)a->leaves;
   p.leaves_t1 = (const float4*)a->leaves_t1;
+  p.ids = (const long long*)a->ids;
   p.org = a->org;
   p.dir = a->dir;
   p.time = a->time;
@@ -1154,6 +1217,8 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   if (form != kDense && a->leaves == nullptr)
     return (int)cudaErrorInvalidValue;
   if (kind == kMoving && (a->leaves_t1 == nullptr || a->time == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (kind == kSphere && form != kDense && a->ids == nullptr)
     return (int)cudaErrorInvalidValue;
   if (a->carry && a->t_out == nullptr && a->blocked_out == nullptr)
     return (int)cudaErrorInvalidValue;

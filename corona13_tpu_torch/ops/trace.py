@@ -55,7 +55,7 @@ class DeviceBVH:
     # reads ``nodes``, and for lines the plain walk, which reads each
     # prim's terms there
     knodes: torch.Tensor | None = None       # [Wn, 8, 8] f32, link in [.., 7]
-    knodes_pre: torch.Tensor | None = None   # moving: children in preorder
+    knodes_pre: torch.Tensor | None = None   # moving, sphere: preorder
     kleaves: torch.Tensor | None = None      # [n_leaves, 8, ROW] f32
     kleaves_t1: torch.Tensor | None = None   # [M, 12] the moving rows' close
     stack_depth: int = 0
@@ -90,13 +90,16 @@ class DeviceBVH:
             # case is wdepth*7 + 8; a deeper tree gets no wide layout and
             # is walked by its skip links
             if trace_cuda.stack_depth(wdepth) is not None:
+                # a sphere leaf's link carries its filled rows
+                filled = trace_cuda.leaf_fill(b.leaf_prims) \
+                    if kind == 'sphere' else None
                 fields.update(
                     wbounds=dev(wb), wlinks=dev(wl.astype(np.int32)),
-                    knodes=dev(trace_cuda.pack_nodes(wb, wl)),
+                    knodes=dev(trace_cuda.pack_nodes(wb, wl, filled)),
                     stack_depth=trace_cuda.stack_depth(wdepth))
-                if leaf_data_t1 is not None:
+                if leaf_data_t1 is not None or kind == 'sphere':
                     fields['knodes_pre'] = dev(
-                        trace_cuda.pack_nodes_preorder(wb, wl))
+                        trace_cuda.pack_nodes_preorder(wb, wl, filled))
                 if kind == 'tri':
                     n_leaves = len(b.leaf_prims) // bvh_mod.LEAF_SIZE
                     lp = np.zeros((n_leaves, bvh_mod.LEAF_SIZE, 16),

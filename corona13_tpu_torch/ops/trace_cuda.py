@@ -130,8 +130,11 @@ BLOCK = 1024     # rays per counter block (the TPU kernel's grid step)
 LEAF_ROW = 12    # floats per triangle leaf row in the kernel layout
 DENSE_MAX = 64   # prims a dense list can hold (trace.BRUTE_FORCE_MAX)
 # floats per leaf row of each kind's kernel records (float4 multiples)
-ROW_FLOATS = {'tri': 12, 'moving': 12, 'sphere': 8, 'line': 12}
+ROW_FLOATS = {'tri': 12, 'moving': 12, 'sphere': 4, 'line': 12}
 _FORMS = {'wide': 0, 'deep': 1, 'dense': 2}
+# the kinds whose wide closest-hit walk takes the reference's order: nodes
+# in preorder (knodes_pre), the box tested again at a leaf's pop
+PREORDER_KINDS = ('moving', 'sphere')
 _KINDS = {'tri': 0, 'moving': 1, 'sphere': 2, 'line': 3}
 
 # kernel launches per form: the TPU kernel's three specialisations
@@ -161,7 +164,8 @@ class _Args(ctypes.Structure):
     _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     _fields_ = [
         ('form', _i), ('kind', _i), ('any_hit', _i), ('carry', _i),
-        ('nodes', _p), ('leaves', _p), ('leaves_t1', _p), ('depth', _i),
+        ('nodes', _p), ('leaves', _p), ('leaves_t1', _p), ('ids', _p),
+        ('depth', _i),
         ('n_nodes', _i), ('d0', _p), ('d1', _p), ('d2', _p),
         ('n_prims', _i), ('prim_offset', _i), ('org', _p), ('dir', _p),
         ('time', _p), ('t_init', _p), ('t_all', _f), ('ignore_is64', _i),
@@ -254,24 +258,40 @@ def preorder_ranks(wbounds: np.ndarray, wlinks: np.ndarray) -> np.ndarray:
                       kind='stable')
 
 
-def pack_nodes(wbounds: np.ndarray, wlinks: np.ndarray) -> np.ndarray:
+def pack_nodes(wbounds: np.ndarray, wlinks: np.ndarray,
+               filled: np.ndarray | None = None) -> np.ndarray:
     """knodes [Wn, 8, 8] f32: per child min3, max3, push weight, and the
     child's link as int32 bits in the reference pad word: one
-    16-byte-aligned 256 B record a node, read as 16 float4."""
+    16-byte-aligned 256 B record a node, read as 16 float4.  ``filled``
+    (the sphere form's nodes: each leaf's filled rows [n_leaves]): a leaf
+    child's link is lid * 8 + filled[lid] - 1, so that the pop of a leaf
+    knows its rows from its entry."""
     knodes = np.ascontiguousarray(wbounds, np.float32).copy()
-    knodes[:, :, 7] = np.ascontiguousarray(
-        wlinks, np.int32).reshape(-1, 8).view(np.float32)
+    links = np.ascontiguousarray(wlinks, np.int32).reshape(-1, 8).copy()
+    if filled is not None:
+        leaf = knodes[:, :, 6] >= 256.0
+        links[leaf] = links[leaf] * LEAF + np.asarray(
+            filled, np.int32)[links[leaf]] - 1
+    knodes[:, :, 7] = links.view(np.float32)
     return knodes
 
 
-def pack_nodes_preorder(wbounds: np.ndarray,
-                        wlinks: np.ndarray) -> np.ndarray:
-    """The moving form's nodes: ``pack_nodes``' records with each node's
-    children in reverse binary preorder (``preorder_ranks``; empty slots
-    first), so that the walk, which pushes a node's hit children in
-    ascending slot, pops them in the skip-link walk's order.  Node ids,
-    and so the links, are ``pack_nodes``'."""
-    knodes = pack_nodes(wbounds, wlinks)
+def leaf_fill(leaf_prims: np.ndarray) -> np.ndarray:
+    """Each leaf's filled rows [n_leaves] int32 from the leaf-slot-major
+    prim ids (-1: padding, which ``bvh.build_bvh`` puts at a leaf's end)."""
+    return (np.asarray(leaf_prims).reshape(-1, LEAF) >= 0).sum(
+        axis=1).astype(np.int32)
+
+
+def pack_nodes_preorder(wbounds: np.ndarray, wlinks: np.ndarray,
+                        filled: np.ndarray | None = None) -> np.ndarray:
+    """The moving and sphere forms' closest-hit nodes: ``pack_nodes``'
+    records with each node's children in reverse binary preorder
+    (``preorder_ranks``; empty slots first), so that the walk, which
+    pushes a node's hit children in ascending slot, pops them in the
+    skip-link walk's order.  Node ids, and so the links, are
+    ``pack_nodes``'."""
+    knodes = pack_nodes(wbounds, wlinks, filled)
     order = np.argsort(-preorder_ranks(wbounds, wlinks), axis=1,
                        kind='stable')
     return np.take_along_axis(knodes, order[:, :, None], axis=1)
@@ -280,12 +300,14 @@ def pack_nodes_preorder(wbounds: np.ndarray,
 def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
                    leaf_prims: np.ndarray) -> np.ndarray:
     """One kind's leaf-slot-major rows [slots, D] and local prim ids
-    [slots] (-1: padding) -> the kernel's records [n_leaves, 8, ROW], the
-    id as int32 bits, every row a whole number of float4:
+    [slots] (-1: padding) -> the kernel's records [n_leaves, 8, ROW], every
+    row a whole number of float4:
 
-    'tri' (and each shutter time of 'moving'), D = 9:
+    'tri' (and each shutter time of 'moving'), D = 9, the id as int32 bits:
         v0.xyz, id | e1.xyz, 0 | e2.xyz, 0
-    'sphere', D = 4:  c.xyz, r | id, 0, 0, 0
+    'sphere', D = 4:  c.xyz, r
+        (16 B a row: the ids stay in the tree's ``leaf_prims``, which the
+        kernel reads for a row that is hit)
     Lines have their own records (``pack_line_rows``)."""
     d = np.ascontiguousarray(leaf_data, np.float32)
     ids = np.ascontiguousarray(leaf_prims).astype(np.int32).view(np.float32)
@@ -294,7 +316,7 @@ def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
         rows[:, 0:3], rows[:, 3] = d[:, 0:3], ids
         rows[:, 4:7], rows[:, 8:11] = d[:, 3:6], d[:, 6:9]
     elif kind == 'sphere':
-        rows[:, 0:4], rows[:, 4] = d[:, 0:4], ids
+        rows[:, :] = d
     else:
         raise ValueError(f'pack_leaf_rows: no rows of kind {kind!r} here')
     return rows.reshape(-1, LEAF, ROW_FLOATS[kind])
@@ -546,12 +568,15 @@ def _check_bvh(bvh, kind, form, dev):
             raise ValueError('traverse_tris: the BVH carries no kernel '
                              'layout for this device (knodes)')
         want.append(('knodes', kn, f32, (kn.shape[0], 8, 8)))
-        if kind == 'moving':
+        if kind in PREORDER_KINDS:
             want.append(('knodes_pre', bvh.knodes_pre, f32, tuple(kn.shape)))
         if not 1 <= bvh.stack_depth <= MAX_STACK:
             raise ValueError(f'traverse_tris: stack depth {bvh.stack_depth}')
     else:
         want.append(('nodes', bvh.nodes, f32, (bvh.nodes.shape[0], 8)))
+    if kind == 'sphere':
+        want.append(('leaf_prims', bvh.leaf_prims, (torch.int64,),
+                     (kl.shape[0] * LEAF,)))
     try:
         _check_tensors(want, dev)
     except (TypeError, ValueError) as e:
@@ -635,9 +660,11 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
     else:
         a.leaves = bvh.kleaves.data_ptr()
         a.leaves_t1 = ptr(bvh.kleaves_t1) if kind == 'moving' else None
+        a.ids = ptr(bvh.leaf_prims) if kind == 'sphere' else None
         if form == 'wide':
-            # the moving form's closest-hit pops children in preorder
-            pre = kind == 'moving' and not any_hit
+            # the moving and sphere forms' closest-hit pops children in
+            # preorder
+            pre = kind in PREORDER_KINDS and not any_hit
             nodes = bvh.knodes_pre if pre else bvh.knodes
             a.nodes, a.depth = nodes.data_ptr(), bvh.stack_depth
         else:

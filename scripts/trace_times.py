@@ -27,6 +27,17 @@ Cases (--cases names a subset; all by default):
          moving instantiations, and the moving form on rays aimed at the
          edges the 0002_mb plane's leaves share (chip_smoke.edge_forms:
          the rays on which it differs from the plain walk, counted);
+  spheres  the same for the sphere launches (sphere_closest, sphere_any)
+         of one 1024x576 progression of chip_smoke.py's sphere frame
+         (65,536 spheres: chip_smoke._sphere_scene), phase 3b's sphere
+         soup (2^16 spheres, 589,824 rays) beside it, ptxas' registers of
+         the sphere instantiations, and the sphere form on rays aimed at
+         points two spheres of different leaves share (chip_smoke.
+         sphere_edge_rays, on the frame's spheres and on the soup: the
+         rays on which it differs from the plain walk, counted);
+  edges  the plane scene's static tree on chip_smoke.edge_rays: its deep
+         form (skip links) and its wide walk, each against its plain
+         version, the rays that differ counted;
   profile  one hair progression under torch.profiler: device ms of each
          traversal form, total device ms, CUDA launches, busy share;
   forms  chip_smoke.py's phase 3b: every form that replaces XLA's
@@ -43,8 +54,8 @@ card's name and power limit.  --root names another checkout whose
 corona13_tpu_torch to import: the calls have one signature across the
 port's history, so two trees are compared under one timer by running this
 script once per tree, in turns, on one card in one sitting.  This tree's
-moving form is held bit for bit to its plain walk (chip_smoke.EXACT_KINDS,
-edge rays included); another tree's as the other forms are.
+exact forms are held bit for bit to their plain walks (chip_smoke.
+EXACT_KINDS, edge rays included); another tree's as the other forms are.
 """
 
 from __future__ import annotations
@@ -110,7 +121,8 @@ def main():
         sets['lines'] = (lines, [cs._soup_sets(dev, s) for s in (5, 6)])
     t_live = torch.full((cs.N_RAYS,), cs.MAX_DIST, device=dev)
     out = {}
-    only = [c for c in ('moving', 'dense_line') if c in cases]
+    only = [c for c in ('moving', 'dense_line') if c in cases] + (
+        ['sphere'] if 'spheres' in cases else [])
     if 'forms' in cases or only:
         soup = sets['soup'][0] if 'soup' in sets else \
             trace_mod.make_device_geometry(tri_v=cs._soup(1 << 17, 7),
@@ -159,14 +171,36 @@ def main():
         frames['0002_mb'] = cs.frame_forms(
             '0002_mb', cs.frame_calls(mb, cfg),
             ('moving_closest', 'moving_any'), card)
-        frames['0002_mb edges'] = cs.edge_forms('0002_mb', mb.geom, dev,
-                                                card, strict=root == HERE)
+        frames['0002_mb edges'] = cs.edge_forms(
+            '0002_mb', mb.geom.tri_bvh, 'moving',
+            cs.edge_rays(mb.geom, 1 << 16, 21, dev), card,
+            strict=root == HERE)
         from corona13_tpu_torch.ops import trace_cuda
         regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
                 if 'MovingTriangle' in k}
         for k, v in regs.items():
             print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
         frames['moving registers'] = regs
+    if 'spheres' in cases:
+        sph = scene_mod.fit_film(cs._sphere_scene(dev), cs.W, cs.H)
+        frames['spheres'] = cs.frame_forms(
+            'spheres', cs.frame_calls(sph, cfg),
+            ('sphere_closest', 'sphere_any'), card)
+        frames['sphere edges'] = cs.sphere_edges(
+            {'spheres': sph.geom, 'sphere soup': trace_mod.make_device_geometry(
+                **cs._sphere_soup(1 << 16, 9), device=dev)}, card,
+            strict=root == HERE and 'sphere' in cs.EXACT_KINDS)
+        del sph
+        from corona13_tpu_torch.ops import trace_cuda
+        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+                if 'Sphere' in k}
+        for k, v in regs.items():
+            print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
+        frames['sphere registers'] = regs
+    if 'edges' in cases:
+        plane = scene_mod.fit_film(testing.plane_scene(device=dev), cs.W,
+                                   cs.H)
+        frames['plane edges'] = cs.plane_edges_phase(plane, card)
     print(json.dumps({'device': card, 'root': root, 'calls': out,
                       'frames': frames}), flush=True)
 

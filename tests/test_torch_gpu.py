@@ -452,8 +452,52 @@ def test_moving_form_at_0002_mb_shapes(cuda, any_hit):
                                                  **cs._cloned(kw))
         for x, y in zip(tup(k), tup(p)):
             assert torch.equal(_bits(x), _bits(y))
-    edges = cs.edge_forms('0002_mb', mb.geom, cuda, 'the card', n=1 << 14)
+    edges = cs.edge_forms('0002_mb', mb.geom.tri_bvh, 'moving',
+                          cs.edge_rays(mb.geom, 1 << 14, 21, cuda),
+                          'the card')
     assert edges[mode]['differ'] == 0 and edges[mode]['hit_share'] > 0.3
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_sphere_form_at_sphere_frame_shapes(cuda, any_hit):
+    """One sphere instantiation (sphere_closest or sphere_any) at the
+    shapes of chip_smoke.py's sphere frame (65,536 spheres): every sphere
+    launch of one 1024x576 progression captured and launched again on the
+    same tensors, bit for bit against the plain walk (t, prim, u, v, slot;
+    the blocked flag); then on rays aimed at points two spheres of
+    different leaves share (chip_smoke.sphere_edge_rays), where the walk's
+    order decides a tie or a hit an ulp before its box."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cs = _smoke()
+    sc = scene_mod.fit_film(cs._sphere_scene(cuda), 1024, 576)
+    cfg = pt_mod.PTConfig(width=1024, height=576, max_verts=6, mf=4,
+                          use_nee=True)
+    mode = 'any_hit' if any_hit else 'closest_hit'
+    calls = [c for c in cs.frame_calls(sc, cfg)[mode] if c[1] == 'sphere']
+    assert len(calls) == cfg.max_verts - 1
+    tup = (lambda x: (x,)) if any_hit else (lambda x: x)
+    for target, kind, args, kw in calls:
+        k = getattr(trace_cuda, mode)(target, kind, *args, **cs._cloned(kw))
+        p = getattr(trace_cuda, mode + '_plain')(target, kind, *args,
+                                                 **cs._cloned(kw))
+        for x, y in zip(tup(k), tup(p)):
+            assert torch.equal(_bits(x), _bits(y))
+    edges = cs.sphere_edges({'spheres': sc.geom}, 'the card', strict=True)
+    assert edges['spheres'][mode]['differ'] == 0
+    assert edges['spheres'][mode]['hit_share'] > 0.3
+
+
+def test_deep_form_on_edge_rays(cuda):
+    """The plane scene's static tree without its wide layout (skip_kernel)
+    on rays aimed at edges two of its leaves share (chip_smoke.edge_rays):
+    closest-hit and any-hit equal the plain skip-link walk bit for bit."""
+    from corona13_tpu_torch import testing
+    cs = _smoke()
+    out = cs.plane_edges_phase(testing.plane_scene(device=cuda), 'the card')
+    for mode in ('closest_hit', 'any_hit'):
+        assert out['deep'][mode]['differ'] == 0
+        assert out['deep'][mode]['hit_share'] > 0.3
 
 
 def test_moving_records_on_the_card(cuda):

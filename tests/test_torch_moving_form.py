@@ -24,9 +24,11 @@ These tests hold, on the CPU:
   random rays; the wide walk's index order is not (the reason for the
   order);
 - ``trace.intersect`` / ``occluded`` with ray times on the 0002_mb scene
-  and on the ``moving300`` geometry of tests/test_torch_prims.py, and on
-  a 40-line dense list, to the JAX package on every ray, bit for bit (t,
-  prim, u, v, slot; the blocked flag).  XLA on this CPU contracts a
+  and on the ``moving300`` geometry of tests/test_torch_prims.py, on a
+  40-line dense list, to the JAX package on every ray, bit for bit (t,
+  prim, u, v, slot; the blocked flag); on 300 spheres (the sphere form's
+  BVH, its 16-byte records) to tests/test_torch_prims.py's tolerances,
+  since torch's CPU sqrt is not correctly rounded.  XLA on this CPU contracts a
   multiply and an add into one fused operation where torch rounds twice,
   so the JAX side runs in a child process with ``--xla_cpu_max_isa=AVX``
   (no FMA): the reference's arithmetic rounded operation by operation, as
@@ -271,6 +273,9 @@ for case in spec['cases']:
     elif case == 'moving300':
         geom = jtrace.make_device_geometry(tri_v=a['tri_v'],
                                            tri_v_t1=a['tri_v_t1'])
+    elif case == 'spheres300':
+        geom = jtrace.make_device_geometry(sph_c=a['sph_c'],
+                                           sph_r=a['sph_r'])
     else:
         geom = jtrace.make_device_geometry(line_vtx=a['line_vtx'],
                                            line_radii=a['line_radii'])
@@ -284,7 +289,15 @@ for case in spec['cases']:
              v=h.v, slot=h.slot, blocked=b)
 '''
 
-JAX_CASES = ('0002_mb', 'moving300', 'lines40')
+JAX_CASES = ('0002_mb', 'moving300', 'lines40', 'spheres300')
+
+
+def _spheres300():
+    """300 spheres of the sphere frame's radii (chip_smoke._sphere_inputs)
+    in a box, some overlapping: the sphere BVH's wide form."""
+    g = np.random.default_rng(53)
+    return dict(sph_c=g.uniform(-6, 6, (300, 3)).astype(np.float32),
+                sph_r=g.uniform(0.05, 1.0, 300).astype(np.float32))
 
 
 def _lines40():
@@ -312,7 +325,8 @@ def against_jax(smoke, mb, tmp_path_factory):
                 _edge_or_random(smoke, mb, 'edges', 2048),
                 _edge_or_random(smoke, mb, 'random', 2048)))
         else:
-            extra = _moving300() if case == 'moving300' else _lines40()
+            extra = {'moving300': _moving300, 'lines40': _lines40,
+                     'spheres300': _spheres300}[case]()
             geom = convert.scene_from_numpy(
                 jtrace.make_device_geometry(**extra), device='cpu')
             g = np.random.default_rng(51)
@@ -369,6 +383,21 @@ def test_intersect_and_occluded_match_jax_bit_for_bit(against_jax, case):
     port, ref = against_jax[case]
     hit = ref['prim'] >= 0
     assert hit.mean() > 0.02 and ref['blocked'].mean() > 0.02
+    if case == 'spheres300':
+        # torch's CPU sqrt is not correctly rounded (a root's t moves by an
+        # ulp or two): tests/test_torch_prims.py's tolerances, prim, slot
+        # and blocked equal on >= 99.9% of rays, t within rtol 1e-5 / atol
+        # 1e-5 where prim agrees; a sphere hit sets neither u nor v
+        same = port['prim'].numpy() == ref['prim']
+        assert same.mean() >= 0.999
+        assert (port['slot'].numpy() == ref['slot']).mean() >= 0.999
+        assert (port['blocked'].numpy() == ref['blocked']).mean() >= 0.999
+        np.testing.assert_allclose(port['t'].numpy()[same], ref['t'][same],
+                                   rtol=1e-5, atol=1e-5)
+        for k in ('u', 'v'):
+            np.testing.assert_array_equal(port[k].numpy(), 0.0)
+            np.testing.assert_array_equal(ref[k], 0.0)
+        return
     for k in ('t', 'prim', 'u', 'v', 'slot', 'blocked'):
         a, b = _bits(port[k]), _bits(ref[k])
         if k in ('u', 'v'):

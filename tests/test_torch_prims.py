@@ -229,11 +229,13 @@ def test_static_call_ignores_time_and_uploads_every_kind():
     b = ttrace.intersect(tg, org, d, time=torch.rand(400))
     for f in dataclasses.fields(a):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name))
-    for bvh, row in ((tg.tri_bvh, 12), (tg.sph_bvh, 8), (tg.line_bvh, 12)):
+    for bvh, row in ((tg.tri_bvh, 12), (tg.sph_bvh, 4), (tg.line_bvh, 12)):
         assert bvh.knodes.shape[1:] == (8, 8) and bvh.stack_depth > 0
         assert bvh.kleaves.shape[1:] == (8, row) and bvh.kleaves_t1 is None
-        ids = bvh.kleaves[:, :, 4 if row == 8 else 3].contiguous().view(
-            torch.int32).reshape(-1)
+        if row == 4:    # spheres: (c, r); the ids stay in leaf_prims
+            assert torch.equal(bvh.kleaves.reshape(-1, 4), bvh.leaf_data)
+            continue
+        ids = bvh.kleaves[:, :, 3].contiguous().view(torch.int32).reshape(-1)
         assert torch.equal(ids.long(), bvh.leaf_prims)
     empty = ttrace.make_device_geometry(tri_v=_tris(5, g), device='cpu')
     assert empty.sph_bvh.kleaves is None and empty.line_bvh.knodes is None
