@@ -21,9 +21,11 @@ Phases (each prints its results; any failure exits non-zero):
      lanes, ignore ids and (a second comparison) a running hit carried in:
      the wide walk with the moving-triangle policy (2^17 triangles, random
      ray times; the other forms get no time, as in trace.intersect), the
-     sphere and the line policy (2^16 prims each), the
-     deep-tree skip-link walk on the triangle soup, and the dense list on
-     cornell's one sphere and on 64 lines; two launches bit-identical;
+     sphere and the line policy (2^16 prims each), the deep walk on the
+     triangle soup's tree without its wide layout and the skip-link walk
+     on the same tree laid out as over the deep stack's limit, both bit
+     for bit, and the dense list on cornell's one sphere and on 64 lines;
+     two launches bit-identical;
      the moving form bit-equal to its plain walk on every ray, fresh and
      carried; then trace.intersect / trace.occluded on geometries that route to
      the forms no render below reaches (launch counts asserted);
@@ -70,6 +72,17 @@ Phases (each prints its results; any failure exits non-zero):
      form on 65,536 rays aimed at edges that two leaves of the 0002_mb
      plane share (edge_rays), every bit equal to the plain walk's; one
      hair progression under torch.profiler (device ms a form);
+  8e. the zoom frame (_zoom_scene: a 65,536-triangle log-spiral ribbon
+     at the origin, a ground and a light; its tree too deep for the wide
+     stack): the tree's wdepth, wide stack need and binary levels, a
+     1024x576 render with 5 deep_closest and 5 deep_any launches a frame
+     and nothing else, frame s (min / median / max) and Mrays/s; every
+     deep launch of one progression held bit for bit and timed at the
+     frame's shapes (frame_forms), the skip form (the same tree over the
+     deep stack's limit) on the same launches beside it; both forms bit
+     for bit on rays aimed at edges two of the tree's leaves share; one
+     progression under torch.profiler; the paths on the card against the
+     CPU at 64x36, bar 0.99;
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
  10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp;
@@ -143,7 +156,9 @@ too, add exit_*, the bound with rows that miss at the discriminant counted
 up to it (the kernel leaves them there), beside the bound above, which
 counts the full test.  The moving rows add frame_static_*, the static walk
 of the same tree on the same rays, and the edge rays on which the kernel
-differs from the plain walk (0).  The last line is
+differs from the plain walk (0).  The deep and skip rows give their frame
+numbers at the zoom frame's launches (8e) and the plane's and the zoom
+tree's edge rays that differ (0).  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -210,8 +225,8 @@ def ptxas_report(build_log):
     out, name = {}, None
     for line in build_log.splitlines():
         if 'Compiling entry function' in line:
-            m = re.search(r'\d+(traverse|skip|dense)_kernelINS_\d+(\w+?)Leaf'
-                          r'E((?:Lb[01]E)+)', line)
+            m = re.search(r'\d+(traverse|deep|skip|dense)_kernelINS_\d+(\w+?)'
+                          r'LeafE((?:Lb[01]E)+)', line)
             check(m is not None, f'unexpected kernel name: {line}')
             flags = re.findall(r'Lb([01])E', m.group(3))
             name = f'{m.group(1)} {m.group(2)} ' + \
@@ -581,16 +596,38 @@ OPS_ROW_OF = {'tri': OPS_ROW, 'moving': OPS_ROW + 28, 'sphere': 25, 'line': 75}
 OPS_PRIM_OF = {'tri': 0, 'moving': 0, 'sphere': 1, 'line': 15}
 OPS_LINE_DISC = 45
 # The forms _form_compare holds bit for bit on every ray: the wide walk of
-# each prim kind named here, which walks in the reference's order, and
-# ('deep') the skip-link walk of a tree without a wide layout
-# (scripts/trace_times.py empties it to time an older checkout).
-EXACT_KINDS = ('moving', 'sphere', 'deep')
+# each prim kind named here, which walks in the reference's order, and the
+# walks of a tree without a wide layout, which take the skip-link walk's
+# order: 'deep' (a stack) and 'skip' (skip links, for a tree too deep for
+# that stack) (scripts/trace_times.py empties it to time an older
+# checkout).
+EXACT_KINDS = ('moving', 'sphere', 'deep', 'skip')
 
 
 def _exact(form, kind):
     """Whether a form of a kind is held bit for bit (EXACT_KINDS)."""
-    return (form == 'deep' and 'deep' in EXACT_KINDS) or (
+    return (form in ('deep', 'skip') and form in EXACT_KINDS) or (
         form == 'wide' and kind in EXACT_KINDS)
+
+
+def _deep_tree(bvh):
+    """``bvh`` without its wide layout, as upload lays out a tree too deep
+    for the wide stack (trace.without_wide; a checkout from before it,
+    timed by scripts/trace_times.py --root, drops the wide fields)."""
+    import dataclasses
+    from corona13_tpu_torch.ops import trace as trace_mod
+    if hasattr(trace_mod, 'without_wide'):
+        return trace_mod.without_wide(bvh)
+    return dataclasses.replace(bvh, wbounds=None, wlinks=None,
+                               leaf_packed=None, knodes=None, stack_depth=0)
+
+
+def _skip_tree(bvh):
+    """``bvh`` as upload lays out a tree with more binary levels than
+    trace_cuda.MAX_BIN_STACK (the skip form): no wide layout and no deep
+    records."""
+    import dataclasses
+    return dataclasses.replace(_deep_tree(bvh), bnodes=None, bin_depth=0)
 
 
 def moving_soup(dev):
@@ -850,9 +887,10 @@ def forms_phase(dev, card, bvhs, only=None):
           + ' / '.join(str(bvh_of(g).stack_depth) for g in built.values()),
           flush=True)
     soup, soup_a, soup_b = bvhs['soup']
-    # the static soup's tree without its wide layout: walked by skip links
-    deep = dataclasses.replace(soup.tri_bvh, wbounds=None, wlinks=None,
-                               leaf_packed=None, knodes=None, stack_depth=0)
+    # the static soup's tree without its wide layout (the deep walk) and,
+    # over the deep walk's stack limit, walked by skip links
+    deep = _deep_tree(soup.tri_bvh) if want('deep', 'skip') else None
+    skip = _skip_tree(soup.tri_bvh) if want('skip') else None
     cornell, corn_a, corn_b = bvhs['cornell']
     box = _line_soup(64, 12, box=4.0, length=3.0, radius=0.3)
     box['line_vtx'] = box['line_vtx'] + np.array([0, 0, 15], np.float32)
@@ -868,6 +906,7 @@ def forms_phase(dev, card, bvhs, only=None):
                    (soup_a, soup_b)),
         'line': (lines and lines.line_bvh, 'line', 2000, (soup_a, soup_b)),
         'deep': (deep, 'tri', 0, (soup_a, soup_b)),
+        'skip': (skip, 'tri', 0, (soup_a, soup_b)),
         'dense_sphere': (dense_sph, 'sphere', cornell.n_tris, (corn_a, corn_b)),
         'dense_line': (dense_line, 'line', 12, (corn_a, corn_b)),
     }
@@ -911,7 +950,8 @@ def forms_phase(dev, card, bvhs, only=None):
         trace_cuda.launches[k] = 0
     tm = torch.rand(N_RAYS, generator=gen).to(dev)
     deep_geom = dataclasses.replace(soup, tri_bvh=deep)
-    for geom in (spheres, few, deep_geom):
+    skip_geom = dataclasses.replace(soup, tri_bvh=skip)
+    for geom in (spheres, few, deep_geom, skip_geom):
         rays = corn_a if geom is few else soup_a
         o, d, _ = rays['bounce']
         so, sd, _, seg = rays['shadow']
@@ -922,8 +962,10 @@ def forms_phase(dev, card, bvhs, only=None):
     torch.cuda.synchronize()
     launches = {k: v for k, v in trace_cuda.launches.items() if v}
     print(f'intersect / occluded on the sphere soup, on 64 lines and on the '
-          f'deep tree: launches {launches}', flush=True)
-    check(launches == {f'{k}_{m}': 1 for k in ('sphere', 'dense_line', 'deep')
+          f'deep tree, by the deep walk and by skip links: launches '
+          f'{launches}', flush=True)
+    check(launches == {f'{k}_{m}': 1 for k in ('sphere', 'dense_line', 'deep',
+                                               'skip')
                        for m in ('closest', 'any')},
           f'form path launch counts {launches}')
     return res, launches, line_sets
@@ -1229,23 +1271,25 @@ def frame_shapes_phase(hair, mb, card):
     return out
 
 
-def plane_edges_phase(plane, card):
+def plane_edges_phase(plane, card, skip=True):
     """The plane scene's static tree on edge_rays (no ray times): its deep
-    form (the tree without a wide layout, walked by skip links as
-    forms_phase builds it) against the plain skip-link walk, held bit for
-    bit where EXACT_KINDS names 'deep'; the wide walk of the same tree
-    (the TPU kernel's order and winner) against its own plain version,
-    counted.  Returns the counts."""
-    import dataclasses
+    and skip forms (the tree without a wide layout as forms_phase builds
+    it) against the plain skip-link walk, held bit for bit where
+    EXACT_KINDS names them; the wide walk of the same tree (the TPU
+    kernel's order and winner) against its own plain version, counted.
+    skip=False: no skip form (scripts/trace_times.py --root with a
+    checkout from before it).  Returns the counts."""
     phase(f'edge rays of the plane scene\'s static tree, on {card}')
     b = plane.geom.tri_bvh
-    deep = dataclasses.replace(b, wbounds=None, wlinks=None,
-                               leaf_packed=None, knodes=None, stack_depth=0)
     org, d, _, seg = edge_rays(plane.geom, 1 << 16, 21, plane.device)
     rays = (org, d, None, seg)
-    return {'deep': edge_forms('plane', deep, 'tri', rays, card,
-                               strict='deep' in EXACT_KINDS),
-            'wide': edge_forms('plane', b, 'tri', rays, card, strict=False)}
+    out = {'deep': edge_forms('plane', _deep_tree(b), 'tri', rays, card,
+                              strict='deep' in EXACT_KINDS)}
+    if skip:
+        out['skip'] = edge_forms('plane', _skip_tree(b), 'tri', rays, card,
+                                 strict='skip' in EXACT_KINDS)
+    out['wide'] = edge_forms('plane', b, 'tri', rays, card, strict=False)
+    return out
 
 
 def sphere_edges(geoms, card, strict):
@@ -1307,6 +1351,109 @@ def sphere_frame_phase(dev, card):
                 mean=float(res.image_xyz.mean()), launches=launches,
                 frame_forms=forms, edges=edges, profile=profile,
                 paths_vs_cpu=close, paths_vs_cpu_meets_bar=close >= 0.99)
+
+
+def zoom_tree_report(b):
+    """The zoom tree's depths: (wdepth, its wide stack need wdepth*7 + 8,
+    binary levels), printed."""
+    from corona13_tpu_torch.ops import bvh as bvh_mod
+    from corona13_tpu_torch.ops import trace_cuda
+    nodes, prims = b.nodes.cpu().numpy(), b.leaf_prims.cpu().numpy()
+    wdepth = bvh_mod.collapse8(bvh_mod.flat_from_nodes(nodes, prims))[2]
+    # (scripts/trace_times.py --root: a checkout from before the deep
+    # walk does not count the levels)
+    levels = trace_cuda.bin_depth(nodes) if hasattr(trace_cuda, 'bin_depth') \
+        else None
+    print(f'zoom tree: {int((prims >= 0).sum())} triangles, {b.n_nodes} '
+          f'binary nodes, form {trace_cuda._form_of(b, "tri")}; wdepth '
+          f'{wdepth}, wide stack need {wdepth * 7 + 8} (limit '
+          f'{trace_cuda.MAX_STACK}), binary depth {levels} levels',
+          flush=True)
+    return wdepth, wdepth * 7 + 8, levels
+
+
+def deep_forms(where, scene, cfg, card, skip=True, strict=True):
+    """The deep launches of one progression of ``scene`` (frame_calls)
+    held and timed at the frame's shapes (frame_forms) and, with ``skip``,
+    the same launches by the skip form of the same tree (_skip_tree); then
+    each form on 65,536 edge_rays of the tree (edge_forms, no ray allowed
+    to differ where ``strict`` and EXACT_KINDS name the form).  Returns
+    (frame_forms' records by key, edge_forms' counts by form)."""
+    b = scene.geom.tri_bvh
+    kept = frame_calls(scene, cfg)
+    forms = frame_forms(where, kept, ('deep_closest', 'deep_any'), card)
+    trees = {'deep': b}
+    if skip:
+        trees['skip'] = _skip_tree(b)
+        forms.update(frame_forms(where, {
+            m: [(trees['skip'],) + c[1:] for c in calls]
+            for m, calls in kept.items()}, ('skip_closest', 'skip_any'),
+            card))
+    del kept
+    org, d, _, seg = edge_rays(scene.geom, 1 << 16, 21, scene.device)
+    edges = {f: edge_forms(where, t, 'tri', (org, d, None, seg), card,
+                           strict=strict and f in EXACT_KINDS)
+             for f, t in trees.items()}
+    return forms, edges
+
+
+def _frame_seconds(scene, cfg, warm=2, timed=5):
+    """Seconds of ``timed`` progressions through render.render (one sample
+    each, ending with the image on the host) after ``warm``."""
+    from corona13_tpu_torch import render as render_mod
+    secs = []
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        render_mod.render(scene, cfg, spp=1, batch=1)
+        torch.cuda.synchronize()
+        if i >= warm:
+            secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def zoom_frame_phase(dev, card):
+    """Phase 8e: the zoom frame (_zoom_scene: a 65,536-triangle log-spiral
+    ribbon whose tree is too deep for the wide stack) at full width: its
+    tree's depths, a render with deep_closest and deep_any asserted at 5
+    launches a frame each and nothing else, frame s (min / median / max)
+    and Mrays/s; every deep launch of one progression held bit for bit
+    against the plain walk and timed at the frame's own shapes
+    (frame_forms), and the same launches by the skip form (the tree over
+    the deep stack's limit, laid out without deep records) beside them;
+    both forms on rays aimed at edges two of the tree's leaves share
+    (edge_rays); one progression under torch.profiler; its paths on the
+    card against the CPU at 64x36."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.ops import trace_cuda
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    t0 = time.time()
+    sc = scene_mod.fit_film(_zoom_scene(dev), W, H)
+    b = sc.geom.tri_bvh
+    print(f'zoom scene built in {time.time() - t0:.1f} s', flush=True)
+    depths = zoom_tree_report(b)
+    check(trace_cuda._form_of(b, 'tri') == 'deep',
+          'the zoom tree did not take the deep form')
+    res, lit, launches, rays = render_phase(
+        f'zoom ({sc.geom.n_tris} triangles)', sc, 2, card,
+        forms=('deep_closest', 'deep_any'))
+    check(lit > 0.5, f'zoom frame: only {lit} of the pixels are lit')
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
+    secs = _frame_seconds(sc, cfg)
+    print(f'zoom frame: {_spread(secs)} s a frame over {len(secs)} frames, '
+          f'{rays / 2 / float(np.median(secs)) / 1e6:.2f} Mrays/s at the '
+          f'median, on {card}', flush=True)
+    phase(f'the deep and skip forms at the zoom frame\'s shapes, {W}x{H}, '
+          f'mf=4, max_verts=6, NEE, on {card}')
+    forms, edges = deep_forms('zoom', sc, cfg, card)
+    profile = _profile_frame('zoom frame', sc, cfg, card)
+    close = paths_against_cpu('zoom paths', _zoom_scene, 64, 36, dev,
+                              max_verts=6)
+    return dict(frame_s=res.seconds / 2, frame_s_spread=secs, rays=rays,
+                mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
+                mean=float(res.image_xyz.mean()), launches=launches,
+                wdepth=depths[0], wide_stack_need=depths[1],
+                binary_levels=depths[2], frame_forms=forms, edges=edges,
+                profile=profile, paths_vs_cpu=close)
 
 
 def _compare_hits(k, p, any_hit, where):
@@ -1600,6 +1747,72 @@ def _sphere_scene(dev, n_spheres=1 << 16, seed=0):
         cam_io.CameraData(**cam), device=dev, **kw)
 
 
+def zoom_ribbon(n_tris=1 << 16, shrink=0.99902, step=0.02):
+    """A continuous log-spiral ribbon of n_tris triangles centred at the
+    world origin: sample k at radius R = shrink**k and angle a = step*k
+    has the inner edge point (R cos a, R sin a, 0.05 R sin 7a) and the
+    outer (1.3 R cos a, 1.3 R sin a, 0.05 R cos 7a); consecutive samples
+    make (a_k, b_k, a_k+1) and (a_k+1, b_k, b_k+1), so consecutive
+    triangles share edges.  [n_tris, 3, 3] f32 (computed in f64).  Its
+    triangles shrink by orders of magnitude towards the centre (1e-14
+    across at the defaults), which gives a binned-SAH tree that peels off
+    a few large triangles at every level: too deep for the wide stack."""
+    k = np.arange(n_tris // 2 + 1, dtype=np.float64)
+    rad, th = shrink ** k, step * k
+    a = np.stack([rad * np.cos(th), rad * np.sin(th),
+                  0.05 * rad * np.sin(7 * th)], axis=-1)
+    b = np.stack([1.3 * rad * np.cos(th), 1.3 * rad * np.sin(th),
+                  0.05 * rad * np.cos(7 * th)], axis=-1)
+    tri = np.stack([np.stack([a[:-1], b[:-1], a[1:]], axis=1),
+                    np.stack([a[1:], b[:-1], b[1:]], axis=1)], axis=1)
+    return tri.reshape(-1, 3, 3).astype(np.float32)
+
+
+def _zoom_inputs(n_tris=1 << 16, seed=0):
+    """The zoom frame's scene as arrays, for either package's
+    assemble_scene: (triangles, their shaders, materials as _ResolvedMat
+    keywords, CameraData keywords, the sky keyword).  zoom_ribbon(n_tris)
+    at the origin, a quarter of its triangles rough METAL and the rest
+    DIFFUSE (none dielectric, drawn from ``seed``), a two-triangle diffuse
+    ground behind it (z = -0.5, +-6), a two-triangle area light facing it
+    from above the camera (z = 5), a constant sky; the camera on the +z
+    axis at z = 3 looking at the origin, its film spanning a radius of
+    about 1.3 there."""
+    from corona13_tpu_torch import scene as scene_mod
+    g = np.random.default_rng(seed)
+    ribbon = zoom_ribbon(n_tris)
+    mats = [dict(d_rgb=(0.5, 0.5, 0.5)), dict(e_rgb=(30.0, 30.0, 30.0)),
+            dict(d_rgb=(0.6, 0.45, 0.3)),
+            dict(kind=scene_mod.METAL, g_rgb=(1.0, 1.0, 1.0), roughness=0.3)]
+    z0, s = -0.5, 6.0
+    ground = np.array([[[-s, -s, z0], [s, -s, z0], [s, s, z0]],
+                       [[-s, -s, z0], [s, s, z0], [-s, s, z0]]], np.float32)
+    light = np.array([[[-1, -1, 5], [1, 1, 5], [1, -1, 5]],
+                      [[-1, -1, 5], [-1, 1, 5], [1, 1, 5]]], np.float32)
+    sh = np.where(g.uniform(size=len(ribbon)) < 0.25, 3, 2).astype(np.int32)
+    # 180 degrees about y: the camera looks down -z
+    cam = dict(pos=np.array([0, 0, 3], np.float32),
+               pos_t1=np.array([0, 0, 3], np.float32),
+               orient=np.array([0, 0, 1, 0], np.float32),
+               orient_t1=np.array([0, 0, 1, 0], np.float32), focus=3.0,
+               focal_length=0.24)
+    return (np.concatenate([ribbon, ground, light]),
+            np.concatenate([sh, np.array([0, 0, 1, 1], np.int32)]), mats,
+            cam, dict(sky_rgb=(1.0, 1.0, 1.0)))
+
+
+def _zoom_scene(dev, n_tris=1 << 16, seed=0):
+    """_zoom_inputs assembled on ``dev``: one triangle tree (ribbon,
+    ground and light) with no wide layout, walked by the deep form."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.io import cam as cam_io
+    tri_v, tri_sh, mats, cam, kw = _zoom_inputs(n_tris, seed)
+    return testing.assemble_scene(
+        tri_v, tri_sh, [scene_mod._ResolvedMat(**m) for m in mats],
+        cam_io.CameraData(**cam), device=dev, **kw)
+
+
 def paths_against_cpu(name, build, w, h, dev, gate=True, **cfg_kw):
     """sample_paths of one scene (``build(device)``) on the card (kernels)
     against the CPU (plain versions): >= 99% of paths equal at rtol 1e-4 /
@@ -1767,7 +1980,7 @@ def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
 def _kernel_key(name):
     """The entry of trace_cuda.launches that a traversal kernel's name (as
     the profiler demangles it) counts under, or None for another kernel."""
-    m = re.search(r'(traverse|skip|dense)_kernel<[^<>]*?(\w+)Leaf, '
+    m = re.search(r'(traverse|deep|skip|dense)_kernel<[^<>]*?(\w+)Leaf, '
                   r'(true|false)(?:, (true|false))?', name)
     if m is None:
         return None
@@ -1777,8 +1990,8 @@ def _kernel_key(name):
             'Cone': 'line'}[leaf]
     if kernel == 'traverse' and counters == 'true':
         return 'counters' if not kind else f'{kind}_counters'
-    if kernel == 'skip':
-        return f'deep_{mode}'
+    if kernel in ('deep', 'skip'):
+        return f'{kernel}_{mode}'
     if kernel == 'dense':
         return f'dense_{kind}_{mode}'
     return f'{kind}_{mode}' if kind else mode
@@ -3184,6 +3397,7 @@ def main():
         media=True)
     prims = prims_phase(dev, gpu)
     spheres = sphere_frame_phase(dev, smi)
+    zoom = zoom_frame_phase(dev, smi)
     cli_mean = cli_phase()
     sky, sky_scene = sky_phase(dev, smi)
     compact = compact_phase(dev, smi)
@@ -3249,7 +3463,8 @@ def main():
         'plane': {'frame_s': res2.seconds / 2, 'rays': rays2,
                   'mrays_per_s': rays2 / res2.seconds / 1e6,
                   'lit_share': lit2, 'edge_rays': plane_edges}, **media,
-        **prims, 'spheres': spheres, '0031_hete/paths_vs_cpu': media_close,
+        **prims, 'spheres': spheres, 'zoom': zoom,
+        '0031_hete/paths_vs_cpu': media_close,
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
         'line_counter_cases': lcres,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
@@ -3260,29 +3475,35 @@ def main():
         # launches: the render that reaches the form (cornell: the dense
         # sphere list, also in the light-path frames; 0002_mb: moving
         # triangles; the hair frame: the line BVH; the sphere frame: the
-        # sphere BVH), else the intersect / occluded calls of phase 3b
+        # sphere BVH; the zoom frame: the deep tree), else the intersect /
+        # occluded calls of phase 3b (the skip form)
         form = key.rsplit('_', 1)[0]
         mode = 'any_hit' if key.endswith('any') else 'closest_hit'
         run, frames = {'dense_sphere': (launches, spp),
                        'moving': (prims['0002_mb']['launches'], 2),
                        'line': (prims['hair']['launches'], 2),
-                       'sphere': (spheres['launches'], 2)}.get(
+                       'sphere': (spheres['launches'], 2),
+                       'deep': (zoom['launches'], 2)}.get(
             form, (flaunches, None))
         m = fres[key]
         dense = key.startswith('dense')
-        # the line, moving and sphere forms: beside 3b's numbers at the
-        # soup's shapes, the kernel at its frame's own shapes (hair,
-        # 0002_mb: phase 8c; the sphere frame: 8d), the frame's sum and a
+        # the line, moving, sphere, deep and skip forms: beside 3b's
+        # numbers at the soup's shapes, the kernel at its frame's own shapes
+        # (hair, 0002_mb: phase 8c; the sphere frame: 8d; the zoom frame:
+        # 8e, the skip form on the same launches), the frame's sum and a
         # launch's mean
         shapes, frame = {
             'line': ('hair', prims['frame_forms']['hair'].get(key)),
             'moving': ('0002_mb', prims['frame_forms']['0002_mb'].get(key)),
-            'sphere': ('sphere', spheres['frame_forms'].get(key))}.get(
+            'sphere': ('sphere', spheres['frame_forms'].get(key)),
+            'deep': ('zoom', zoom['frame_forms'].get(key)),
+            'skip': ('zoom', zoom['frame_forms'].get(key))}.get(
             form, (None, None))
         at_frame = {}
-        if form == 'deep':
-            at_frame['plane_edge_rays_differ'] = \
-                plane_edges['deep'][mode]['differ']
+        if form in ('deep', 'skip'):
+            at_frame.update(
+                plane_edge_rays_differ=plane_edges[form][mode]['differ'],
+                zoom_edge_rays_differ=zoom['edges'][form][mode]['differ'])
         if form == 'sphere':
             at_frame.update(
                 frame_edge_rays_differ=spheres['edges']['spheres'][mode][

@@ -102,10 +102,14 @@
 //            only form that lerps sphere centres in time).  Spheres come
 //            from the geometry's own arrays, lines from records that carry
 //            each line's terms of the cone test, packed once at upload.
-//   deep     skip_kernel: a tree whose wdepth*7+8 exceeds the stack limit
-//            has no wide layout; its binary nodes [n, 8] are walked
-//            stacklessly by skip links, one ray a thread, with the same
-//            policies: _traverse without the lockstep.
+//   deep     deep_kernel: a tree whose wdepth*7+8 exceeds the stack limit
+//            has no wide layout; it is walked in _traverse's order over
+//            records that hold both children of a binary node, with a
+//            stack of its binary levels (the deep form, below).
+//   skip     skip_kernel: a tree with more binary levels than the deep
+//            walk's stack takes (MAX_BIN_STACK, chosen at upload) is walked
+//            stacklessly by its skip links over the binary nodes [n, 8],
+//            one ray a thread: _traverse without the lockstep.
 //   These forms are bound as the triangle walk is: bytes on small trees
 //   and short lists, fp32 operations on deep ones; a simple kernel that is
 //   right comes first, and each policy states its own occupancy bound.
@@ -244,6 +248,45 @@
 // registers): closest-hit 2.29 against 2.27 ms a frame, any-hit 0.383
 // against 0.394 ms a frame but 0.393 against 0.387 ms on the soup.  Six
 // blocks, 80 registers both, no spills.
+//
+// The deep form (deep_kernel), laid out for this card.  It serves a tree
+// too deep for the wide stack; chip_smoke.py's zoom frame (a 65,536-
+// triangle log-spiral ribbon: wdepth 31, 50 binary levels) launches it
+// five times a progression for each of closest-hit and any-hit.  What held
+// the stackless skip-link walk back: a chain of dependent 32 B node loads,
+// one a node and every child of a hit node visited to test its box (15
+// nodes a camera ray of the zoom frame, 155 a bounce ray of the 2^17
+// soup); one ray a thread, so a warp and a wave of blocks wait on their
+// slowest ray.  Kept (NVIDIA H100 80GB HBM3, 700 W; ms a zoom frame of
+// five launches closest / any-hit, then the 2^17-triangle soup, means of
+// two passes in turns, against the skip-link walk's 0.813 / 0.217 and
+// 3.98 / 0.966):
+//   records  both children's boxes and links in the parent, 64 B, four
+//            independent loads a step: half the dependent steps (7.0
+//            records against 15.1 nodes a camera ray, 77 against 155 on
+//            the soup); a leaf child's rows are tested from its parent.
+//   stack    the skip-link walk's order: the left child first, the node
+//            pushed when its right child is hit as well, and at the pop
+//            the right box tested again at the running t, where the
+//            skip-link walk tests it (without that test 1,301 of 65,536 rays
+//            aimed at the zoom tree's shared edges differ; with it 0).  4 B
+//            an entry, the tree's binary levels a thread: 25.6 KB a block
+//            at 50 levels, eight blocks an SM as the registers allow.
+//   rays     persistent warps with the wide walk's dealer and ballot
+//            compaction: without them (one warp a batch, thread i ray i)
+//            0.888 / 0.267 ms a frame and 2.54 ms on the soup.
+// Together 0.755 / 0.220 ms a frame and 1.92 / 0.576 ms on the soup.  The
+// frame's launches after the first bounce have few live rays (43k, 38k,
+// 9k of 589,824) and take 0.11-0.16 ms each, set by their slowest rays'
+// chains of dependent loads; an all-dead launch costs the dealer 0.020 ms
+// against the skip-link walk's 0.005 ms, which is why any-hit a frame is
+// no faster.  Measured and dropped: the right child pushed with its entry
+// distance (8 B entries, dropped at the pop by a compare, no reload): 0.806
+// / 0.238 ms a frame (51 KB a block at 50 levels, four blocks an SM), 1.77
+// / 0.568 ms on the soup; four or sixteen batches dealt by one atomic
+// (fewer atomics on a sparse launch, but warps wait for work on a full
+// one): 0.860 / 0.244 and 1.18 / 0.359 ms a frame.  60 / 54 registers
+// (closest / any, triangles), no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,6 +299,7 @@ constexpr int kLeaf = 8;
 constexpr int kNoHit = 0x7f000000;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNodeVec = 16;  // float4 per wide node
+constexpr int kBinVec = 4;    // float4 per record of the deep walk
 constexpr int kDenseMax = 64;  // prims of a dense list
 
 struct Params {
@@ -781,17 +825,16 @@ __device__ __forceinline__ void take_hit(const Params& p, Ray& r, float bt,
   r.prim = cand + p.prim_offset;
 }
 
-// One leaf pop: test the rows of the leaf whose code is `code`.  kEncoded:
-// the winner is the minimum of (bits(t) & ~7) | row; else the smallest t,
-// the first row on an exact tie.  Returns true when the ray is finished
+// One leaf test: the first `rows` rows of leaf `lid`.  kEncoded: the
+// winner is the minimum of (bits(t) & ~7) | row; else the smallest t, the
+// first row on an exact tie.  Returns true when the ray is finished
 // (any-hit found a blocker).
 template <class Leaf, bool kAnyHit, bool kEncoded>
-__device__ __forceinline__ bool pop_leaf(const Params& p, int code, Ray& r) {
+__device__ __forceinline__ bool test_leaf(const Params& p, int lid, int rows,
+                                          Ray& r) {
   int best = kNoHit;
   float bt = r.t, bu = 0.f, bv = 0.f;
   int bc = -1, bk = 0;
-  const int lid = Leaf::leaf_of(code);
-  const int rows = Leaf::rows(p, code);
 #pragma unroll
   for (int k = 0; k < kLeaf; ++k) {
     if (k >= rows) break;
@@ -820,6 +863,105 @@ __device__ __forceinline__ bool pop_leaf(const Params& p, int code, Ray& r) {
   return false;
 }
 
+// test_leaf on the rows of the leaf whose code is `code` in the wide walk.
+template <class Leaf, bool kAnyHit, bool kEncoded>
+__device__ __forceinline__ bool pop_leaf(const Params& p, int code, Ray& r) {
+  return test_leaf<Leaf, kAnyHit, kEncoded>(p, Leaf::leaf_of(code),
+                                            Leaf::rows(p, code), r);
+}
+
+// The ray dealing of a walk whose warps take rays as their lanes fall idle.
+// Warp-uniform state: a warp looks at its own batch of 32 rays first; a
+// persistent launch then takes the batches a global counter deals out.  A
+// batch's dead rays (t_init <= 0) are written out at once and its live
+// ones handed to idle lanes (ballot compaction).
+struct RayDealer {
+  int own;          // this warp's own batch, -1 once taken
+  int dealt_from;   // the first ray the counter deals out
+  bool more = true;
+  unsigned pend = 0;  // the live rays of the last batch no lane has taken
+  int pend_base = 0;
+  float pend_t = 0.f;  // this lane's t_init in the pending batch
+
+  __device__ RayDealer()
+      : own(32 * (blockIdx.x * kWarps + (threadIdx.x >> 5))),
+        dealt_from(32 * gridDim.x * kWarps) {}
+
+  // Hands pending live rays to the warp's idle lanes (ray < 0): a lane that
+  // takes one sets `ray` and calls start(ray, its t_init).  Returns the
+  // lanes that walk a ray.  kPersistent: batches from p.work until none
+  // are left; else the warp's own batch only.
+  template <class Leaf, bool kCounters, bool kPersistent, class Start>
+  __device__ __forceinline__ unsigned deal(const Params& p, int& ray,
+                                           Start&& start) {
+    const int lane = threadIdx.x & 31;
+    const unsigned lanes_below = (1u << lane) - 1u;
+    const unsigned active = __ballot_sync(kFull, ray >= 0);
+    if (active == kFull || (pend == 0 && !more)) return active;
+    unsigned idle = ~active;
+    while (idle != 0) {
+      if (pend == 0) {
+        if (!more) break;
+        int base = own;
+        if (own < 0) {
+          if (lane == 0) base = dealt_from + 32 * atomicAdd(p.work, 1);
+          base = __shfl_sync(kFull, base, 0);
+        }
+        own = -1;
+        if (!kPersistent) more = false;
+        if (base >= p.n) {
+          more = false;
+          break;
+        }
+        const int idx = base + lane;
+        const bool in = idx < p.n;
+        pend_t = 0.f;
+        if (in) pend_t = start_t(p, idx);
+        const bool alive = in && pend_t > 0.f;
+        if (in && !alive) {  // a dead lane does no work: t stays t_init
+          Ray dead;
+          dead.t = pend_t; dead.u = 0.f; dead.v = 0.f;
+          dead.prim = -1; dead.slot = -1; dead.iters = 0; dead.leafs = 0;
+          store_ray<Leaf, kCounters>(p, idx, dead);
+        }
+        pend = __ballot_sync(kFull, alive);
+        pend_base = base;
+        continue;
+      }
+      // the idle lane of rank k takes the k-th pending ray
+      const int n_pend = __popc(pend);
+      const int take = min(__popc(idle), n_pend);
+      const int rank = __popc(idle & lanes_below);
+      const bool mine = ((idle >> lane) & 1u) && rank < take;
+      int src = lane;  // a whole batch onto a whole idle warp: in place
+      if (pend != kFull || idle != kFull) src = mine ? nth_set_bit(pend, rank) : 0;
+      const float t0 = __shfl_sync(kFull, pend_t, src);
+      if (mine) {
+        ray = pend_base + src;
+        start(ray, t0);
+      }
+      // drop the `take` lowest pending rays
+      pend = take == n_pend
+                 ? 0u
+                 : pend & ~((2u << nth_set_bit(pend, take - 1)) - 1u);
+      idle = ~__ballot_sync(kFull, ray >= 0);
+    }
+    return __ballot_sync(kFull, ray >= 0);
+  }
+};
+
+// The end of a persistent launch: the last warp out leaves the counters at
+// zero for the next launch.
+__device__ __forceinline__ void release_work(const Params& p) {
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence();
+    if (atomicAdd(p.work + 1, 1) == (int)gridDim.x * kWarps - 1) {
+      p.work[0] = 0;
+      p.work[1] = 0;
+    }
+  }
+}
+
 // kPersistent: warps fetch rays from p.work until none are left.
 // Otherwise thread i of the grid walks ray i (the counters launches).
 template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
@@ -833,79 +975,19 @@ traverse_kernel(const Params p) {
   // kNear: each entry's distance, beside it (a second depth x kThreads)
   float* tstack = reinterpret_cast<float*>(smem) + p.depth * kThreads +
                   threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
-
-  // Warp-uniform fetch state.  A warp looks at its own batch of 32 rays
-  // first; a persistent launch then takes the batches the counter deals
-  // out.  pend: the live rays of the last batch that no lane has taken.
-  int own = 32 * (blockIdx.x * kWarps + (threadIdx.x >> 5));
-  const int dealt_from = 32 * gridDim.x * kWarps;
-  bool more = true;
-  unsigned pend = 0;
-  int pend_base = 0;
-  float pend_t = 0.f;  // this lane's t_init in the pending batch
-
+  RayDealer dealer;
   int ray = -1;  // the ray this lane walks, -1: idle
   int sp = 0;
   Ray r;
 
   for (;;) {
-    unsigned active = __ballot_sync(kFull, ray >= 0);
-    if (active != kFull && (pend != 0 || more)) {
-      unsigned idle = ~active;
-      while (idle != 0) {
-        if (pend == 0) {
-          if (!more) break;
-          int base = own;
-          if (own < 0) {
-            if (lane == 0) base = dealt_from + 32 * atomicAdd(p.work, 1);
-            base = __shfl_sync(kFull, base, 0);
-          }
-          own = -1;
-          if (!kPersistent) more = false;
-          if (base >= p.n) {
-            more = false;
-            break;
-          }
-          const int idx = base + lane;
-          const bool in = idx < p.n;
-          pend_t = 0.f;
-          if (in) pend_t = start_t(p, idx);
-          const bool alive = in && pend_t > 0.f;
-          if (in && !alive) {  // a dead lane does no work: t stays t_init
-            Ray dead;
-            dead.t = pend_t; dead.u = 0.f; dead.v = 0.f;
-            dead.prim = -1; dead.slot = -1; dead.iters = 0; dead.leafs = 0;
-            store_ray<Leaf, kCounters>(p, idx, dead);
-          }
-          pend = __ballot_sync(kFull, alive);
-          pend_base = base;
-          continue;
-        }
-        // the idle lane of rank k takes the k-th pending ray
-        const int n_pend = __popc(pend);
-        const int take = min(__popc(idle), n_pend);
-        const int rank = __popc(idle & lanes_below);
-        const bool mine = ((idle >> lane) & 1u) && rank < take;
-        int src = lane;  // a whole batch onto a whole idle warp: in place
-        if (pend != kFull || idle != kFull) src = mine ? nth_set_bit(pend, rank) : 0;
-        const float t0 = __shfl_sync(kFull, pend_t, src);
-        if (mine) {
-          ray = pend_base + src;
-          load_ray(p, ray, t0, r);
+    const unsigned active = dealer.deal<Leaf, kCounters, kPersistent>(
+        p, ray, [&](int i, float t0) {
+          load_ray(p, i, t0, r);
           stack[0] = 0;  // the root
           if (kNear) tstack[0] = 0.f;
           sp = 1;
-        }
-        // drop the `take` lowest pending rays
-        pend = take == n_pend
-                   ? 0u
-                   : pend & ~((2u << nth_set_bit(pend, take - 1)) - 1u);
-        idle = ~__ballot_sync(kFull, ray >= 0);
-      }
-      active = __ballot_sync(kFull, ray >= 0);
-    }
+        });
     if (active == 0) break;
 
     if (ray >= 0) {
@@ -949,21 +1031,119 @@ traverse_kernel(const Params p) {
     }
     __syncwarp();
   }
-  // the last warp out leaves the counters at zero for the next launch
-  if (kPersistent && lane == 0) {
-    __threadfence();
-    if (atomicAdd(p.work + 1, 1) == (int)gridDim.x * kWarps - 1) {
-      p.work[0] = 0;
-      p.work[1] = 0;
-    }
-  }
+  if (kPersistent) release_work(p);
 }
 
-// The deep-tree form: thread i walks ray i through the binary nodes
-// (min.xyz, max.x | max.yz, skip bits, first bits) by skip links, without
-// a stack: the left child of an inner node is the next node, a miss or a
-// leaf goes on at the node's skip link.  A leaf's rows start at its first
-// slot, so the leaf id is first / 8.
+// Slab test of one box (lo.xyz, hi.xyz) as the skip-link walk tests a
+// node: true where the segment (0, r.t) meets it; tn is the entry distance.
+__device__ __forceinline__ bool bin_box(float lx, float ly, float lz,
+                                        float hx, float hy, float hz,
+                                        const Ray& r, float& tn) {
+  const float t0x = (lx - r.ox) * r.ix, t1x = (hx - r.ox) * r.ix;
+  const float t0y = (ly - r.oy) * r.iy, t1y = (hy - r.oy) * r.iy;
+  const float t0z = (lz - r.oz) * r.iz, t1z = (hz - r.oz) * r.iz;
+  tn = fmaxf(fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z)),
+             0.f);
+  const float tf = fminf(fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                               fmaxf(t0z, t1z)), r.t);
+  return tn <= tf;
+}
+
+// The deep walk's next entry from its stack of parent records: the right
+// child of the top parent whose right box the running t still meets (the
+// others are dropped), 0 when none is left.
+__device__ __forceinline__ int deep_pop(const Params& p, const int* stack,
+                                        int& sp, const Ray& r) {
+  while (sp > 0) {
+    --sp;
+    const float4* q = p.nodes + (size_t)stack[sp * kThreads] * kBinVec;
+    const float4 q1 = __ldg(q + 1), q2 = __ldg(q + 2), q3 = __ldg(q + 3);
+    float tn;
+    if (bin_box(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, r, tn))
+      return __float_as_int(q3.y);
+  }
+  return 0;
+}
+
+// The deep form: a tree without a wide layout (its wdepth*7+8 exceeds the
+// wide stack's limit), walked in the skip-link walk's order over records
+// that hold both children of a binary node (ops/trace_cuda.py:
+// pack_bin_nodes: left box, right box, left and right link, 64 B).  An
+// entry is an inner node's record (> 0), a leaf child as -code - 1 (code =
+// leaf id * 8 + filled rows - 1) or 0, none.  At an inner node both boxes
+// are tested at the running t with independent loads; the walk goes on to
+// the left child if its box is hit, pushing the node if the right box is
+// hit too, else to the right child; a leaf child's rows are tested when
+// the walk reaches it, with no visit of its own.  A pop tests the pushed
+// node's right box again at the running t, as the skip-link walk does
+// when it reaches that child, and drops it on a miss, so every ray tests
+// the leaves that walk tests, in its order, at its t, and gets its bits.
+// The stack (4 B a node) is in shared memory, [entry][thread], p.depth
+// entries a thread (the tree's binary levels, chosen at upload); rays are
+// dealt to persistent warps as in the wide walk.  Record 0 holds the
+// root's box and link, tested when a ray starts.
+template <class Leaf, bool kAnyHit>
+__global__ void __launch_bounds__(kThreads, kAnyHit ? Leaf::kMinBlocksAny
+                                                    : Leaf::kMinBlocks)
+deep_kernel(const Params p) {
+  extern __shared__ int smem[];
+  int* stack = smem + threadIdx.x;
+  RayDealer dealer;
+  int ray = -1, sp = 0, e = 0;
+  Ray r;
+  for (;;) {
+    const unsigned active = dealer.deal<Leaf, false, true>(
+        p, ray, [&](int i, float t0) {
+          load_ray(p, i, t0, r);
+          const float4 a = __ldg(p.nodes), b = __ldg(p.nodes + 1);
+          float tn;
+          e = bin_box(a.x, a.y, a.z, a.w, b.x, b.y, r, tn)
+                  ? __float_as_int(b.z)
+                  : 0;
+          sp = 0;
+        });
+    if (active == 0) break;
+    if (ray >= 0) {
+      // inner nodes until a leaf is due ...
+      while (e > 0) {
+        const float4* q = p.nodes + (size_t)e * kBinVec;
+        const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+                     q3 = __ldg(q + 3);
+        float tn;
+        const bool hl = bin_box(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, r, tn);
+        const bool hr = bin_box(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, r, tn);
+        const int left = __float_as_int(q3.x), right = __float_as_int(q3.y);
+        if (hl && hr && sp < p.depth) {
+          stack[sp * kThreads] = e;
+          ++sp;
+        }
+        e = hl ? left : hr ? right : deep_pop(p, stack, sp, r);
+      }
+      // ... then leaves until an inner node is due
+      while (e < 0) {
+        const int code = -e - 1;
+        if (test_leaf<Leaf, kAnyHit, false>(p, code >> 3, (code & 7) + 1, r)) {
+          e = 0;
+          break;
+        }
+        e = deep_pop(p, stack, sp, r);
+      }
+      if (e == 0) {
+        store_ray<Leaf, false>(p, ray, r);
+        ray = -1;
+      }
+    }
+    __syncwarp();
+  }
+  release_work(p);
+}
+
+// The skip form: a tree too deep for the deep walk's stack (more binary
+// levels than MAX_BIN_STACK; chosen at upload).  Thread i walks ray i
+// through the binary nodes (min.xyz, max.x | max.yz, skip bits, first
+// bits) by skip links, without a stack: the left child of an inner node is
+// the next node, a miss or a leaf goes on at the node's skip link.  A
+// leaf's rows start at its first slot, so the leaf id is first / 8.
 template <class Leaf, bool kAnyHit>
 __global__ void __launch_bounds__(kThreads) skip_kernel(const Params p) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -980,15 +1160,9 @@ __global__ void __launch_bounds__(kThreads) skip_kernel(const Params p) {
   while (node < p.n_nodes) {
     const float4 a = __ldg(p.nodes + 2 * (size_t)node);
     const float4 b = __ldg(p.nodes + 2 * (size_t)node + 1);
-    const float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
-    const float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
-    const float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
-    const float tn = fmaxf(fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                 fminf(t0z, t1z)), 0.f);
-    const float tf = fminf(fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                 fmaxf(t0z, t1z)), r.t);
     const int skip = __float_as_int(b.z), first = __float_as_int(b.w);
-    if (tn <= tf) {
+    float tn;
+    if (bin_box(a.x, a.y, a.z, a.w, b.x, b.y, r, tn)) {
       if (first < 0) {
         ++node;
         continue;
@@ -1072,13 +1246,12 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const Params p) {
   store_ray<Leaf, false>(p, i, r);
 }
 
-// The wide walk of one policy.  kPersistent: as many blocks as are
-// resident at once; else one thread a ray (the counters launches).
-template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
-cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
-  auto kern = traverse_kernel<Leaf, kAnyHit, kCounters, kPersistent>;
-  constexpr size_t kEntry = Leaf::kNearFirst && !kAnyHit ? 8 : 4;
-  const size_t smem = (size_t)p.depth * kThreads * kEntry;
+// Launch kernel `kern` with `smem` bytes of dynamic shared memory a block.
+// kPersistent: as many blocks as are resident at once; else one thread a
+// ray.
+template <bool kPersistent>
+cudaError_t launch_walk(void (*kern)(Params), const Params& p, size_t smem,
+                        cudaStream_t stream) {
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
@@ -1102,14 +1275,26 @@ cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-enum Form { kWide = 0, kDeep = 1, kDense = 2 };
+// The wide walk of one policy.
+template <class Leaf, bool kAnyHit, bool kCounters, bool kPersistent>
+cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
+  constexpr size_t kEntry = Leaf::kNearFirst && !kAnyHit ? 8 : 4;
+  return launch_walk<kPersistent>(
+      traverse_kernel<Leaf, kAnyHit, kCounters, kPersistent>, p,
+      (size_t)p.depth * kThreads * kEntry, stream);
+}
+
+enum Form { kWide = 0, kDeep = 1, kDense = 2, kSkip = 3 };
 enum Kind { kTriangle = 0, kMoving = 1, kSphere = 2, kLine = 3 };
 
 template <class Leaf, bool kAnyHit>
 cudaError_t launch_form(const Params& p, int form, cudaStream_t stream) {
   const int blocks = (p.n + kThreads - 1) / kThreads;
   if (form == kWide) return launch_wide<Leaf, kAnyHit, false, true>(p, stream);
-  if (form == kDeep) {
+  if (form == kDeep)  // a node record index, 4 B
+    return launch_walk<true>(deep_kernel<Leaf, kAnyHit>, p,
+                             (size_t)p.depth * kThreads * 4, stream);
+  if (form == kSkip) {
     skip_kernel<Leaf, kAnyHit><<<blocks, kThreads, 0, stream>>>(p);
   } else if constexpr (Leaf::kDenseList) {
     dense_kernel<Leaf, kAnyHit><<<blocks, kThreads, 0, stream>>>(p);
@@ -1136,16 +1321,17 @@ cudaError_t launch_kind(const Params& p, int form, int kind,
 
 // Launch arguments, as ops/trace_cuda.py fills them through ctypes.
 struct Corona13TraceArgs {
-  int form;   // 0 wide walk, 1 deep tree (skip links), 2 dense list
+  int form;   // 0 wide walk, 1 deep tree, 2 dense list, 3 skip links
   int kind;   // 0 triangles, 1 moving triangles, 2 spheres, 3 lines
   int any_hit;
   int carry;  // start from t_out / blocked_out and update them
-  const void* nodes;      // wide: kernel nodes; deep: binary nodes [n, 8]
+  const void* nodes;      // wide: kernel nodes; deep: its records [r, 16];
+                          // skip: binary nodes [n, 8]
   const void* leaves;     // the kind's leaf rows
   const void* leaves_t1;  // moving triangles: the moving rows' close records
   const void* ids;        // spheres (wide, deep): leaf slots' prim ids, int64
-  int depth;              // wide: stack entries a thread
-  int n_nodes;            // deep: binary nodes
+  int depth;              // wide, deep: stack entries a thread
+  int n_nodes;            // skip: binary nodes
   const float* d0;        // dense: see dense_kernel
   const float* d1;
   const float* d2;
@@ -1168,7 +1354,7 @@ struct Corona13TraceArgs {
   unsigned char* blocked_out;  // [n] bytes or null
   int* iters_out;  // both non-null: the counters launch (wide triangles or
   int* leafs_out;  // lines, thread i walks ray i, per-ray pop counts)
-  int* work;       // wide, not counters: two int32 zeros, left zero again
+  int* work;       // wide (not counters), deep: two int32 zeros, left zero
   void* stream;
 };
 
@@ -1206,10 +1392,12 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   p.work = a->work;
   const int n = a->n, form = a->form, kind = a->kind;
   if (n <= 0 || (n >> 30) != 0) return (int)cudaErrorInvalidValue;
-  if (form == kWide && (a->depth < 1 || a->nodes == nullptr))
+  if ((form == kWide || form == kDeep) &&
+      (a->depth < 1 || a->nodes == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (form == kDeep && (a->n_nodes < 1 || a->nodes == nullptr))
+  if (form == kSkip && (a->n_nodes < 1 || a->nodes == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (form < kWide || form > kSkip) return (int)cudaErrorInvalidValue;
   if (form == kDense && (a->n_prims < 1 || a->n_prims > kDenseMax ||
                          a->d0 == nullptr ||
                          (kind == kSphere && a->d1 == nullptr)))
@@ -1235,7 +1423,8 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
                      ? launch_wide<TriangleLeaf, true, true, false>(p, s)
                      : launch_wide<TriangleLeaf, false, true, false>(p, s));
   }
-  if (form == kWide && a->work == nullptr) return (int)cudaErrorInvalidValue;
+  if ((form == kWide || form == kDeep) && a->work == nullptr)
+    return (int)cudaErrorInvalidValue;
   return (int)(a->any_hit ? launch_kind<true>(p, form, kind, s)
                           : launch_kind<false>(p, form, kind, s));
 }

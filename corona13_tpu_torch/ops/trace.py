@@ -59,6 +59,12 @@ class DeviceBVH:
     kleaves: torch.Tensor | None = None      # [n_leaves, 8, ROW] f32
     kleaves_t1: torch.Tensor | None = None   # [M, 12] the moving rows' close
     stack_depth: int = 0
+    # a tree without a wide layout: the deep walk's records
+    # (trace_cuda.pack_bin_nodes) and the stack entries a thread needs
+    # (its binary levels); None where that exceeds MAX_BIN_STACK, and the
+    # tree is walked by its skip links
+    bnodes: torch.Tensor | None = None       # [1 + inner nodes, 16] f32
+    bin_depth: int = 0
 
     @classmethod
     def from_host(cls, b: bvh_mod.FlatBVH, leaf_data: np.ndarray,
@@ -88,8 +94,10 @@ class DeviceBVH:
             wb, wl, wdepth = bvh_mod.collapse8(b)
             # stack guard: each inner pop nets at most +7, so the worst
             # case is wdepth*7 + 8; a deeper tree gets no wide layout and
-            # is walked by its skip links
-            if trace_cuda.stack_depth(wdepth) is not None:
+            # is walked by the deep walk (or, deeper still, skip links)
+            if trace_cuda.stack_depth(wdepth) is None:
+                fields.update(_deep_fields(packed, b.leaf_prims, dev))
+            else:
                 # a sphere leaf's link carries its filled rows
                 filled = trace_cuda.leaf_fill(b.leaf_prims) \
                     if kind == 'sphere' else None
@@ -120,6 +128,31 @@ class DeviceBVH:
     @property
     def n_nodes(self):
         return self.nodes.shape[0]
+
+
+def _deep_fields(nodes: np.ndarray, leaf_prims: np.ndarray, dev) -> dict:
+    """The deep walk's fields of a tree without a wide layout: its
+    records and stack entries (one a binary level), or none (skip links)
+    where the levels exceed ``trace_cuda.MAX_BIN_STACK``."""
+    depth = trace_cuda.bin_depth(nodes)
+    if depth > trace_cuda.MAX_BIN_STACK:
+        return {}
+    return dict(bnodes=dev(trace_cuda.pack_bin_nodes(nodes, leaf_prims)),
+                bin_depth=depth)
+
+
+def without_wide(bvh: DeviceBVH) -> DeviceBVH:
+    """``bvh`` as upload lays out a tree too deep for the wide stack: no
+    wide layout, the deep walk's records (or, above
+    ``trace_cuda.MAX_BIN_STACK`` levels, none: skip links).  Its leaf
+    records stay."""
+    dev = bvh.nodes.device
+    fields = dict(wbounds=None, wlinks=None, leaf_packed=None, knodes=None,
+                  knodes_pre=None, stack_depth=0, bnodes=None, bin_depth=0)
+    fields.update(_deep_fields(bvh.nodes.cpu().numpy(),
+                               bvh.leaf_prims.cpu().numpy(),
+                               lambda a: torch.as_tensor(a, device=dev)))
+    return dataclasses.replace(bvh, **fields)
 
 
 @dataclasses.dataclass

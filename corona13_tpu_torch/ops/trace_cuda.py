@@ -72,8 +72,13 @@ serves with XLA's lockstep skip-link ``_traverse`` and its dense
 small-list branches, not with Pallas, runs here as more forms of the same
 source file, because a lockstep torch loop would wait on the host at every
 step: the wide walk with a moving-triangle, a sphere or a cone (line) leaf
-policy ('moving', 'sphere', 'line'), a stackless skip-link walk over
-``DeviceBVH.nodes`` for a tree too deep for ``MAX_STACK`` ('deep'), and
+policy ('moving', 'sphere', 'line'), for a tree too deep for
+``MAX_STACK`` the deep walk ('deep': records that hold both children of a
+binary node, ``pack_bin_nodes``, a stack of the tree's binary levels in
+shared memory whose entries the running t has passed are dropped at the
+pop, persistent warps; the skip-link walk's order, so its bits) or, with
+more binary levels than ``MAX_BIN_STACK``, the stackless skip-link walk
+over ``DeviceBVH.nodes`` ('skip'), chosen at upload, and
 the dense test of a list of at most ``DENSE_MAX`` spheres or lines
 ('dense_sphere', 'dense_line'), which reads the geometry's own arrays
 (a line list: its records with each line's terms, ``pack_dense_lines``)
@@ -124,6 +129,8 @@ from .bvh import LEAF_SIZE as LEAF
 from .trace_plain import inv_dir  # noqa: F401  (the plain version's)
 
 MAX_STACK = 192  # stack entries a thread can have: 96 KB of shared memory
+# the deep walk's stack entries a thread (4 B each: 96 KB a block at most)
+MAX_BIN_STACK = 192
 K_MASK = 7       # low mantissa bits that carry the winning leaf row
 NO_HIT = 0x7f000000
 BLOCK = 1024     # rays per counter block (the TPU kernel's grid step)
@@ -131,7 +138,7 @@ LEAF_ROW = 12    # floats per triangle leaf row in the kernel layout
 DENSE_MAX = 64   # prims a dense list can hold (trace.BRUTE_FORCE_MAX)
 # floats per leaf row of each kind's kernel records (float4 multiples)
 ROW_FLOATS = {'tri': 12, 'moving': 12, 'sphere': 4, 'line': 12}
-_FORMS = {'wide': 0, 'deep': 1, 'dense': 2}
+_FORMS = {'wide': 0, 'deep': 1, 'dense': 2, 'skip': 3}
 # the kinds whose wide closest-hit walk takes the reference's order: nodes
 # in preorder (knodes_pre), the box tested again at a leaf's pop
 PREORDER_KINDS = ('moving', 'sphere')
@@ -141,12 +148,14 @@ _KINDS = {'tri': 0, 'moving': 1, 'sphere': 2, 'line': 3}
 # ('closest', 'any', 'counters': static triangles, wide walk), then the
 # forms that replace XLA's _traverse, each closest-hit and any-hit: the
 # wide walk with the moving-triangle, sphere and line policies, the
-# deep-tree walk (any policy) and the dense sphere and line lists; and the
+# deep-tree walk and, for a tree too deep for its stack, the stackless
+# skip-link walk (any policy), and the dense sphere and line lists; and the
 # line policy's counters launch ('line_counters', simple_walk)
 launches = {k: 0 for k in (
     'closest', 'any', 'counters',
-    *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'dense_sphere',
-                           'dense_line') for m in ('closest', 'any')),
+    *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'skip',
+                           'dense_sphere', 'dense_line')
+      for m in ('closest', 'any')),
     'line_counters')}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -295,6 +304,85 @@ def pack_nodes_preorder(wbounds: np.ndarray, wlinks: np.ndarray,
     order = np.argsort(-preorder_ranks(wbounds, wlinks), axis=1,
                        kind='stable')
     return np.take_along_axis(knodes, order[:, :, None], axis=1)
+
+
+def bin_depth(nodes: np.ndarray) -> int:
+    """Levels of the binary tree of ``DeviceBVH.nodes`` [N, 8] (min3,
+    max3, skip and first as int32 bits; a lone root leaf: 1).  The deep
+    walk's stack holds at most one entry a level above the leaves."""
+    nodes = np.ascontiguousarray(nodes, np.float32)
+    skip = nodes[:, 6].copy().view(np.int32)
+    first = nodes[:, 7].copy().view(np.int32)
+    depth = np.ones(len(nodes), np.int64)
+    for i in np.nonzero(first < 0)[0]:    # preorder: parents first
+        depth[i + 1] = depth[skip[i + 1]] = depth[i] + 1
+    return int(depth.max())
+
+
+def pack_bin_nodes(nodes: np.ndarray, leaf_prims: np.ndarray) -> np.ndarray:
+    """The deep walk's records [1 + inner nodes, 16] f32 from
+    ``DeviceBVH.nodes`` [N, 8] and the leaf-slot-major prim ids (-1:
+    padding).  Record r >= 1 is the r-th inner node in preorder (the left
+    child of an inner node, when inner, is the next record) and holds both
+    children:
+
+        left min.xyz, left max.x | left max.yz, right min.xy |
+        right min.z, right max.xyz | left link, right link, 0, 0
+
+    (links as int32 bits): an inner child's record, or -code - 1 for a
+    leaf child, code = leaf id * 8 + filled rows - 1 (at least one row,
+    which an empty leaf's padding misses).  Record 0 holds the root, whose
+    box the walk tests first, as a left child alone: root min.xyz, root
+    max.x | root max.yz, root link, 0 | 0 ... | root link, 0, 0, 0.  No
+    link is 0, which the walk reads as 'none'."""
+    nodes = np.ascontiguousarray(nodes, np.float32)
+    skip = nodes[:, 6].copy().view(np.int32)
+    first = nodes[:, 7].copy().view(np.int32)
+    inner = np.nonzero(first < 0)[0]
+    rec_of = np.zeros(len(nodes), np.int64)
+    rec_of[inner] = np.arange(1, len(inner) + 1)
+    lid = np.maximum(first, 0) // LEAF
+    fill = np.maximum(leaf_fill(leaf_prims), 1)
+    link = np.where(first >= 0, -(lid * LEAF + fill[lid] - 1) - 1,
+                    rec_of).astype(np.int32)
+    box = nodes[:, 0:6]
+    rec = np.zeros((len(inner) + 1, 16), np.float32)
+    left, right = inner + 1, skip[inner + 1]
+    rec[1:, 0:6], rec[1:, 6:12] = box[left], box[right]
+    rec[1:, 12] = link[left].view(np.float32)
+    rec[1:, 13] = link[right].view(np.float32)
+    rec[0, 0:6] = box[0]
+    rec[0, 6] = rec[0, 12] = link[0:1].view(np.float32)[0]
+    return rec
+
+
+def unpack_bin_nodes(bnodes: np.ndarray):
+    """The binary tree behind ``pack_bin_nodes``' records, in preorder:
+    (node_min [N, 3], node_max [N, 3], node_first [N] (-1 inner), node_right
+    [N] (-1 leaf), each leaf's filled rows [n_leaves] in leaf order)."""
+    rec = np.ascontiguousarray(bnodes, np.float32)
+    links = rec[:, 12:14].copy().view(np.int32)
+    box, first, right, fill = [], [], [], {}
+    todo = [(rec[0, 0:6], links[0, 0], -1)]    # (box, link, parent if right)
+    while todo:
+        b, link, parent = todo.pop()
+        me = len(box)
+        box.append(b)
+        right.append(-1)
+        if parent >= 0:
+            right[parent] = me
+        if link < 0:
+            code = -int(link) - 1
+            first.append(code // LEAF * LEAF)
+            fill[code // LEAF] = code % LEAF + 1
+            continue
+        first.append(-1)
+        todo.append((rec[link, 6:12], links[link, 1], me))
+        todo.append((rec[link, 0:6], links[link, 0], -1))
+    box = np.stack(box)
+    return (box[:, 0:3], box[:, 3:6], np.asarray(first, np.int32),
+            np.asarray(right, np.int32),
+            np.asarray([fill[i] for i in sorted(fill)], np.int32))
 
 
 def pack_leaf_rows(kind: str, leaf_data: np.ndarray,
@@ -572,6 +660,10 @@ def _check_bvh(bvh, kind, form, dev):
             want.append(('knodes_pre', bvh.knodes_pre, f32, tuple(kn.shape)))
         if not 1 <= bvh.stack_depth <= MAX_STACK:
             raise ValueError(f'traverse_tris: stack depth {bvh.stack_depth}')
+    elif form == 'deep':
+        want.append(('bnodes', bvh.bnodes, f32, (bvh.bnodes.shape[0], 16)))
+        if not 1 <= bvh.bin_depth <= MAX_BIN_STACK:
+            raise ValueError(f'traverse_tris: deep stack {bvh.bin_depth}')
     else:
         want.append(('nodes', bvh.nodes, f32, (bvh.nodes.shape[0], 8)))
     if kind == 'sphere':
@@ -634,7 +726,7 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
         iters = torch.empty(n, dtype=torch.int32, device=dev)
         leafs = torch.empty(n, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if form == 'wide' and not want_counters:
+    if form in ('wide', 'deep') and not want_counters:
         # the persistent launch's work counters: zeroed once here, left at
         # zero again by every launch, so launches of one stream share them
         work = _work.get((dev, stream))
@@ -667,6 +759,8 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
             pre = kind in PREORDER_KINDS and not any_hit
             nodes = bvh.knodes_pre if pre else bvh.knodes
             a.nodes, a.depth = nodes.data_ptr(), bvh.stack_depth
+        elif form == 'deep':
+            a.nodes, a.depth = bvh.bnodes.data_ptr(), bvh.bin_depth
         else:
             a.nodes, a.n_nodes = bvh.nodes.data_ptr(), bvh.nodes.shape[0]
     with torch.cuda.device(dev):
@@ -781,18 +875,22 @@ def occluded_tris(bvh, org, direction, t_init, ignore_prim=None,
 
 def _form_of(target, kind):
     """'dense' for a tuple of list arrays, else 'wide' or, for a tree
-    without a wide layout (too deep for the stack), 'deep'."""
+    without a wide layout (too deep for the wide stack), 'deep' or, where
+    upload gave it no deep records either (too deep for ``MAX_BIN_STACK``),
+    'skip'."""
     if isinstance(target, (tuple, list)):
         return 'dense'
-    return 'wide' if target.knodes is not None or target.wbounds is not None \
-        else 'deep'
+    if target.knodes is not None or target.wbounds is not None:
+        return 'wide'
+    return 'deep' if target.bnodes is not None else 'skip'
 
 
 def _count_key(form, kind, any_hit):
     mode = 'any' if any_hit else 'closest'
     if (form, kind) == ('wide', 'tri'):   # the TPU kernel's specialisations
         return mode
-    name = {'wide': kind, 'deep': 'deep', 'dense': f'dense_{kind}'}[form]
+    name = {'wide': kind, 'deep': 'deep', 'skip': 'skip',
+            'dense': f'dense_{kind}'}[form]
     return f'{name}_{mode}'
 
 

@@ -7,14 +7,16 @@ render.render: cornell and plane at max_verts=6, 0031_hete and
 0030_subsurf at max_verts=8 with media on, the plane scene under a
 1024x2048 sun envmap (sky) and under a daylight sky, 0002_mb (moving
 triangles), chip_smoke.py's hair scene (65,536 fibres: the line BVH
-form) and its sphere scene (65,536 spheres: the sphere BVH form) at
-max_verts=6 (--cells names a subset: a tree from before the
-skies has only the first four).  Two warm-up frames per cell,
-then N timed ones (default 8), each ending with the image on the host.
-Prints seconds per frame as min / median / max with the card's name and
-power limit.  --root names another checkout whose corona13_tpu_torch to
-import (to compare two trees within one call on one card, run this script
-once per tree, in turns); the default is this script's own tree.
+form), its sphere scene (65,536 spheres: the sphere BVH form) and its
+zoom scene (a 65,536-triangle log-spiral ribbon whose tree is too deep
+for the wide stack: the deep form) at max_verts=6 (--cells names a
+subset: a tree from before the skies has only the first four).  Two
+warm-up frames per cell, then N timed ones (default 8), each ending with
+the image on the host.  Prints seconds per frame as min / median / max
+with the card's name and power limit.  --root names another checkout
+whose corona13_tpu_torch to import (to compare two trees within one call
+on one card, run this script once per tree, in turns); the default is
+this script's own tree.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def main():
         '0002_mb': (lambda: load('0002_mb'), 6, {}),
         'hair': (lambda: cs._hair_scene(dev), 6, {}),
         'spheres': (lambda: cs._sphere_scene(dev), 6, {}),
+        'zoom': (lambda: cs._zoom_scene(dev), 6, {}),
     }
     names = [c for c in args.cells.split(',') if c] or list(cells)
     out = {}

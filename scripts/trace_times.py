@@ -35,8 +35,18 @@ Cases (--cases names a subset; all by default):
          points two spheres of different leaves share (chip_smoke.
          sphere_edge_rays, on the frame's spheres and on the soup: the
          rays on which it differs from the plain walk, counted);
+  zoom   the deep launches (deep_closest, deep_any) of one 1024x576
+         progression of chip_smoke.py's zoom frame (a 65,536-triangle
+         log-spiral ribbon whose tree is too deep for the wide stack:
+         chip_smoke._zoom_scene) and the same launches by the skip form
+         (the tree laid out as over the deep stack's limit), phase 3b's
+         deep and skip forms on the 2^17-triangle soup (589,824 rays), both
+         forms on rays aimed at edges two of the zoom tree's leaves share
+         (the rays that differ from the plain walk, counted), ptxas'
+         registers of the deep and skip instantiations, and the zoom
+         frame's paths on the card against the CPU at 64x36 (a reading);
   edges  the plane scene's static tree on chip_smoke.edge_rays: its deep
-         form (skip links) and its wide walk, each against its plain
+         and skip forms and its wide walk, each against its plain
          version, the rays that differ counted;
   profile  one hair progression under torch.profiler: device ms of each
          traversal form, total device ms, CUDA launches, busy share;
@@ -121,8 +131,14 @@ def main():
         sets['lines'] = (lines, [cs._soup_sets(dev, s) for s in (5, 6)])
     t_live = torch.full((cs.N_RAYS,), cs.MAX_DIST, device=dev)
     out = {}
+    from corona13_tpu_torch.ops import trace_cuda
+    # the skip form beside the deep walk (a checkout from before it has its
+    # skip-link walk under the deep form's name)
+    has_skip = hasattr(trace_cuda, 'MAX_BIN_STACK')
+    deep_keys = ['deep', 'skip'] if has_skip else ['deep']
     only = [c for c in ('moving', 'dense_line') if c in cases] + (
-        ['sphere'] if 'spheres' in cases else [])
+        ['sphere'] if 'spheres' in cases else []) + (
+        deep_keys if 'zoom' in cases else [])
     if 'forms' in cases or only:
         soup = sets['soup'][0] if 'soup' in sets else \
             trace_mod.make_device_geometry(tri_v=cs._soup(1 << 17, 7),
@@ -175,7 +191,6 @@ def main():
             '0002_mb', mb.geom.tri_bvh, 'moving',
             cs.edge_rays(mb.geom, 1 << 16, 21, dev), card,
             strict=root == HERE)
-        from corona13_tpu_torch.ops import trace_cuda
         regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
                 if 'MovingTriangle' in k}
         for k, v in regs.items():
@@ -191,16 +206,30 @@ def main():
                 **cs._sphere_soup(1 << 16, 9), device=dev)}, card,
             strict=root == HERE and 'sphere' in cs.EXACT_KINDS)
         del sph
-        from corona13_tpu_torch.ops import trace_cuda
         regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
                 if 'Sphere' in k}
         for k, v in regs.items():
             print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
         frames['sphere registers'] = regs
+    if 'zoom' in cases:
+        zoom = scene_mod.fit_film(cs._zoom_scene(dev), cs.W, cs.H)
+        cs.zoom_tree_report(zoom.geom.tri_bvh)
+        frames['zoom'], frames['zoom edges'] = cs.deep_forms(
+            'zoom', zoom, cfg, card, skip=has_skip, strict=root == HERE)
+        del zoom
+        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+                if k.split()[0] in ('deep', 'skip')}
+        for k, v in regs.items():
+            print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
+        frames['deep registers'] = regs
+        frames['zoom paths vs cpu'] = cs.paths_against_cpu(
+            f'zoom paths (tree {root})', cs._zoom_scene, 64, 36, dev,
+            gate=False, max_verts=6)
     if 'edges' in cases:
         plane = scene_mod.fit_film(testing.plane_scene(device=dev), cs.W,
                                    cs.H)
-        frames['plane edges'] = cs.plane_edges_phase(plane, card)
+        frames['plane edges'] = cs.plane_edges_phase(plane, card,
+                                                     skip=has_skip)
     print(json.dumps({'device': card, 'root': root, 'calls': out,
                       'frames': frames}), flush=True)
 

@@ -313,7 +313,26 @@ def test_deep_form_matches_plain(cuda, monkeypatch, kind, any_hit):
                       'sphere': (geom.sph_bvh, 5000),
                       'line': (geom.line_bvh, 10000)}[kind]
     assert target.knodes is None and target.wbounds is None
+    assert target.bnodes is not None
     _form_vs_plain(target, kind, f'deep_{"any" if any_hit else "closest"}',
+                   cuda, offset, any_hit)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+@pytest.mark.parametrize('kind', ['tri', 'moving', 'sphere', 'line'])
+def test_skip_form_matches_plain(cuda, monkeypatch, kind, any_hit):
+    """A tree too deep for the wide stack and for the deep walk's (both
+    limits patched down at upload) is walked by its skip links
+    (skip_kernel), counted as 'skip_*'."""
+    monkeypatch.setattr(trace_cuda, 'MAX_STACK', 8)
+    monkeypatch.setattr(trace_cuda, 'MAX_BIN_STACK', 4)
+    geom = _mixed_geometry(cuda, 5000, 22)
+    target, offset = {'tri': (geom.tri_bvh, 0), 'moving': (geom.tri_bvh, 0),
+                      'sphere': (geom.sph_bvh, 5000),
+                      'line': (geom.line_bvh, 10000)}[kind]
+    assert target.knodes is None and target.bnodes is None
+    assert trace_cuda._form_of(target, kind) == 'skip'
+    _form_vs_plain(target, kind, f'skip_{"any" if any_hit else "closest"}',
                    cuda, offset, any_hit)
 
 
@@ -489,15 +508,59 @@ def test_sphere_form_at_sphere_frame_shapes(cuda, any_hit):
 
 
 def test_deep_form_on_edge_rays(cuda):
-    """The plane scene's static tree without its wide layout (skip_kernel)
-    on rays aimed at edges two of its leaves share (chip_smoke.edge_rays):
+    """The plane scene's static tree and the zoom frame's tree
+    (chip_smoke._zoom_scene, too deep for the wide stack) without a wide
+    layout, walked by the deep walk (deep_kernel) and by skip links
+    (skip_kernel, laid out as a tree over the deep stack's limit), on rays
+    aimed at edges two of their leaves share (chip_smoke.edge_rays):
     closest-hit and any-hit equal the plain skip-link walk bit for bit."""
     from corona13_tpu_torch import testing
     cs = _smoke()
     out = cs.plane_edges_phase(testing.plane_scene(device=cuda), 'the card')
-    for mode in ('closest_hit', 'any_hit'):
-        assert out['deep'][mode]['differ'] == 0
-        assert out['deep'][mode]['hit_share'] > 0.3
+    zoom = cs._zoom_scene(cuda).geom
+    org, d, _, seg = cs.edge_rays(zoom, 1 << 16, 21, cuda)
+    for form, tree in (('deep', zoom.tri_bvh),
+                       ('skip', cs._skip_tree(zoom.tri_bvh))):
+        got = cs.edge_forms('zoom', tree, 'tri', (org, d, None, seg),
+                            'the card')
+        for mode in ('closest_hit', 'any_hit'):
+            for where in (out[form], got):
+                assert where[mode]['differ'] == 0
+                assert where[mode]['hit_share'] > 0.3
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_deep_form_at_zoom_frame_shapes(cuda, any_hit):
+    """deep_closest or deep_any at the shapes of chip_smoke.py's zoom frame
+    (65,536 triangles in a log-spiral ribbon: wdepth 31, no wide layout):
+    every deep launch of one 1024x576 progression captured and launched
+    again on the same tensors, bit for bit against the plain walk (t, prim,
+    u, v, slot; the blocked flag), and the same launches by the skip form
+    of the tree (laid out as a tree over the deep stack's limit)."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    cs = _smoke()
+    sc = scene_mod.fit_film(cs._zoom_scene(cuda), 1024, 576)
+    assert trace_cuda._form_of(sc.geom.tri_bvh, 'tri') == 'deep'
+    cfg = pt_mod.PTConfig(width=1024, height=576, max_verts=6, mf=4,
+                          use_nee=True)
+    mode = 'any_hit' if any_hit else 'closest_hit'
+    calls = cs.frame_calls(sc, cfg)[mode]
+    assert len(calls) == cfg.max_verts - 1
+    skip = cs._skip_tree(sc.geom.tri_bvh)
+    tup = (lambda x: (x,)) if any_hit else (lambda x: x)
+    before = dict(trace_cuda.launches)
+    for target, kind, args, kw in calls:
+        p = getattr(trace_cuda, mode + '_plain')(target, kind, *args,
+                                                 **cs._cloned(kw))
+        for tree in (target, skip):
+            k = getattr(trace_cuda, mode)(tree, kind, *args, **cs._cloned(kw))
+            for x, y in zip(tup(k), tup(p)):
+                assert torch.equal(_bits(x), _bits(y))
+    m = 'any' if any_hit else 'closest'
+    moved = {k: v - before[k] for k, v in trace_cuda.launches.items()
+             if v != before[k]}
+    assert moved == {f'deep_{m}': 5, f'skip_{m}': 5}
 
 
 def test_moving_records_on_the_card(cuda):
