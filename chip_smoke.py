@@ -38,11 +38,17 @@ Phases (each prints its results; any failure exits non-zero):
      max_verts=6, NEE on, 4 spp, through the kernel (launch counts
      checked), plus the same path on the card against the CPU at 64x36;
   5. larger BVH: the plane scene rendered the same way at 2 spp;
-  6. counters: the kernel with want_counters (the simple walk, thread i on
-     ray i) on the cornell, plane and soup BVHs at 589,824 rays,
-     closest-hit and any-hit, against the plain walk (equal pops per
-     1024-ray block), timed in turns with the render path's persistent
-     launch on the same rays;
+  6. counters: want_counters through the union kernel (the TPU kernel's
+     walk of each 128-ray tile) on the cornell, plane and soup BVHs at
+     589,824 rays, bounce rays closest-hit and shadow segments any-hit:
+     6 'counters' launches on its path, each held to the plain union walk
+     (every block's counts, hits as phase 3, the share of rays equal in
+     every bit printed) and launched twice (bit-identical); union pops a
+     tile, per-ray pops a ray (simple_walk: 6 'tri_counters' launches,
+     each ray's pops held to the plain per-ray walk's) and the lane share
+     (per-ray pops over union pops times the tile's live lanes); the
+     union, per-ray and persistent walks timed in turns, the union
+     kernel's bound from its pops on live lanes;
   7. golden gates: scene.load_scene of data/golden/scenes/0031_hete and
      0030_subsurf on the card, rendered at the JAX gates' settings
      (tests/test_golden.py:134-173) and held to their RMSE and mean bounds;
@@ -158,7 +164,11 @@ counts the full test.  The moving rows add frame_static_*, the static walk
 of the same tree on the same rays, and the edge rays on which the kernel
 differs from the plain walk (0).  The deep and skip rows give their frame
 numbers at the zoom frame's launches (8e) and the plane's and the zoom
-tree's edge rays that differ (0).  The last line is
+tree's edge rays that differ (0).  The counters row is the union walk of
+phase 6 on the plane's bounce rays (its ``definition`` key says so: rows
+of that name from before timed the per-ray walk), with its lane share
+and the share of rays equal in every bit to its plain version; the
+per-ray counters row is the per-ray walk (simple_walk).  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -224,7 +234,13 @@ def ptxas_report(build_log):
     any-hit, and for the wide walk counters and persistent."""
     out, name = {}, None
     for line in build_log.splitlines():
-        if 'Compiling entry function' in line:
+        if 'Compiling entry function' in line and 'union_kernel' in line:
+            m = re.search(r'union_kernelILb([01])E', line)
+            check(m is not None, f'unexpected kernel name: {line}')
+            name = ('union Triangle '
+                    + ('any-hit' if m.group(1) == '1' else 'closest-hit'))
+            out[name] = []
+        elif 'Compiling entry function' in line:
             m = re.search(r'\d+(traverse|deep|skip|dense)_kernelINS_\d+(\w+?)'
                           r'LeafE((?:Lb[01]E)+)', line)
             check(m is not None, f'unexpected kernel name: {line}')
@@ -382,6 +398,32 @@ def _bound_ms(b, n, alive, t_is_tensor, n_ignore, out_bytes, inner, leaf):
     return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
 
 
+# union_kernel's outputs: t, u, v (4 B each), prim, slot (8 B each) a ray,
+# and the two counts of a 1024-ray block
+UNION_OUT_BYTES = 28 + 8 / 1024
+
+
+def union_lanes(b, n, alive, t_is_tensor, tile_stats, inner_r, leaf_r,
+                scale=1.0):
+    """The union walk's lane share and bound: (lane_share, bound_ms,
+    bound_by).  tile_stats: union_walk_plain's per-tile pops, live lanes
+    and open-lane sums; inner_r, leaf_r: the per-ray walk's pops on the
+    same rays.  Lane share: the per-ray pops over the union's pops times
+    its tile's live lanes, the share of a packet's lanes that a pop keeps
+    busy.  Bound: _bound_ms over the union pops' tests on the lanes open
+    at each pop (live and, under any-hit, not yet blocked), the work the
+    outputs need; the pops scaled by `scale` (from a window of the rays to
+    n, whose live rays `alive` counts)."""
+    t_iters, t_leafs, live, inner_open, leaf_open = (
+        torch.as_tensor(x).to(torch.int64) for x in tile_stats)
+    lane_pops = int(((t_iters + t_leafs) * live).sum())
+    lane_share = (inner_r + leaf_r) / max(lane_pops, 1)
+    bound, by = _bound_ms(b, n, alive, t_is_tensor, 1, UNION_OUT_BYTES,
+                          int(inner_open.sum()) * scale,
+                          int(leaf_open.sum()) * scale)
+    return lane_share, bound, by
+
+
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
@@ -436,27 +478,34 @@ def _run_case(name, case):
     return res
 
 
-def kernel_phase(dev, card):
-    from corona13_tpu_torch import testing
+def main_bvhs(dev, cornell=None):
+    """Phase 3's trees, each with two ray sets (_ray_sets, _soup_sets):
+    the main path's cornell box (``cornell``, else built here), the plane
+    scene and the 2^17-triangle soup; and the plane scene fitted to the
+    film."""
     from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
     from corona13_tpu_torch.ops import trace as trace_mod
-    from corona13_tpu_torch.samplers import pt as pt_mod
-    phase(f'kernel against plain, {N_RAYS} rays per call, on {card}')
-    # an entry point without a device argument: it builds on the card
-    cornell = testing.cornell_scene()
-    check(cornell.device.type == 'cuda', f'cornell_scene() built on '
-          f'{cornell.device}, not on the card')
+    if cornell is None:
+        cornell = testing.cornell_scene(device=dev)
     cornell = scene_mod.fit_film(cornell, W, H)
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
     t0 = time.time()
     soup = trace_mod.make_device_geometry(tri_v=_soup(1 << 17, 7), device=dev)
     print(f'soup BVH (131072 triangles) built in {time.time() - t0:.1f} s',
           flush=True)
-    bvhs = {'cornell': (cornell.geom, _ray_sets(cornell.geom, cornell, dev, 1),
+    return {'cornell': (cornell.geom,
+                        _ray_sets(cornell.geom, cornell, dev, 1),
                         _ray_sets(cornell.geom, cornell, dev, 2)),
             'plane': (plane.geom, _ray_sets(plane.geom, plane, dev, 3),
                       _ray_sets(plane.geom, plane, dev, 4)),
-            'soup': (soup, _soup_sets(dev, 5), _soup_sets(dev, 6))}
+            'soup': (soup, _soup_sets(dev, 5), _soup_sets(dev, 6))}, plane
+
+
+def main_cases(bvhs, dev):
+    """Phase 3's cases, 'tree/kind' -> (BVH, any-hit, two argument sets
+    of traverse_tris as the main path passes them), kinds camera, bounce
+    and shadow (any-hit)."""
     cases = {}
     for bname, (geom, set_a, set_b) in bvhs.items():
         b = geom.tri_bvh
@@ -476,6 +525,19 @@ def kernel_phase(dev, card):
                 argsets.append((o.contiguous(), d.contiguous(), t,
                                 ig.contiguous()))
             cases[f'{bname}/{kind}'] = (b, kind == 'shadow', argsets)
+    return cases
+
+
+def kernel_phase(dev, card):
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase(f'kernel against plain, {N_RAYS} rays per call, on {card}')
+    # an entry point without a device argument: it builds on the card
+    cornell = testing.cornell_scene()
+    check(cornell.device.type == 'cuda', f'cornell_scene() built on '
+          f'{cornell.device}, not on the card')
+    bvhs, plane = main_bvhs(dev, cornell)
+    cases = main_cases(bvhs, dev)
     # the main path's alive shares: bounces 2 and 4 of the plane scene
     cfg = pt_mod.PTConfig(width=W, height=H, max_verts=6, mf=4, use_nee=True)
     prof = pt_mod.alive_profile(plane, cfg, 0).cpu().numpy() / N_RAYS
@@ -1478,16 +1540,34 @@ def _compare_hits(k, p, any_hit, where):
     return agree, err
 
 
+def _in_turns(fns, reps=20):
+    """Card ms of each of ``fns`` (name -> fn of an input set), timed by
+    _time_ms in turns, forwards then backwards: the mean of its two."""
+    ms = {k: 0.0 for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k] += _time_ms(fns[k], 2, reps) / 2
+    return ms
+
+
 def counters_phase(cases, kres, card):
-    """want_counters at the main path's shapes.  The counters' own path is
-    one launch per case with the counts reset before and read after; the
-    comparisons with the plain walk and the timings come after it.  The
-    counters launch is the simple walk (thread i walks ray i), so its time
-    in turns with the render path's launch on the same rays is the
-    persistent design against the simple one."""
+    """want_counters at the main path's shapes: the union kernel (the TPU
+    kernel's walk of each 128-ray tile) on the cornell, plane and soup
+    BVHs, bounce and shadow rays.  Its own path is one launch per case
+    with the counts reset before and read after; then each case is held to
+    the plain union walk on the card (every block's counts, hits as phase
+    3, and the share of rays equal in every bit), launched twice
+    (bit-identical), and timed in turns with the per-ray walk that counts
+    each ray's own pops (simple_walk, thread i on ray i, held to the plain
+    per-ray walk's pops) and the render path's persistent launch.  Lane
+    share: the per-ray pops over the union's pops times its tile's live
+    lanes, the share of a packet's lanes that a pop keeps busy.  The union
+    kernel's bound counts the operations of its pops on the lanes open at
+    each pop (union_lanes), on occupied children and rows; the per-ray
+    rows' bounds (the closest / any rows of the kernels line) count the
+    per-ray pops."""
     from corona13_tpu_torch.ops import trace_cuda
-    phase(f'counters: want_counters against plain, and the simple walk '
-          f'against the persistent one, {N_RAYS} rays per call, on {card}')
+    phase(f'counters: the union walk against plain, beside the per-ray and '
+          f'the persistent walks, {N_RAYS} rays per call, on {card}')
     names = [f'{b}/{k}' for b in ('cornell', 'plane', 'soup')
              for k in ('bounce', 'shadow')]
     for k in trace_cuda.launches:
@@ -1497,57 +1577,117 @@ def counters_phase(cases, kres, card):
             for n in names]
     torch.cuda.synchronize()
     launches = dict(trace_cuda.launches)
-    print(f'counter launches {launches} (expected {len(names)} counters)',
+    print(f'union launches {launches} (expected {len(names)} counters)',
           flush=True)
     check({k: v for k, v in launches.items() if v}
           == {'counters': len(names)}, f'counter launch counts {launches}')
+    before = dict(trace_cuda.launches)
+    simples = [trace_cuda.simple_walk(cases[n][0], *cases[n][2][0],
+                                      any_hit=cases[n][1]) for n in names]
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in trace_cuda.launches.items()
+             if v != before[k]}
+    check(moved == {'tri_counters': len(names)},
+          f'per-ray walk launch counts {moved}')
+    launches['tri_counters'] = moved['tri_counters']
     res = {}
-    for name, out in zip(names, outs):
+    for name, out, simple_out in zip(names, outs, simples):
         b, ah, argsets = cases[name]
+        union = lambda s: trace_cuda.traverse_tris(
+            b, *argsets[s], any_hit=ah, want_counters=True)
+        again = union(0)
+        torch.cuda.synchronize()
+        check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(out, again)),
+              f'{name}: two union launches differ')
         k = [x.cpu().numpy() for x in out]
-        p, plain_ms = _plain_timed(cases[name], want_counters=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p = trace_cuda.union_walk_plain(b.wbounds, b.wlinks, b.leaf_packed,
+                                        *argsets[0], any_hit=ah,
+                                        tile_stats=True)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        tile_stats = [x.cpu() for x in p[7:]]
+        p = [x.cpu().numpy() for x in p[:7]]
         check(k[5].shape == (N_RAYS // 1024,), f'{name}: counter shape')
         blocks_eq = float(((k[5] == p[5]) & (k[6] == p[6])).mean())
         check(blocks_eq == 1.0, f'{name}: counters differ on '
               f'{1 - blocks_eq:.4%} of blocks')
         agree, err = _compare_hits(k, p, ah, name)
-        # in turns: simple, persistent, persistent, simple; then the
-        # counters wrapper, which adds the per-block sums to the simple walk
-        simple = lambda s: trace_cuda.simple_walk(b, *argsets[s], any_hit=ah)
+        as_int = lambda x: x.view(np.int32) if x.dtype == np.float32 else x
+        bits_eq = float(np.logical_and.reduce(
+            [as_int(x) == as_int(y) for x, y in zip(k[:5], p[:5])]).mean())
+        # the per-ray walk against its plain version: each ray's pops
+        s = [x.cpu().numpy() for x in simple_out]
+        start.record()
+        ps = trace_cuda.traverse_tris_plain(
+            b.wbounds, b.wlinks, b.leaf_packed, *argsets[0], any_hit=ah,
+            ray_pops=True)
+        end.record()
+        torch.cuda.synchronize()
+        simple_plain_ms = start.elapsed_time(end)
+        ps = [x.cpu().numpy() for x in ps]
+        check((s[5] == ps[5]).all() and (s[6] == ps[6]).all(),
+              f'{name}: the per-ray walk\'s pops differ from plain')
+        s_agree, s_err = _compare_hits(s, ps, ah, f'{name} per-ray walk')
+        inner_r, leaf_r = int(s[5].sum()), int(s[6].sum())
+        t_iters, t_leafs, live, inner_open, leaf_open = tile_stats
+        live = live.double()
+        # of the lanes a pop tests, the share whose ray is still open
+        open_share = float((inner_open + leaf_open).sum()) / max(
+            float(((t_iters + t_leafs) * live).sum()), 1)
+        simple = lambda i: trace_cuda.simple_walk(b, *argsets[i], any_hit=ah)
         if ah:
-            pers = lambda s: (trace_cuda.occluded_tris(b, *argsets[s]),)
+            pers = lambda i: (trace_cuda.occluded_tris(b, *argsets[i]),)
         else:
-            pers = lambda s: trace_cuda.traverse_tris(b, *argsets[s])
-        t_s, t_p = _time_ms(simple, 2, 20), _time_ms(pers, 2, 20)
-        t_p += _time_ms(pers, 2, 20)
-        t_s += _time_ms(simple, 2, 20)
-        ms_simple, ms_pers = t_s / 2, t_p / 2
-        ms = _time_ms(lambda s: trace_cuda.traverse_tris(
-            b, *argsets[s], any_hit=ah, want_counters=True), 2, 20)
-        inner, leaf = int(k[5].sum()), int(k[6].sum())
+            pers = lambda i: trace_cuda.traverse_tris(b, *argsets[i])
+        ms = _in_turns({'union': union, 'simple': simple, 'persistent': pers})
         m = kres['any' if ah else 'closest'][name]
         t_tensor = torch.is_tensor(argsets[0][2])
+        lane_share, ubound, uby = union_lanes(b, N_RAYS, m['alive'],
+                                              t_tensor, tile_stats,
+                                              inner_r, leaf_r)
         bound, by = _bound_ms(b, N_RAYS, m['alive'], t_tensor, 1,
-                              1 if ah else 28, inner, leaf)
-        cbound, cby = _bound_ms(b, N_RAYS, m['alive'], t_tensor, 1, 36,
-                                inner, leaf)
+                              1 if ah else 28, inner_r, leaf_r)
+        sbound, sby = _bound_ms(b, N_RAYS, m['alive'], t_tensor, 1, 36,
+                                inner_r, leaf_r)
+        n_tiles = N_RAYS // 128
         print(f'  {name:14s} {"any" if ah else "closest"}-hit: blocks equal '
-              f'{blocks_eq:.6f}, prim agree {agree:.6f}, max |dt| {err:.3g}; '
-              f'pops per ray {inner / N_RAYS:.2f} inner / '
-              f'{leaf / N_RAYS:.2f} leaf; simple walk '
-              f'{ms_simple:.3f} ms ({ms:.3f} ms with the per-block sums), '
-              f'persistent {ms_pers:.3f} ms, bound '
-              f'{bound:.4f} ms by {by} (share {bound / ms_pers:.3f}), plain '
-              f'{plain_ms:.1f} ms', flush=True)
-        res[name] = dict(ms=ms, ms_simple=ms_simple, ms_persistent=ms_pers,
-                         plain_ms=plain_ms,
+              f'{blocks_eq:.6f}, prim agree {agree:.6f}, rays equal in every '
+              f'bit {bits_eq:.6f}, max |dt| {err:.3g}; union pops a tile '
+              f'{int(k[5].sum()) / n_tiles:.2f} inner / '
+              f'{int(k[6].sum()) / n_tiles:.2f} leaf, per-ray pops a ray '
+              f'{inner_r / N_RAYS:.2f} inner / {leaf_r / N_RAYS:.2f} leaf, '
+              f'live lanes a tile {live.mean():.2f}, open at a pop '
+              f'{open_share:.4f} of them, lane share {lane_share:.4f}; '
+              f'union {ms["union"]:.4f} ms (bound '
+              f'{ubound:.4f} by {uby}, share {ubound / ms["union"]:.4f}), '
+              f'per-ray {ms["simple"]:.4f} ms, persistent '
+              f'{ms["persistent"]:.4f} ms (bound {bound:.4f} by {by}, share '
+              f'{bound / ms["persistent"]:.3f}); plain union {plain_ms:.1f} '
+              f'ms', flush=True)
+        res[name] = dict(ms=ms['union'], ms_simple=ms['simple'],
+                         ms_persistent=ms['persistent'], plain_ms=plain_ms,
                          max_abs_err=err, agree=agree, blocks_equal=blocks_eq,
-                         inner_per_ray=inner / N_RAYS,
-                         leaf_per_ray=leaf / N_RAYS, bound_ms=bound,
-                         bound_by=by, counters_bound_ms=cbound,
-                         counters_bound_by=cby)
-    print('tolerance: iters and leafs equal on every block; hits as phase 3',
-          flush=True)
+                         bits_equal_share=bits_eq,
+                         union_inner_per_tile=int(k[5].sum()) / n_tiles,
+                         union_leaf_per_tile=int(k[6].sum()) / n_tiles,
+                         live_per_tile=float(live.mean()),
+                         open_share=open_share,
+                         inner_per_ray=inner_r / N_RAYS,
+                         leaf_per_ray=leaf_r / N_RAYS, lane_share=lane_share,
+                         union_bound_ms=ubound, union_bound_by=uby,
+                         bound_ms=bound, bound_by=by, simple_bound_ms=sbound,
+                         simple_bound_by=sby, simple_agree=s_agree,
+                         simple_max_abs_err=s_err,
+                         simple_plain_ms=simple_plain_ms)
+    print('tolerance: iters and leafs equal on every block; hits as phase 3 '
+          '(prim and slot on >= 99.9% of rays, t rtol 1e-6), the share of '
+          'rays equal in every bit printed; two union launches '
+          'bit-identical; the per-ray walk\'s pops equal the plain per-ray '
+          'walk\'s on every ray', flush=True)
     return res, launches
 
 
@@ -1980,6 +2120,8 @@ def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
 def _kernel_key(name):
     """The entry of trace_cuda.launches that a traversal kernel's name (as
     the profiler demangles it) counts under, or None for another kernel."""
+    if re.search(r'union_kernel<', name):
+        return 'counters'
     m = re.search(r'(traverse|deep|skip|dense)_kernel<[^<>]*?(\w+)Leaf, '
                   r'(true|false)(?:, (true|false))?', name)
     if m is None:
@@ -1989,7 +2131,7 @@ def _kernel_key(name):
     kind = {'Triangle': '', 'MovingTriangle': 'moving', 'Sphere': 'sphere',
             'Cone': 'line'}[leaf]
     if kernel == 'traverse' and counters == 'true':
-        return 'counters' if not kind else f'{kind}_counters'
+        return f'{kind or "tri"}_counters'
     if kernel in ('deep', 'skip'):
         return f'{kernel}_{mode}'
     if kernel == 'dense':
@@ -3449,12 +3591,29 @@ def main():
                 'roofline_share': c['bound_ms'] / ms}
     m = cres['plane/bounce']     # the counters at a real BVH's bounce rays
     counters = {'name': 'traverse_tris counters', **common,
+                'definition': 'the union walk of each 128-ray tile, the TPU '
+                              'kernel\'s counts (earlier rows of this name '
+                              'timed the per-ray walk: not comparable)',
                 'launches': claunches['counters'],
                 'launches_per_frame': launches['counters'] / spp,
                 'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
-                'plain_ms': m['plain_ms'], 'bound_ms': m['counters_bound_ms'],
-                'bound_by': m['counters_bound_by'],
-                'roofline_share': m['counters_bound_ms'] / m['ms']}
+                'plain_ms': m['plain_ms'], 'bound_ms': m['union_bound_ms'],
+                'bound_by': m['union_bound_by'],
+                'roofline_share': m['union_bound_ms'] / m['ms'],
+                'lane_share': m['lane_share'],
+                'bits_equal_share': m['bits_equal_share']}
+    per_ray = {'name': 'traverse_tris per-ray counters', **common,
+               'replaces': None,
+               'definition': 'the per-ray walk with each ray\'s own pops '
+                             '(simple_walk), the persistent walk\'s '
+                             'yardstick: no port of a TPU kernel',
+               'launches': claunches['tri_counters'],
+               'launches_per_frame': launches['tri_counters'] / spp,
+               'max_abs_err': m['simple_max_abs_err'], 'ms': m['ms_simple'],
+               'plain_ms': m['simple_plain_ms'],
+               'bound_ms': m['simple_bound_ms'],
+               'bound_by': m['simple_bound_by'],
+               'roofline_share': m['simple_bound_ms'] / m['ms_simple']}
     print(json.dumps({'device': smi, 'kernel_cases': kres, 'callers': callers,
                       'counter_cases': cres, 'golden': gold, 'render': {
         'cornell': {'frame_s': res.seconds / spp, 'rays': rays,
@@ -3560,7 +3719,7 @@ def main():
         'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
         'bound_by': m['bound_by'], 'roofline_share': m['bound_ms'] / m['ms']}
     kernels = [entry('closest', 'traverse_tris closest-hit'),
-               entry('any', 'traverse_tris any-hit'), counters] + [
+               entry('any', 'traverse_tris any-hit'), counters, per_ray] + [
         form_entry(k) for k in fres] + [line_counters]
     for k in kernels:
         check(k['launches'] > 0, f'{k["name"]} was never launched on its path')

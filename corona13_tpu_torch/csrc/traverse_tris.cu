@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel corona13_tpu/ops/trace_pallas.py
 // (_kernel, launched by traverse_tris at trace_pallas.py:284): closest-hit,
 // any-hit and the want_counters debug walk.  It computes, ray for ray, what
-// traverse_tris_plain in ops/trace_cuda.py computes.
+// traverse_tris_plain in ops/trace_cuda.py computes, and the want_counters
+// walk what union_walk_plain computes.
 //
 // What bounds it on this card.  There is no matrix product here: the
 // 8-child slab test and the 8-row Moeller-Trumbore test are SIMD inside
@@ -67,10 +68,38 @@
 // empty children and rows (the branches cost more than they save), larger
 // chunks per atomic, asking the counter one batch ahead.
 //
-// The counters launches (want_counters, the ACCEL_DEBUG analogue, on no
-// render path) keep the simple assignment, thread i walks ray i, share
-// the layout, the stack and the loop, and count each ray's own pops in
-// the reference order.
+// The counters launch (want_counters, the ACCEL_DEBUG analogue, on no
+// render path) is the TPU kernel's own walk, union_kernel below: each
+// 128-ray tile walks the union of its rays' hits, whose pops are what the
+// TPU kernel counts, and gets its hits bit for bit, exact-t ties between
+// leaves included (the per-ray walks above may give another leaf there).
+// What bounds it: a tile's pops are serial, and every lane tests every
+// popped box and row whether its ray needs it or not.  The lane share (the
+// per-ray pops over the union's pops times its live lanes) is 0.46-0.65
+// on the cornell box, 0.07-0.12 on the plane scene's bounce and shadow
+// rays and 0.01 on a 2^17-triangle soup, so the bound chip_smoke.py gives
+// it (the operations of the union pops on the lanes still open at the
+// pop) is 10-15x the per-ray walk's on the plane and 80-100x on the soup.  Design: one ray
+// a thread, a tile's 128 threads (four warps) a group, a block of eight
+// groups one 1024-ray counter block; the stack (stack_depth entries of
+// 4 B) in shared memory, one a tile; the node and leaf records read as the
+// broadcast loads they are; the children's hit masks ORed by a
+// __reduce_or_sync a warp and the four warps' words after a named barrier
+// of the tile's threads, every thread writing the same pushed entries, so
+// that it reads back only its own writes; any-hit's open lanes summed the
+// same way; the eight tiles' counts summed in shared memory and written
+// once a block: no atomics, no memset, counts that do not depend on
+// timing.  Measured against it (NVIDIA H100 80GB HBM3, 700 W, ms at
+// 589,824 rays, cornell / plane / 2^17 soup bounce closest-hit, in turns,
+// means of two passes): one warp a tile with four rays a lane and the
+// warp's own stack, no barrier (127 registers) 0.085 / 2.27 / 87.1 ms, two
+// warps a tile with two rays a lane (87) 0.084 / 1.31 / 50.8, kept
+// (64 registers, no spills) 0.069 / 1.18 / 45.2; shadow
+// any-hit 0.068 / 1.16 / 29.5, 0.071 / 0.70 / 18.8, kept 0.058 / 0.63 /
+// 18.1.  A pop's 8 slab tests or 8 rows of 128 rays spread over four
+// warps take a quarter of one warp's time, for one barrier a pop.  The per-ray walk with each ray's own pops (simple_walk:
+// thread i walks ray i, traverse_kernel's kCounters flag) stays as the
+// persistent launch's yardstick.
 //
 // Beyond the TPU kernel.  The JAX package serves motion-blurred triangles,
 // sphere and line BVHs, short prim lists and trees too deep for the stack
@@ -320,7 +349,7 @@ struct Params {
   float* v_out;
   long long* slot_out;
   unsigned char* blocked_out;  // or null
-  int* iters_out;  // per-ray pops (counters launches), or null
+  int* iters_out;  // per-ray pops (simple walk) or per block (union), or null
   int* leafs_out;
   int* work;  // persistent launches: [0] batches dealt out by the counter,
               // [1] warps that are done; both zero between launches
@@ -446,24 +475,42 @@ __device__ __forceinline__ bool child_hit(const float4* __restrict__ rec,
   return w != 0.f && tn <= tf && tf > 0.f;
 }
 
-// One inner pop: slab-test the 8 children of the wide node at `rec` and
-// push the hit ones in ascending child index (a leaf as -link-1).
-__device__ __forceinline__ void pop_inner(const float4* __restrict__ rec,
-                                          const Ray& r, int* stack, int& sp,
-                                          int depth) {
-  unsigned hit = 0, leafm = 0;
-  int link[8];
+// Slab-test the 8 children of the wide node at `rec`: the mask of the hit
+// ones, the mask of the leaves and the children's links.
+__device__ __forceinline__ void child_masks(const float4* __restrict__ rec,
+                                            const Ray& r, unsigned& hit,
+                                            unsigned& leafm, int (&link)[8]) {
+  hit = 0;
+  leafm = 0;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float tn, w;
     if (child_hit(rec, c, r, tn, w, link[c])) hit |= 1u << c;
     if (w >= 256.f) leafm |= 1u << c;
   }
+}
+
+// Push the children in `hit` in ascending child index (a leaf as
+// -link-1) on a stack whose entries lie kStride ints apart.
+template <int kStride>
+__device__ __forceinline__ void push_children(unsigned hit, unsigned leafm,
+                                              const int (&link)[8],
+                                              int* stack, int& sp,
+                                              int depth) {
 #pragma unroll
   for (int c = 0; c < 8; ++c)
-    if ((hit >> c) & 1u)
-      if (sp < depth)
-        stack[sp++ * kThreads] = ((leafm >> c) & 1u) ? -link[c] - 1 : link[c];
+    if (((hit >> c) & 1u) && sp < depth)
+      stack[sp++ * kStride] = ((leafm >> c) & 1u) ? -link[c] - 1 : link[c];
+}
+
+// One inner pop of a ray's own walk: its hit children pushed on its stack.
+__device__ __forceinline__ void pop_inner(const float4* __restrict__ rec,
+                                          const Ray& r, int* stack, int& sp,
+                                          int depth) {
+  unsigned hit, leafm;
+  int link[8];
+  child_masks(rec, r, hit, leafm, link);
+  push_children<kThreads>(hit, leafm, link, stack, sp, depth);
 }
 
 // pop_inner for the pop-time box test: a leaf child is pushed as
@@ -1034,6 +1081,109 @@ traverse_kernel(const Params p) {
   if (kPersistent) release_work(p);
 }
 
+// The union walk (want_counters): the TPU kernel's own walk of a 128-ray
+// tile, whose pops are what it counts.  One ray a thread: a tile is walked
+// by a group of kTile threads (four warps), and a block of kTilesPerBlock
+// groups is one 1024-ray counter block.
+constexpr int kTile = 128;
+constexpr int kTilesPerBlock = 8;
+
+// The OR (kSum false) or the sum of v over the kTile threads of a tile,
+// known to all of them: each warp reduces in registers, its lane 0 writes
+// the warp's word into `red` (two buffers used in turns, so that no word
+// is written again before every warp has read it), and the tile's threads
+// meet at a named barrier of their own (id 1 + tile; 0 is __syncthreads').
+template <bool kSum>
+__device__ __forceinline__ unsigned tile_reduce(unsigned v,
+                                                unsigned (*red)[kTile / 32],
+                                                int tile, int& phase) {
+  v = kSum ? __reduce_add_sync(kFull, v) : __reduce_or_sync(kFull, v);
+  unsigned* buf = red[phase];
+  phase ^= 1;
+  if ((threadIdx.x & 31) == 0) buf[(threadIdx.x % kTile) / 32] = v;
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + tile), "r"(kTile) : "memory");
+  unsigned out = 0;
+#pragma unroll
+  for (int k = 0; k < kTile / 32; ++k) out = kSum ? out + buf[k] : out | buf[k];
+  return out;
+}
+
+// A lane that does no work: a dead ray (t <= 0) or a padded lane past n,
+// as the TPU kernel pads one (every input 0): its t fails every slab test
+// and every row.
+__device__ __forceinline__ void idle_ray(float t, Ray& r) {
+  r.ox = r.oy = r.oz = r.dx = r.dy = r.dz = r.ix = r.iy = r.iz = 0.f;
+  r.t = t; r.u = 0.f; r.v = 0.f; r.time = 0.f;
+  r.ig1 = -1; r.ig2 = -1; r.prim = -1; r.slot = -1;
+  r.iters = 0; r.leafs = 0;
+}
+
+// union_kernel: trace_pallas.py's _kernel with want_counters, static
+// triangles.  A tile's group walks the union with one stack in shared
+// memory, p.depth entries (the wide walk's stack_depth: an inner pop nets
+// at most +7 entries for the union too).  At an inner pop every thread
+// slab-tests the 8 children for its ray at the ray's running t, the tile
+// ORs the hit masks, and every thread writes the same pushed entries (a
+// child any lane hits, ascending child index; a leaf as -link-1), so it
+// reads back only what it wrote itself, and no thread writes an entry
+// before the tile's barrier, which every thread reaches after its last
+// read.  At a leaf pop every lane tests all 8 rows (test_leaf, the TPU
+// kernel's winner).  Any-hit stops once none of the tile's 128 lanes is
+// open (prim < 0: dead and padded lanes count as open).  A tile without a
+// live ray pops its root once.  The tiles' counts are summed in shared
+// memory and written once a block, so they need no atomics and do not
+// depend on timing.
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kTile * kTilesPerBlock)
+union_kernel(const Params p) {
+  extern __shared__ int smem[];
+  __shared__ unsigned red[kTilesPerBlock][2][kTile / 32];
+  __shared__ int counts[kTilesPerBlock][2];
+  const int tile = threadIdx.x / kTile;
+  int* stack = smem + tile * p.depth;
+  const int i = blockIdx.x * kTilesPerBlock * kTile + threadIdx.x;
+  Ray r;
+  const float t0 = i < p.n ? start_t(p, i) : 0.f;
+  if (t0 > 0.f)
+    load_ray(p, i, t0, r);
+  else
+    idle_ray(t0, r);
+  int sp = 1, nopen = kTile, iters = 0, leafs = 0, phase = 0;
+  stack[0] = 0;  // the root
+  while (sp > 0 && (!kAnyHit || nopen > 0)) {
+    const int entry = stack[--sp];
+    if (entry >= 0) {
+      ++iters;
+      unsigned hit, leafm;
+      int link[8];
+      child_masks(p.nodes + (size_t)entry * kNodeVec, r, hit, leafm, link);
+      hit = tile_reduce<false>(hit, red[tile], tile, phase);
+      push_children<1>(hit, leafm, link, stack, sp, p.depth);
+    } else {
+      ++leafs;
+      test_leaf<TriangleLeaf, kAnyHit, true>(p, -entry - 1, kLeaf, r);
+      if (kAnyHit)
+        nopen = (int)tile_reduce<true>(r.prim < 0, red[tile], tile, phase);
+    }
+  }
+  if (i < p.n) store_ray<TriangleLeaf, false>(p, i, r);
+  if (threadIdx.x % kTile == 0) {
+    counts[tile][0] = iters;
+    counts[tile][1] = leafs;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int it = 0, lf = 0;
+#pragma unroll
+    for (int k = 0; k < kTilesPerBlock; ++k) {
+      it += counts[k][0];
+      lf += counts[k][1];
+    }
+    p.iters_out[blockIdx.x] = it;
+    p.leafs_out[blockIdx.x] = lf;
+  }
+}
+
 // Slab test of one box (lo.xyz, hi.xyz) as the skip-link walk tests a
 // node: true where the segment (0, r.t) meets it; tn is the entry distance.
 __device__ __forceinline__ bool bin_box(float lx, float ly, float lz,
@@ -1284,7 +1434,18 @@ cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
       (size_t)p.depth * kThreads * kEntry, stream);
 }
 
-enum Form { kWide = 0, kDeep = 1, kDense = 2, kSkip = 3 };
+enum Form { kWide = 0, kDeep = 1, kDense = 2, kSkip = 3, kUnion = 4 };
+
+// The union walk: one block a 1024-ray counter block.
+template <bool kAnyHit>
+cudaError_t launch_union(const Params& p, cudaStream_t stream) {
+  const int blocks = (p.n + kTile * kTilesPerBlock - 1) /
+                     (kTile * kTilesPerBlock);
+  union_kernel<kAnyHit><<<blocks, kTile * kTilesPerBlock,
+                          (size_t)kTilesPerBlock * p.depth * sizeof(int),
+                          stream>>>(p);
+  return cudaGetLastError();
+}
 enum Kind { kTriangle = 0, kMoving = 1, kSphere = 2, kLine = 3 };
 
 template <class Leaf, bool kAnyHit>
@@ -1321,7 +1482,8 @@ cudaError_t launch_kind(const Params& p, int form, int kind,
 
 // Launch arguments, as ops/trace_cuda.py fills them through ctypes.
 struct Corona13TraceArgs {
-  int form;   // 0 wide walk, 1 deep tree, 2 dense list, 3 skip links
+  int form;   // 0 wide walk, 1 deep tree, 2 dense list, 3 skip links,
+              // 4 union walk (triangles, want_counters)
   int kind;   // 0 triangles, 1 moving triangles, 2 spheres, 3 lines
   int any_hit;
   int carry;  // start from t_out / blocked_out and update them
@@ -1330,7 +1492,7 @@ struct Corona13TraceArgs {
   const void* leaves;     // the kind's leaf rows
   const void* leaves_t1;  // moving triangles: the moving rows' close records
   const void* ids;        // spheres (wide, deep): leaf slots' prim ids, int64
-  int depth;              // wide, deep: stack entries a thread
+  int depth;              // wide, deep: stack entries a thread; union: a tile
   int n_nodes;            // skip: binary nodes
   const float* d0;        // dense: see dense_kernel
   const float* d1;
@@ -1352,8 +1514,8 @@ struct Corona13TraceArgs {
   float* v_out;
   long long* slot_out;
   unsigned char* blocked_out;  // [n] bytes or null
-  int* iters_out;  // both non-null: the counters launch (wide triangles or
-  int* leafs_out;  // lines, thread i walks ray i, per-ray pop counts)
+  int* iters_out;  // both non-null: per-ray pops (wide triangles or lines,
+  int* leafs_out;  // thread i walks ray i), or the union walk's per block
   int* work;       // wide (not counters), deep: two int32 zeros, left zero
   void* stream;
 };
@@ -1392,12 +1554,12 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   p.work = a->work;
   const int n = a->n, form = a->form, kind = a->kind;
   if (n <= 0 || (n >> 30) != 0) return (int)cudaErrorInvalidValue;
-  if ((form == kWide || form == kDeep) &&
+  if ((form == kWide || form == kDeep || form == kUnion) &&
       (a->depth < 1 || a->nodes == nullptr))
     return (int)cudaErrorInvalidValue;
   if (form == kSkip && (a->n_nodes < 1 || a->nodes == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (form < kWide || form > kSkip) return (int)cudaErrorInvalidValue;
+  if (form < kWide || form > kUnion) return (int)cudaErrorInvalidValue;
   if (form == kDense && (a->n_prims < 1 || a->n_prims > kDenseMax ||
                          a->d0 == nullptr ||
                          (kind == kSphere && a->d1 == nullptr)))
@@ -1411,6 +1573,13 @@ extern "C" int corona13_trace(const Corona13TraceArgs* a) {
   if (a->carry && a->t_out == nullptr && a->blocked_out == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)a->stream;
+  if (form == kUnion) {
+    if (kind != kTriangle || a->iters_out == nullptr ||
+        a->leafs_out == nullptr || a->t_out == nullptr || a->carry)
+      return (int)cudaErrorInvalidValue;
+    return (int)(a->any_hit ? launch_union<true>(p, s)
+                            : launch_union<false>(p, s));
+  }
   if (a->iters_out != nullptr) {
     if (a->leafs_out == nullptr || form != kWide ||
         (kind != kTriangle && kind != kLine) || a->carry)

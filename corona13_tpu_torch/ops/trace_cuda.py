@@ -44,13 +44,14 @@ slowest ray.  The design (``csrc/traverse_tris.cu``) goes at each:
 Order and rounding are the TPU kernel's: children pushed in ascending
 child index (its packet order restricted to the ray's own hits), an
 exact-t tie between leaves to the first visited, the winner inside a leaf
-the minimum of ``(bits(t) & ~7) | k``, ``-fmad=false``.  The counters
-launches keep the simple assignment (thread i walks ray i) and share the
-rest.  The line policy's closest-hit walk is near-first instead (children
-sorted by entry distance, an entry the running t has passed dropped at
-its pop; an exact-t tie between two fibres may then go to another fibre
-than the plain walk's), and its records carry each fibre's own terms of
-the cone test (``pack_line_rows``), which the plain walk reads as well.
+the minimum of ``(bits(t) & ~7) | k``, ``-fmad=false``.  The per-ray
+pop counts (``simple_walk``) keep the simple assignment (thread i walks
+ray i) and share the rest.  The line policy's closest-hit walk is
+near-first instead (children sorted by entry distance, an entry the
+running t has passed dropped at its pop; an exact-t tie between two
+fibres may then go to another fibre than the plain walk's), and its
+records carry each fibre's own terms of the cone test
+(``pack_line_rows``), which the plain walk reads as well.
 The moving-triangle policy's closest-hit walk takes the reference's own
 order: it walks the nodes with each node's children in reverse binary
 preorder (``pack_nodes_preorder``), so that they pop in preorder, and
@@ -65,7 +66,8 @@ for sm_90a into ``_build/`` and ``ctypes`` loads it; the launch's
 On a CPU tensor the wrappers run ``traverse_tris_plain``; on a CUDA
 tensor they launch the kernel or raise.  ``launches`` counts kernel
 launches per specialisation ('closest', 'any', and 'counters' for the
-launches with ``want_counters``, either hit mode) and per further form.
+union walk of ``want_counters``, either hit mode), per further form and
+per per-ray counting walk ('tri_counters', 'line_counters').
 
 Further forms (``closest_hit``, ``any_hit``).  What the JAX package
 serves with XLA's lockstep skip-link ``_traverse`` and its dense
@@ -101,16 +103,19 @@ the static triangles of a wide tree), reached through
 ``closest_hit_plain`` / ``any_hit_plain`` and, on a CPU tensor, through the
 wrappers themselves.
 
-Counters, per-ray walk against the TPU's union walk: the TPU kernel counts
-the pops of a 128-ray tile walking the union of its rays' hits, the port
-counts each ray's own pops and sums them per ``BLOCK`` = 1024 rays.  With
-one live ray per tile both walks pop the same nodes in the same order, so
-closest-hit totals are equal per block; with many live rays the per-ray
-sum is at least the union count.  Any-hit differs even with one live ray:
-the TPU loop stops early only when all 128 lanes are blocked (dead lanes
-count as open, trace_pallas.py:159,188-193), so a blocked ray's tile keeps
-popping there and the port's count is lower.  A tile with no live ray pops
-its root once on the TPU and nothing here.
+Counters (``want_counters``).  The TPU kernel counts the pops of a
+128-ray tile that walks the union of its rays' hits, so no per-ray walk
+gives its numbers: ``traverse_tris(..., want_counters=True)`` walks that
+union, as ``union_kernel`` on the card (one ray a thread, 128 threads a
+tile; see the source note) and as ``union_walk_plain`` on the CPU.  Its
+counts are the TPU kernel's on every block, and so are its hits, exact-t
+ties included: every lane of a tile tests every leaf the union reaches, in
+the union's order.  The render launches walk each ray alone, so on a tie
+between two leaves (a ray aimed at an edge that two leaves share) their
+winner can differ from the counters launch's; in the JAX package both
+come from the union walk.  ``simple_walk`` keeps the per-ray walk with
+each ray's own pops ('tri_counters', 'line_counters'): the yardstick of
+the persistent launches, and the pops that bound them.
 """
 
 from __future__ import annotations
@@ -134,29 +139,31 @@ MAX_BIN_STACK = 192
 K_MASK = 7       # low mantissa bits that carry the winning leaf row
 NO_HIT = 0x7f000000
 BLOCK = 1024     # rays per counter block (the TPU kernel's grid step)
+TILE = 128       # rays that walk one union (the TPU kernel's lane axis)
 LEAF_ROW = 12    # floats per triangle leaf row in the kernel layout
 DENSE_MAX = 64   # prims a dense list can hold (trace.BRUTE_FORCE_MAX)
 # floats per leaf row of each kind's kernel records (float4 multiples)
 ROW_FLOATS = {'tri': 12, 'moving': 12, 'sphere': 4, 'line': 12}
-_FORMS = {'wide': 0, 'deep': 1, 'dense': 2, 'skip': 3}
+_FORMS = {'wide': 0, 'deep': 1, 'dense': 2, 'skip': 3, 'union': 4}
 # the kinds whose wide closest-hit walk takes the reference's order: nodes
 # in preorder (knodes_pre), the box tested again at a leaf's pop
 PREORDER_KINDS = ('moving', 'sphere')
 _KINDS = {'tri': 0, 'moving': 1, 'sphere': 2, 'line': 3}
 
 # kernel launches per form: the TPU kernel's three specialisations
-# ('closest', 'any', 'counters': static triangles, wide walk), then the
-# forms that replace XLA's _traverse, each closest-hit and any-hit: the
-# wide walk with the moving-triangle, sphere and line policies, the
-# deep-tree walk and, for a tree too deep for its stack, the stackless
-# skip-link walk (any policy), and the dense sphere and line lists; and the
-# line policy's counters launch ('line_counters', simple_walk)
+# ('closest', 'any': static triangles, wide walk; 'counters': the union
+# walk), then the forms that replace XLA's _traverse, each closest-hit and
+# any-hit: the wide walk with the moving-triangle, sphere and line
+# policies, the deep-tree walk and, for a tree too deep for its stack, the
+# stackless skip-link walk (any policy), and the dense sphere and line
+# lists; and the per-ray walks with their pops (simple_walk: 'tri_counters',
+# 'line_counters')
 launches = {k: 0 for k in (
     'closest', 'any', 'counters',
     *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'skip',
                            'dense_sphere', 'dense_line')
       for m in ('closest', 'any')),
-    'line_counters')}
+    'tri_counters', 'line_counters')}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
@@ -676,14 +683,6 @@ def _check_bvh(bvh, kind, form, dev):
                          f'for this device ({e})') from None
 
 
-def block_sums(per_ray: torch.Tensor) -> torch.Tensor:
-    """Per-ray int counts [N] -> sums per BLOCK rays [ceil(N/BLOCK)] int32,
-    the last block padded with rays that count 0."""
-    pad = (-per_ray.shape[0]) % BLOCK
-    padded = torch.nn.functional.pad(per_ray.to(torch.int64), (0, pad))
-    return padded.reshape(-1, BLOCK).sum(dim=1).to(torch.int32)
-
-
 def _fresh_hit(n, t_init, dev):
     """The hit record no launch has touched: (t_init, -1, 0, 0, -1)."""
     if isinstance(t_init, torch.Tensor):
@@ -700,10 +699,10 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
             carry=None, want_counters=False, blocked_only=False, key):
     """Launch one kernel form on CUDA tensors already checked; returns the
     raw outputs: ``blocked`` (bool) if blocked_only, else (t, prim, u, v,
-    slot) plus per-ray (iters, leafs) with want_counters.  With ``carry``
-    (the running hit, or the blocked flags) the launch updates those
-    tensors in place and returns them.  ``key``: the entry of ``launches``
-    that counts it."""
+    slot) plus (iters, leafs) with want_counters (per ray, or per block
+    for the union form).  With ``carry`` (the running hit, or the blocked
+    flags) the launch updates those tensors in place and returns them.
+    ``key``: the entry of ``launches`` that counts it."""
     dev = org.device
     if n >= 1 << 30:
         raise ValueError(f'traverse_tris: {n} rays in one launch')
@@ -722,9 +721,10 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
         t, u, v = (torch.empty(n, **f32) for _ in range(3))
         prim = torch.empty(n, dtype=torch.int64, device=dev)
         slot = torch.empty(n, dtype=torch.int64, device=dev)
-    if want_counters:
-        iters = torch.empty(n, dtype=torch.int32, device=dev)
-        leafs = torch.empty(n, dtype=torch.int32, device=dev)
+    if want_counters:   # per ray, or per block for the union walk
+        size = -(-n // BLOCK) if form == 'union' else n
+        iters = torch.empty(size, dtype=torch.int32, device=dev)
+        leafs = torch.empty(size, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if form in ('wide', 'deep') and not want_counters:
         # the persistent launch's work counters: zeroed once here, left at
@@ -753,7 +753,7 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
         a.leaves = bvh.kleaves.data_ptr()
         a.leaves_t1 = ptr(bvh.kleaves_t1) if kind == 'moving' else None
         a.ids = ptr(bvh.leaf_prims) if kind == 'sphere' else None
-        if form == 'wide':
+        if form in ('wide', 'union'):
             # the moving and sphere forms' closest-hit pops children in
             # preorder
             pre = kind in PREORDER_KINDS and not any_hit
@@ -777,18 +777,22 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
 
 
 def _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2, n,
-                 any_hit, want_counters, blocked_only):
-    """The TPU kernel's specialisations: static triangles, wide walk."""
+                 any_hit, walk='persistent', blocked_only=False):
+    """The TPU kernel's specialisations on static triangles: the persistent
+    wide walk ('closest', 'any'), the union walk of 128-ray tiles
+    ('counters') or the per-ray walk with its own pops ('tri_counters')."""
     _check_bvh(bvh, 'tri', 'wide', org.device)
     if tuple(bvh.knodes.shape) != tuple(bvh.wbounds.shape) or \
             bvh.kleaves.shape[0] != bvh.leaf_packed.shape[0]:
         raise ValueError('traverse_tris: the BVH carries no kernel layout '
                          'for this device (knodes, kleaves)')
-    return _launch('wide', 'tri', org, direction, t_init, ignore_prim,
+    form, key = {'persistent': ('wide', 'any' if any_hit else 'closest'),
+                 'union': ('union', 'counters'),
+                 'simple': ('wide', 'tri_counters')}[walk]
+    return _launch(form, 'tri', org, direction, t_init, ignore_prim,
                    ignore_prim2, n, any_hit, bvh=bvh,
-                   want_counters=want_counters, blocked_only=blocked_only,
-                   key='counters' if want_counters
-                   else 'any' if any_hit else 'closest')
+                   want_counters=walk != 'persistent',
+                   blocked_only=blocked_only, key=key)
 
 
 def traverse_tris(bvh, org, direction, t_init, ignore_prim=None,
@@ -802,8 +806,10 @@ def traverse_tris(bvh, org, direction, t_init, ignore_prim=None,
     no work); ignore_prim(2) [N] int32 or int64, or None.  Returns
     (t, prim, u, v, slot): prim/slot int64, prim = -1 for misses,
     slot = leaf_id*8 + row.  any_hit: prim = 0 and t = -1 on blocked lanes.
-    want_counters appends (iters, leafs) [ceil(N/BLOCK)] i32: inner-node
-    and leaf pops per 1024-ray block (see the module docstring)."""
+    want_counters: the TPU kernel's union walk of 128-ray tiles
+    (``union_kernel`` on the card, ``union_walk_plain`` on the CPU), with
+    (iters, leafs) [ceil(N/BLOCK)] i32 appended: the inner-node and leaf
+    pops of each 1024-ray block's tiles (see the module docstring)."""
     n = _check_rays(org, direction, t_init, ignore_prim, ignore_prim2)
     _check_wide_tris(bvh, org.device)
     if org.device.type == 'cpu':
@@ -821,22 +827,21 @@ def traverse_tris(bvh, org, direction, t_init, ignore_prim=None,
                torch.empty(0, **i64))
         none = torch.empty(0, dtype=torch.int32, device=org.device)
         return out + (none, none) if want_counters else out
-    out = _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2,
-                       n, any_hit, want_counters, blocked_only=False)
-    if want_counters:
-        return out[:5] + (block_sums(out[5]), block_sums(out[6]))
-    return out
+    return _launch_tris(bvh, org, direction, t_init, ignore_prim,
+                        ignore_prim2, n, any_hit,
+                        'union' if want_counters else 'persistent')
 
 
 def simple_walk(bvh, org, direction, t_init, ignore_prim=None,
                 ignore_prim2=None, any_hit=False, kind='tri', prim_offset=0):
-    """The counters launch as it comes from the card: (t, prim, u, v, slot,
-    iters, leafs) with per-ray pop counts [N] i32, not summed per block.
-    CUDA tensors only.  kind 'tri': the yardstick the persistent launch is
-    timed against; kind 'line': the line policy's own walk (near-first
-    order for closest-hit), its inner and leaf pops a ray, counted as
-    'line_counters' (ids global, from ``prim_offset`` as in
-    ``closest_hit``).  Debug only: no render calls it."""
+    """The per-ray walk with its pops, thread i on ray i: (t, prim, u, v,
+    slot, iters, leafs) with each ray's own inner and leaf pops [N] i32.
+    CUDA tensors only.  kind 'tri' ('tri_counters'): the persistent
+    launch's walk without the dealing, its yardstick, and the per-ray pops
+    that bound it; kind 'line' ('line_counters'): the line policy's own
+    walk (near-first order for closest-hit), ids global, from
+    ``prim_offset`` as in ``closest_hit``.  Debug only: no render calls
+    it."""
     n = _check_rays(org, direction, t_init, ignore_prim, ignore_prim2)
     if org.device.type != 'cuda' or n == 0:
         raise ValueError('simple_walk: needs rays on a CUDA device')
@@ -849,7 +854,7 @@ def simple_walk(bvh, org, direction, t_init, ignore_prim=None,
         raise ValueError(f'simple_walk: no counters launch for kind {kind!r}')
     _check_wide_tris(bvh, org.device)
     return _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2,
-                        n, any_hit, True, blocked_only=False)
+                        n, any_hit, 'simple')
 
 
 def occluded_tris(bvh, org, direction, t_init, ignore_prim=None,
@@ -868,7 +873,7 @@ def occluded_tris(bvh, org, direction, t_init, ignore_prim=None,
     if n == 0:
         return torch.empty(0, dtype=torch.bool, device=org.device)
     return _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2,
-                        n, True, False, blocked_only=True)
+                        n, True, blocked_only=True)
 
 
 # --- the forms that replace XLA's skip-link _traverse ------------------------
@@ -1038,37 +1043,122 @@ def any_hit(target, kind, org, direction, t_init, ignore_prim=None,
                   ignore_prim2, time, prim_offset, carry, any_hit=True)
 
 
-def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
-                        t_init, ignore_prim=None, ignore_prim2=None,
-                        any_hit=False, want_counters=False):
-    """The kernel's walk in vectorised torch: per-ray stacks
-    [N, MAX_STACK] and a lockstep loop over the rays whose stack is not
-    empty; each step pops one entry per ray.  It walks the reference arrays
-    with the slab, Moeller-Trumbore and winner-encoding arithmetic of
-    ``csrc/traverse_tris.cu``, takes the argument forms of
-    ``traverse_tris`` and gives the same per-ray pop counts (summed per
-    block) for want_counters."""
-    n = org.shape[0]
-    dev = org.device
+def _slab_hits(blk, o, iv, t):
+    """The TPU kernel's slab test (trace_pallas.py:94-108) of the 8
+    children of wide nodes ``blk`` [..., 8, 8] against rays (origins
+    ``o`` and clamped inverse directions ``iv`` [..., 1, 3], running t
+    [..., 1]): [..., 8] true where the segment (0, t) meets a child's box
+    and the child is not empty (push weight 0)."""
+    t0 = (blk[..., 0:3] - o) * iv
+    t1 = (blk[..., 3:6] - o) * iv
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]),
+                       torch.clamp(lo[..., 2], min=0.0))
+    tf = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
+                       torch.minimum(hi[..., 2], t))
+    return (tn <= tf) & (tf > 0.0) & (blk[..., 6] != 0.0)
+
+
+def _push(stack, sp, rows, nodes, hitc, links, weight):
+    """Push the hit children ``hitc`` [k, 8] of wide nodes ``nodes`` [k]
+    onto the stacks ``rows`` [k] in ascending child index, a leaf child
+    (push weight >= 256) as -link - 1."""
+    lk = links[nodes]
+    val = torch.where(weight[nodes] >= 256.0, -lk - 1, lk)
+    hi_i = hitc.to(torch.int64)
+    pos = sp[rows][:, None] + torch.cumsum(hi_i, dim=1) - hi_i
+    at = rows[:, None].expand(-1, 8)
+    stack[at[hitc], pos[hitc]] = val[hitc]
+    sp[rows] += hi_i.sum(dim=1)
+
+
+def _tri_rows(r, o, d, t, ig1, ig2):
+    """The TPU kernel's Moeller-Trumbore test (trace_pallas.py:129-152) of
+    leaf rows ``r`` [..., 8, 16] against rays (``o``, ``d`` [..., 1, 3],
+    running t and ignore ids [..., 1]): (ok, t, u, v, prim) [..., 8]."""
+    v0x, v0y, v0z = r[..., 0], r[..., 1], r[..., 2]
+    e1x, e1y, e1z = r[..., 3], r[..., 4], r[..., 5]
+    e2x, e2y, e2z = r[..., 6], r[..., 7], r[..., 8]
+    cand = r[..., 9].to(torch.int32)
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = torch.where(torch.abs(det) < 1e-20, 0.0, 1.0 / det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    bv = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    bu = (dx * qx + dy * qy + dz * qz) * inv_det
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((bv >= 0.0) & (bv <= 1.0) & (bu >= 0.0) & (bu + bv <= 1.0)
+          & (tt > 0.0) & (tt < t) & (cand >= 0) & (cand != ig1)
+          & (cand != ig2))
+    return ok, tt, bu, bv, cand.expand_as(tt)
+
+
+def _winner(ok, tt):
+    """The TPU kernel's winner of a leaf (trace_pallas.py:160-173): the
+    minimum of (bits(t) & ~7) | row over the rows ``ok`` [..., 8]; returns
+    (won [...], row [...] int64)."""
+    rows = torch.arange(LEAF, dtype=torch.int32, device=tt.device)
+    enc = torch.where(ok, (tt.view(torch.int32) & ~K_MASK) | rows, NO_HIT)
+    best = enc.amin(dim=-1)
+    return best < NO_HIT, (best & K_MASK).to(torch.int64)
+
+
+def _pick(x, row):
+    """x [..., 8] at the leaf row ``row`` [...]."""
+    return x.gather(-1, row[..., None]).squeeze(-1)
+
+
+def _start(org, direction, t_init, ignore_prim, ignore_prim2):
+    """A wavefront as the walks take it: (inverse directions, running t,
+    both ignore ids as int64 [N])."""
+    n, dev = org.shape[0], org.device
     none = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    ignore_prim = none if ignore_prim is None else ignore_prim
-    ignore_prim2 = none if ignore_prim2 is None else ignore_prim2
-    inv = inv_dir(direction)
+    ig1 = none if ignore_prim is None else ignore_prim.to(torch.int64)
+    ig2 = none if ignore_prim2 is None else ignore_prim2.to(torch.int64)
     if isinstance(t_init, torch.Tensor):
         t = t_init.clone()
     else:
         t = torch.full((n,), float(t_init), dtype=torch.float32, device=dev)
+    return inv_dir(direction), t, ig1, ig2
+
+
+def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
+                        t_init, ignore_prim=None, ignore_prim2=None,
+                        any_hit=False, want_counters=False, ray_pops=False):
+    """The kernel's walk in vectorised torch: per-ray stacks
+    [N, MAX_STACK] and a lockstep loop over the rays whose stack is not
+    empty; each step pops one entry per ray.  It walks the reference arrays
+    with the slab, Moeller-Trumbore and winner-encoding arithmetic of
+    ``csrc/traverse_tris.cu`` and takes the argument forms of
+    ``traverse_tris``.  want_counters: the TPU kernel's union walk
+    instead, ``union_walk_plain``, whose counts are those of a 128-ray
+    tile.  ray_pops: also each ray's own inner and leaf pops [N] int32,
+    as ``simple_walk`` counts them."""
+    if want_counters:
+        return union_walk_plain(wbounds, wlinks, leaf_packed, org, direction,
+                                t_init, ignore_prim, ignore_prim2,
+                                any_hit=any_hit)
+    n = org.shape[0]
+    dev = org.device
+    inv, t, ig1, ig2 = _start(org, direction, t_init, ignore_prim,
+                              ignore_prim2)
     prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
     u = torch.zeros(n, dtype=torch.float32, device=dev)
     v = torch.zeros(n, dtype=torch.float32, device=dev)
-    iters = torch.zeros(n, dtype=torch.int64, device=dev)
-    leafs = torch.zeros(n, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, MAX_STACK), dtype=torch.int64, device=dev)
     sp = (t > 0).to(torch.int64)           # root (wide node 0) pushed
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    leafs = torch.zeros_like(iters)
     links = wlinks.to(torch.int64).reshape(-1, 8)
     weight = wbounds[:, :, 6]
-    karange = torch.arange(LEAF, dtype=torch.int32, device=dev)
     act = torch.nonzero(sp > 0)[:, 0]
     while act.numel():
         top = sp[act] - 1
@@ -1079,64 +1169,27 @@ def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
         ai, ei = act[inner], e[inner]
         iters[ai] += 1
         if ai.numel():
-            blk = wbounds[ei]                                   # [k, 8, 8]
-            o, iv = org[ai][:, None, :], inv[ai][:, None, :]
-            t0 = (blk[:, :, 0:3] - o) * iv
-            t1 = (blk[:, :, 3:6] - o) * iv
-            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-            tn = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]),
-                               torch.clamp(lo[..., 2], min=0.0))
-            tf = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
-                               torch.minimum(hi[..., 2], t[ai][:, None]))
-            w = weight[ei]
-            hitc = (tn <= tf) & (tf > 0.0) & (w != 0.0)         # [k, 8]
-            lk = links[ei]
-            val = torch.where(w >= 256.0, -lk - 1, lk)
-            hi_i = hitc.to(torch.int64)
-            pos = sp[ai][:, None] + torch.cumsum(hi_i, dim=1) - hi_i
-            rows = ai[:, None].expand(-1, 8)
-            stack[rows[hitc], pos[hitc]] = val[hitc]
-            sp[ai] += hi_i.sum(dim=1)
+            hitc = _slab_hits(wbounds[ei], org[ai][:, None, :],
+                              inv[ai][:, None, :], t[ai][:, None])
+            _push(stack, sp, ai, ei, hitc, links, weight)
 
         al, el = act[~inner], e[~inner]
         leafs[al] += 1
         if al.numel():
             lid = -el - 1
-            r = leaf_packed[lid]                                # [k, 8, 16]
-            v0x, v0y, v0z = r[..., 0], r[..., 1], r[..., 2]
-            e1x, e1y, e1z = r[..., 3], r[..., 4], r[..., 5]
-            e2x, e2y, e2z = r[..., 6], r[..., 7], r[..., 8]
-            cand = r[..., 9].to(torch.int32)
-            ox, oy, oz = (org[al, c][:, None] for c in range(3))
-            dx, dy, dz = (direction[al, c][:, None] for c in range(3))
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            inv_det = torch.where(torch.abs(det) < 1e-20, 0.0, 1.0 / det)
-            tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-            bv = (tx * px + ty * py + tz * pz) * inv_det
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            bu = (dx * qx + dy * qy + dz * qz) * inv_det
-            tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            ok = ((bv >= 0.0) & (bv <= 1.0) & (bu >= 0.0)
-                  & (bu + bv <= 1.0) & (tt > 0.0) & (tt < t[al][:, None])
-                  & (cand >= 0) & (cand != ignore_prim[al][:, None])
-                  & (cand != ignore_prim2[al][:, None]))
+            ok, tt, bu, bv, cand = _tri_rows(
+                leaf_packed[lid], org[al][:, None, :],
+                direction[al][:, None, :], t[al][:, None],
+                ig1[al][:, None], ig2[al][:, None])
             if any_hit:
                 b = al[ok.any(dim=1)]
                 prim[b] = 0
                 t[b] = -1.0
                 sp[b] = 0
             else:
-                enc = torch.where(ok, (tt.view(torch.int32) & ~K_MASK) | karange,
-                                  NO_HIT)
-                best = enc.amin(dim=1)
-                win = best < NO_HIT
+                win, k = _winner(ok, tt)
                 wr = torch.nonzero(win)[:, 0]
-                k = (best[wr] & K_MASK).to(torch.int64)
+                k = k[wr]
                 dst = al[wr]
                 t[dst] = tt[wr, k]
                 u[dst] = bu[wr, k]
@@ -1144,6 +1197,102 @@ def traverse_tris_plain(wbounds, wlinks, leaf_packed, org, direction,
                 prim[dst] = cand[wr, k].to(torch.int64)
                 slot[dst] = lid[wr] * LEAF + k
         act = act[sp[act] > 0]
-    if want_counters:
-        return t, prim, u, v, slot, block_sums(iters), block_sums(leafs)
-    return t, prim, u, v, slot
+    return (t, prim, u, v, slot) + ((iters, leafs) if ray_pops else ())
+
+
+def union_walk_plain(wbounds, wlinks, leaf_packed, org, direction, t_init,
+                     ignore_prim=None, ignore_prim2=None, any_hit=False,
+                     tile_stats=False):
+    """The TPU kernel's union walk with ``want_counters``
+    (trace_pallas.py:60-220), in vectorised torch: what ``union_kernel``
+    computes.  The rays, padded to whole ``BLOCK``s with dead lanes
+    (t_init 0, no ignore id), fall in tiles of ``TILE`` = 128.  A tile
+    walks the union of its lanes' hits with one stack: an inner pop pushes
+    a child (ascending child index) when any lane's slab test at its own
+    running t hits it, a leaf pop tests every lane against every row.
+    Any-hit sets a blocked lane's prim to 0 and its t to -1 and stops a
+    tile once none of its 128 lanes is open (dead and padded lanes count
+    as open); a tile without a live lane pops its root once.  Each tile
+    has its own stack [MAX_STACK], and the loop runs in lockstep over the
+    tiles still walking, one pop a tile a step.
+
+    Returns (t, prim, u, v, slot) as ``traverse_tris`` does and (iters,
+    leafs) [ceil(N/BLOCK)] int32, the inner and leaf pops of a block's 8
+    tiles.  tile_stats: also, per tile [n_tiles] int64, its inner pops,
+    its leaf pops, its live lanes (t_init > 0) and the sums over its inner
+    and over its leaf pops of the lanes open at the pop (live and, under
+    any-hit, not yet blocked): the lanes whose test a pop needs."""
+    n, dev = org.shape[0], org.device
+    n_pad = -(-n // BLOCK) * BLOCK
+    n_tiles = n_pad // TILE
+    inv, t, ig1, ig2 = _start(org, direction, t_init, ignore_prim,
+                              ignore_prim2)
+    pad = lambda x, fill: torch.cat(
+        [x, x.new_full((n_pad - n,) + x.shape[1:], fill)])
+    lane = lambda x, fill: pad(x, fill).reshape(n_tiles, TILE, *x.shape[1:])
+    # padded lanes as the TPU kernel pads them: every input 0, ids -1
+    o, d, iv = (lane(x, 0.0)[:, :, None] for x in (org, direction, inv))
+    ig1, ig2 = lane(ig1, -1)[..., None], lane(ig2, -1)[..., None]
+    t = lane(t, 0.0)
+    live = (t > 0).sum(dim=1)
+    prim = torch.full((n_tiles, TILE), -1, dtype=torch.int64, device=dev)
+    slot = prim.clone()
+    u = torch.zeros((n_tiles, TILE), dtype=torch.float32, device=dev)
+    v = torch.zeros_like(u)
+    stack = torch.zeros((n_tiles, MAX_STACK), dtype=torch.int64, device=dev)
+    sp = torch.ones(n_tiles, dtype=torch.int64, device=dev)   # the root
+    nopen = torch.full((n_tiles,), TILE, dtype=torch.int64, device=dev)
+    iters = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    leafs = torch.zeros_like(iters)
+    inner_lanes = torch.zeros_like(iters)
+    leaf_lanes = torch.zeros_like(iters)
+    links = wlinks.to(torch.int64).reshape(-1, 8)
+    weight = wbounds[:, :, 6]
+    act = torch.arange(n_tiles, device=dev)
+    while act.numel():
+        top = sp[act] - 1
+        e = stack[act, top]
+        sp[act] = top
+        inner = e >= 0
+
+        ai, ei = act[inner], e[inner]
+        iters[ai] += 1
+        if tile_stats:
+            n_open = (t[act] > 0).sum(dim=1)
+            inner_lanes[ai] += n_open[inner]
+            leaf_lanes[act[~inner]] += n_open[~inner]
+        if ai.numel():
+            hitc = _slab_hits(wbounds[ei][:, None], o[ai], iv[ai],
+                              t[ai][..., None])              # [k, 128, 8]
+            _push(stack, sp, ai, ei, hitc.any(dim=1), links, weight)
+
+        al, el = act[~inner], e[~inner]
+        leafs[al] += 1
+        if al.numel():
+            lid = -el - 1
+            ok, tt, bu, bv, cand = _tri_rows(
+                leaf_packed[lid][:, None], o[al], d[al], t[al][..., None],
+                ig1[al], ig2[al])                             # [k, 128, 8]
+            if any_hit:
+                blocked = ok.any(dim=2)
+                prim[al] = torch.where(blocked, 0, prim[al])
+                t[al] = torch.where(blocked, -1.0, t[al])
+                nopen[al] = (prim[al] < 0).sum(dim=1)
+            else:
+                win, k = _winner(ok, tt)
+                keep = lambda new, old: torch.where(win, new, old)
+                t[al] = keep(_pick(tt, k), t[al])
+                u[al] = keep(_pick(bu, k), u[al])
+                v[al] = keep(_pick(bv, k), v[al])
+                prim[al] = keep(_pick(cand, k).to(torch.int64), prim[al])
+                slot[al] = keep(lid[:, None] * LEAF + k, slot[al])
+        go = sp[act] > 0
+        if any_hit:
+            go &= nopen[act] > 0
+        act = act[go]
+    per_block = lambda x: x.reshape(-1, BLOCK // TILE).sum(dim=1).to(
+        torch.int32)
+    out = tuple(x.reshape(-1)[:n] for x in (t, prim, u, v, slot)) + (
+        per_block(iters), per_block(leafs))
+    stats = (iters, leafs, live, inner_lanes, leaf_lanes)
+    return out + stats if tile_stats else out

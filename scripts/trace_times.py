@@ -48,6 +48,12 @@ Cases (--cases names a subset; all by default):
   edges  the plane scene's static tree on chip_smoke.edge_rays: its deep
          and skip forms and its wide walk, each against its plain
          version, the rays that differ counted;
+  union  the union walk of want_counters (union_kernel: each 128-ray tile
+         walks the union of its rays' hits) on chip_smoke.py's phase 6
+         cases (cornell, plane and the 2^17-triangle soup; bounce rays
+         closest-hit, shadow segments any-hit; 589,824 rays a call),
+         each held to the plain union walk (every block's counts) and
+         timed, with ptxas' registers of the union instantiations;
   profile  one hair progression under torch.profiler: device ms of each
          traversal form, total device ms, CUDA launches, busy share;
   forms  chip_smoke.py's phase 3b: every form that replaces XLA's
@@ -79,6 +85,31 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def union_times(cs, dev, card, root):
+    """The union kernel on phase 6's cases: ms a launch, its pops a tile,
+    held to the plain union walk's counts on every block."""
+    from corona13_tpu_torch.ops import trace_cuda
+    cases = cs.main_cases(cs.main_bvhs(dev)[0], dev)
+    out = {}
+    for name in [f'{b}/{k}' for b in ('cornell', 'plane', 'soup')
+                 for k in ('bounce', 'shadow')]:
+        b, ah, argsets = cases[name]
+        union = lambda i: trace_cuda.traverse_tris(
+            b, *argsets[i], any_hit=ah, want_counters=True)
+        k = union(0)
+        p = trace_cuda.union_walk_plain(b.wbounds, b.wlinks, b.leaf_packed,
+                                        *argsets[0], any_hit=ah)
+        cs.check(torch.equal(k[5], p[5]) and torch.equal(k[6], p[6]),
+                 f'{name}: union counts differ from plain (tree {root})')
+        ms = cs._time_ms(union, 2, 20)
+        pops = float((k[5].sum() + k[6].sum()).item()) / (cs.N_RAYS / 128)
+        print(f'union {name} {"any" if ah else "closest"}-hit: {ms:.4f} ms, '
+              f'{pops:.1f} pops a tile, counts equal to plain, on {card}, '
+              f'tree {root}', flush=True)
+        out[name] = dict(ms=ms, pops_per_tile=pops)
+    return out
 
 
 def main():
@@ -225,6 +256,13 @@ def main():
         frames['zoom paths vs cpu'] = cs.paths_against_cpu(
             f'zoom paths (tree {root})', cs._zoom_scene, 64, 36, dev,
             gate=False, max_verts=6)
+    if 'union' in cases:
+        frames['union'] = union_times(cs, dev, card, root)
+        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+                if k.startswith('union')}
+        for k, v in regs.items():
+            print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
+        frames['union registers'] = regs
     if 'edges' in cases:
         plane = scene_mod.fit_film(testing.plane_scene(device=dev), cs.W,
                                    cs.H)

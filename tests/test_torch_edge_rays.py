@@ -16,7 +16,10 @@ wins.  There the three walks disagree, and the reference's two paths
 disagree with each other: a named expected difference of the reference
 (ROADMAP Queue 3), not a defect of the port.  This file pins on how many
 of the 65,536 rays each pair differs in a bit of (t, prim, u, v, slot),
-and on how many of those one walk hits and the other misses.
+and on how many of those one walk hits and the other misses.  The port's
+union walk (``trace_cuda.union_walk_plain``, what ``traverse_tris(...,
+want_counters=True)`` runs) is the Pallas kernel's own walk of each
+128-ray tile, so it is held to the Pallas kernel on every ray: 0 differ.
 The Pallas kernel runs in interpret mode in a child process without FMA
 (``--xla_cpu_max_isa=AVX``), as tests/test_torch_moving_form.py runs the
 JAX package, so that it rounds operation by operation as torch does; on a
@@ -46,6 +49,9 @@ MAX_DIST = 3.4e38
 PORT_VS_SKIP_LINKS = (4787, 0)
 PALLAS_VS_SKIP_LINKS = (5210, 193)
 PALLAS_VS_PORT = (447, 193)
+# the port's union walk (trace_cuda.union_walk_plain: want_counters, the
+# TPU kernel's own walk of each 128-ray tile) against the Pallas kernel
+PALLAS_VS_UNION = (0, 0)
 
 _CHILD = r'''
 import json, sys
@@ -90,8 +96,9 @@ def _differ(a, b):
 
 @pytest.fixture(scope='module')
 def walks(tmp_path_factory):
-    """(skip-link walk, the port's wide walk, the Pallas kernel) on
-    chip_smoke.edge_rays of the plane scene's static tree."""
+    """(skip-link walk, the port's wide walk, the Pallas kernel, the port's
+    union walk) on chip_smoke.edge_rays of the plane scene's static
+    tree."""
     spec = importlib.util.spec_from_file_location(
         'chip_smoke', os.path.join(ROOT, 'chip_smoke.py'))
     cs = importlib.util.module_from_spec(spec)
@@ -106,6 +113,8 @@ def walks(tmp_path_factory):
                                   none)
     port = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
                                           org, d, t)
+    union = trace_cuda.union_walk_plain(b.wbounds, b.wlinks, b.leaf_packed,
+                                        org, d, t)[:5]
     tmp = str(tmp_path_factory.mktemp('pallas'))
     np.savez(os.path.join(tmp, 'in.npz'), wbounds=b.wbounds.numpy(),
              wlinks=b.wlinks.numpy(), leaf_packed=b.leaf_packed.numpy(),
@@ -119,7 +128,7 @@ def walks(tmp_path_factory):
                    env=env, check=True, timeout=300, cwd=ROOT)
     got = np.load(os.path.join(tmp, 'out.npz'))
     pallas = [got[f'arr_{i}'] for i in range(5)]
-    return skip, port, pallas
+    return skip, port, pallas, union
 
 
 def test_static_walk_edge_rays_reference_defect(walks):
@@ -127,12 +136,14 @@ def test_static_walk_edge_rays_reference_defect(walks):
     winner) against the skip-link walk (XLA's _traverse), and the Pallas
     kernel against each.  Every difference is one of prim; the port's walk
     and the skip-link walk hit the same rays, the Pallas kernel hits or
-    misses 193 others on its own."""
-    skip, port, pallas = walks
+    misses 193 others on its own.  The port's union walk is the Pallas
+    kernel's walk: it differs on no ray."""
+    skip, port, pallas, union = walks
     assert (_bits(skip[1]) >= 0).mean() > 0.8
     pairs = {'port vs skip links': (port, skip, PORT_VS_SKIP_LINKS),
              'pallas vs skip links': (pallas, skip, PALLAS_VS_SKIP_LINKS),
-             'pallas vs port': (pallas, port, PALLAS_VS_PORT)}
+             'pallas vs port': (pallas, port, PALLAS_VS_PORT),
+             'pallas vs union': (pallas, union, PALLAS_VS_UNION)}
     for name, (a, b, (want, want_hit)) in pairs.items():
         off = _differ(a, b)
         pa, pb = _bits(a[1]), _bits(b[1])

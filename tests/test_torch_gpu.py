@@ -160,12 +160,39 @@ def test_kernel_rejects_bad_inputs(cuda):
                                  t0, ig)
 
 
+def _union_vs_plain(b, org, d, t0, ig, any_hit, ig2=None):
+    """union_kernel (traverse_tris with want_counters) against
+    union_walk_plain on the same card and inputs: the per-block counts and
+    every bit of (t, prim, u, v, slot) equal, two launches bit-identical,
+    and only the 'counters' launch count moves.  Returns the outputs."""
+    before = dict(trace_cuda.launches)
+    k = trace_cuda.traverse_tris(b, org, d, t0, ig, ig2, any_hit=any_hit,
+                                 want_counters=True)
+    again = trace_cuda.traverse_tris(b, org, d, t0, ig, ig2, any_hit=any_hit,
+                                     want_counters=True)
+    torch.cuda.synchronize()
+    moved = {key: trace_cuda.launches[key] - before[key] for key in before
+             if trace_cuda.launches[key] != before[key]}
+    assert moved == {'counters': 2}
+    n_blocks = -(-org.shape[0] // trace_cuda.BLOCK)
+    assert k[5].shape == k[6].shape == (n_blocks,)
+    assert k[5].dtype == k[6].dtype == torch.int32
+    assert k[1].dtype == k[4].dtype == torch.int64
+    for x, y in zip(k, again):
+        assert torch.equal(_bits(x), _bits(y))
+    p = trace_cuda.union_walk_plain(b.wbounds, b.wlinks, b.leaf_packed, org,
+                                    d, t0, ig, ig2, any_hit=any_hit)
+    for name, x, y in zip(('t', 'prim', 'u', 'v', 'slot', 'iters', 'leafs'),
+                          k, p):
+        assert torch.equal(_bits(x), _bits(y)), name
+    return [x.cpu().numpy() for x in k]
+
+
 @pytest.mark.parametrize('any_hit', [False, True])
 def test_kernel_counters_match_plain(cuda, any_hit):
-    """want_counters: the kernel's per-block inner and leaf pops equal the
-    plain walk's on every block (both count the same per-ray walk), the
-    hit outputs agree as above, and only the 'counters' launch count
-    moves."""
+    """want_counters: the union kernel's per-block inner and leaf pops and
+    its hits equal the plain union walk's on a 20,000-triangle soup, with
+    a ragged last block, dead lanes and short segments."""
     geom = ttrace.make_device_geometry(tri_v=_soup(20000, 11), device=cuda)
     b = geom.tri_bvh
     n = 65536 + 300                                 # a ragged last block
@@ -174,25 +201,38 @@ def test_kernel_counters_match_plain(cuda, any_hit):
     t0[::5] = 6.0
     t0[:40] = 0.0
     ig = torch.full((n,), -1, dtype=torch.int32, device=cuda)
-    before = dict(trace_cuda.launches)
-    k = trace_cuda.traverse_tris(b, org, d, t0, ig, any_hit=any_hit,
-                                 want_counters=True)
-    torch.cuda.synchronize()
-    assert trace_cuda.launches['counters'] == before['counters'] + 1
-    assert trace_cuda.launches['closest'] == before['closest']
-    assert trace_cuda.launches['any'] == before['any']
-    p = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
-                                       org, d, t0, ig, any_hit=any_hit,
-                                       want_counters=True)
-    k = [x.cpu().numpy() for x in k]
-    p = [x.cpu().numpy() for x in p]
-    assert k[5].shape == k[6].shape == (65,) and k[5].dtype == np.int32
-    np.testing.assert_array_equal(k[5], p[5])
-    np.testing.assert_array_equal(k[6], p[6])
+    k = _union_vs_plain(b, org, d, t0, ig, any_hit)
+    assert k[5].shape == (65,)
     assert (k[5] > 0).all() and (k[6] > 0).all()
-    assert (k[1] == p[1]).mean() >= 0.999
-    plain5 = trace_cuda.traverse_tris(b, org, d, t0, ig, any_hit=any_hit)
-    np.testing.assert_array_equal(plain5[1].cpu().numpy(), k[1])
+
+
+def test_kernel_counters_blocked_shadow_tiles(cuda):
+    """Full tiles of shadow segments, some blocked and some not, with both
+    ignore ids set: the union kernel equals the plain union walk, and the
+    per-ray walk (simple_walk, counted as 'tri_counters') gives each ray's
+    own pops as the plain per-ray walk counts them."""
+    geom = ttrace.make_device_geometry(tri_v=_soup(20000, 12), device=cuda)
+    b = geom.tri_bvh
+    n = 8 * trace_cuda.BLOCK
+    org, d = _rays(n, 7, cuda)
+    g = torch.Generator(device='cpu').manual_seed(3)
+    t0 = (0.2 + 6.0 * torch.rand(n, generator=g)).to(cuda)
+    ig = torch.randint(0, 20000, (n,), generator=g).to(cuda)
+    ig2 = torch.randint(0, 20000, (n,), generator=g).to(cuda)
+    k = _union_vs_plain(b, org, d, t0, ig, True, ig2)
+    blocked = (k[1] >= 0).reshape(-1, 128)
+    assert (blocked.any(axis=1) & ~blocked.all(axis=1)).all()
+    before = dict(trace_cuda.launches)
+    s = trace_cuda.simple_walk(b, org, d, t0, ig, ig2, any_hit=True)
+    torch.cuda.synchronize()
+    assert trace_cuda.launches['tri_counters'] == before['tri_counters'] + 1
+    assert trace_cuda.launches['counters'] == before['counters']
+    p = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
+                                       org, d, t0, ig, ig2, any_hit=True,
+                                       ray_pops=True)
+    assert torch.equal(s[1] >= 0, p[1] >= 0)
+    assert torch.equal(s[5], p[5]) and torch.equal(s[6], p[6])
+    np.testing.assert_array_equal(s[1].cpu().numpy() >= 0, k[1] >= 0)
 
 
 # --- the forms that replace XLA's skip-link _traverse ------------------------

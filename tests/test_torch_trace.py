@@ -353,12 +353,14 @@ def _one_live_lane_per_tile(n_blocks, seed, t_live):
 
 
 def test_plain_counters_match_pallas(soup):
-    """want_counters: the plain walk's per-block inner and leaf pops
-    against the Pallas kernel in interpret mode, one live lane per 128-ray
-    tile.  Closest-hit: equal per block.  Any-hit: equal on blocks whose
-    live rays are all unblocked, and <= elsewhere (the TPU union walk
-    keeps popping after its one ray is blocked; see trace_cuda's
-    docstring).  (t, prim, u, v, slot) as in the tests above."""
+    """want_counters: the port's per-block inner and leaf pops (the union
+    walk of each 128-ray tile, ``trace_cuda.union_walk_plain``) against
+    the Pallas kernel in interpret mode, one live lane per 128-ray tile.
+    Equal on every block, closest-hit and any-hit: where a tile's one ray
+    is blocked, both keep popping, since a tile stops only once all 128
+    lanes are blocked (trace_pallas.py:159,188-193).  (t, prim, u, v,
+    slot) as in the tests above; tests/test_torch_union_walk.py holds the
+    walk on full tiles too."""
     nb = 6
     t_live = np.where(np.arange(nb * 8) < 24, 3.0e38, 1.5).astype(np.float32)
     org, d, t0, live = _one_live_lane_per_tile(nb, 9, t_live)
@@ -377,20 +379,16 @@ def test_plain_counters_match_pallas(soup):
         assert len(t) == 7 and t[5].shape == t[6].shape == (nb,)
         assert t[5].dtype == t[6].dtype == np.int32
         np.testing.assert_array_equal(t[1] >= 0, j[1] >= 0)
+        np.testing.assert_array_equal(t[5], j[5])
+        np.testing.assert_array_equal(t[6], j[6])
         if not any_hit:
             np.testing.assert_array_equal(t[1], j[1])
             np.testing.assert_array_equal(t[4], j[4])
             np.testing.assert_allclose(t[0], j[0], rtol=1e-5)
-            np.testing.assert_array_equal(t[5], j[5])
-            np.testing.assert_array_equal(t[6], j[6])
             assert (t[6] > 0).all() and (t[5] > t[6]).all()
         else:
             blocked = (t[1][live] >= 0).reshape(nb, 8).any(axis=1)
             assert blocked.any() and not blocked.all()
-            for k in (5, 6):
-                np.testing.assert_array_equal(t[k][~blocked], j[k][~blocked])
-                assert (t[k][blocked] <= j[k][blocked]).all()
-            assert (t[5][blocked] < j[5][blocked]).any()
     # an N that is no multiple of 1024: padded like the JAX package
     n = 1500
     o, dd = _rays(n, 3)
