@@ -4,6 +4,12 @@
 
 Phases (each prints its results; any failure exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit;
+  1b. rounding: the port's one square root (utils.math.sqrt, rsqrt) on
+     2^24 float32 inputs over every exponent, subnormals, +-0, +-inf,
+     negative values and NaN: the card's torch.sqrt against the CPU
+     helper and numpy's root, the helper's rsqrt on the card against the
+     CPU's (0 differing, each), the card's torch.rsqrt against 1 / sqrt_rn
+     counted;
   2. build: compiles the traversal kernels from corona13_tpu_torch/csrc
      with nvcc and prints the registers of each instantiation;
   3. kernel against plain: the CUDA kernel and its plain torch version on
@@ -78,6 +84,12 @@ Phases (each prints its results; any failure exits non-zero):
      form on 65,536 rays aimed at edges that two leaves of the 0002_mb
      plane share (edge_rays), every bit equal to the plain walk's; one
      hair progression under torch.profiler (device ms a form);
+  8d. the sphere frame (_sphere_scene: 65,536 spheres in a slab, the
+     sphere BVH form): a 1024x576 render with 5 sphere_closest and 5
+     sphere_any launches a frame, every sphere launch of one progression
+     held bit for bit and timed at the frame's shapes, the sphere form on
+     sphere edge rays (0 differing), one profiled progression, the paths
+     on the card against the CPU at 64x36, bar 0.99;
   8e. the zoom frame (_zoom_scene: a 65,536-triangle log-spiral ribbon
      at the origin, a ground and a light; its tree too deep for the wide
      stack): the tree's wdepth, wide stack need and binary levels, a
@@ -212,6 +224,78 @@ def device_phase():
           f'device {torch.cuda.get_device_name(0)} '
           f'count {torch.cuda.device_count()}', flush=True)
     return smi.splitlines()[0]
+
+
+# 2^24 float32 inputs of the rounding phase: random bit patterns over every
+# finite positive exponent (subnormals included), after the special values
+ROUNDING_SPECIAL = (0.0, -0.0, float('inf'), float('-inf'), float('nan'),
+                    -1.0, -1e-45, 1e-45, 1.1754942e-38, 1.1754944e-38,
+                    3.4028235e38, 1.0, 2.0, 4.0, 0.25)
+
+
+def rounding_inputs(n=1 << 24, seed=16):
+    """The rounding phase's float32 inputs, made from ``seed``."""
+    x = np.random.default_rng(seed).integers(0, 0x7f800000, n,
+                                             dtype=np.uint32).view(np.float32)
+    x[:len(ROUNDING_SPECIAL)] = ROUNDING_SPECIAL
+    return x
+
+
+def differ_bits(a, b):
+    """Elements whose bits differ, a NaN equal to any NaN."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(a) & np.isnan(b)
+    return int(((a.view(np.uint32) != b.view(np.uint32)) & ~nan).sum())
+
+
+def rounding_phase(card):
+    """Phase 1b: the port's roots on the card against the CPU's.  Every root
+    of the port goes through utils.math.sqrt / rsqrt, whose CUDA branch is
+    torch's sqrt and whose CPU branch rounds a double's root: the card's
+    torch.sqrt must equal the CPU helper and numpy's root, and the helper's
+    rsqrt on the card the CPU's, on every input (0 differing; NaN compared
+    as NaN).  The card's own torch.rsqrt against 1 / sqrt_rn is counted:
+    the reason the helper divides."""
+    from corona13_tpu_torch.utils import math as tmath
+    x = rounding_inputs()
+    phase(f'rounding of roots: {x.size} float32 inputs over every exponent, '
+          f'subnormals, +-0, +-inf, negative values and NaN, on {card}')
+    xc = torch.from_numpy(x)
+    xg = xc.cuda()
+    with np.errstate(invalid='ignore', divide='ignore'):
+        rn = np.sqrt(x)
+        inv = np.float32(1.0) / rn
+    cpu_sqrt, cpu_rsqrt = tmath.sqrt(xc).numpy(), tmath.rsqrt(xc).numpy()
+    card_sqrt = torch.sqrt(xg).cpu().numpy()
+    out = {
+        'card torch.sqrt against the CPU helper': differ_bits(card_sqrt,
+                                                              cpu_sqrt),
+        'card torch.sqrt against numpy': differ_bits(card_sqrt, rn),
+        'card helper sqrt against the CPU helper': differ_bits(
+            tmath.sqrt(xg).cpu().numpy(), cpu_sqrt),
+        'CPU helper sqrt against numpy': differ_bits(cpu_sqrt, rn),
+        'card helper rsqrt against the CPU helper': differ_bits(
+            tmath.rsqrt(xg).cpu().numpy(), cpu_rsqrt),
+        'CPU helper rsqrt against numpy 1 / sqrt': differ_bits(cpu_rsqrt,
+                                                               inv),
+    }
+    card_rsqrt = torch.rsqrt(xg).cpu().numpy()
+    fin = np.isfinite(inv) & np.isfinite(card_rsqrt)
+    ulps = np.abs(card_rsqrt[fin].view(np.int32).astype(np.int64)
+                  - inv[fin].view(np.int32).astype(np.int64))
+    reading = {
+        'card torch.rsqrt against 1 / sqrt_rn': differ_bits(card_rsqrt, inv),
+        'card torch.rsqrt, largest ulp apart': int(ulps.max()),
+        'CPU torch.sqrt against numpy': differ_bits(torch.sqrt(xc).numpy(),
+                                                    rn),
+    }
+    for k, v in out.items():
+        print(f'{k}: {v} differ (must be 0)', flush=True)
+    for k, v in reading.items():
+        print(f'{k}: {v} (a reading)', flush=True)
+    for k, v in out.items():
+        check(v == 0, f'rounding: {k}: {v} differ')
+    return {**out, **reading}
 
 
 def build_phase():
@@ -1370,9 +1454,10 @@ def sphere_frame_phase(dev, card):
     sphere BVH form) at full width, launch counts asserted; every sphere
     launch of one progression held against its plain version and timed at
     the frame's own shapes (frame_forms); its paths on the card against the
-    CPU at 64x36, read against the bar of 0.99 and reported; the sphere form on rays aimed at points two spheres of
-    different leaves share (sphere_edge_rays), on the frame's spheres and
-    on phase 3b's soup; one progression under torch.profiler."""
+    CPU at 64x36, bar 0.99; the sphere form on rays aimed at points two
+    spheres of different leaves share (sphere_edge_rays), on the frame's
+    spheres and on phase 3b's soup; one progression under
+    torch.profiler."""
     from corona13_tpu_torch import scene as scene_mod
     from corona13_tpu_torch.ops import trace as trace_mod
     from corona13_tpu_torch.samplers import pt as pt_mod
@@ -1397,22 +1482,12 @@ def sphere_frame_phase(dev, card):
                          strict='sphere' in EXACT_KINDS)
     del soup
     profile = _profile_frame('sphere frame', sc, cfg, card)
-    # the card against the CPU, read against the bar of 0.99 and reported,
-    # not gated: a bounce off a small sphere carries an ulp of its hit
-    # point and normal into the next vertex (torch's CPU sqrt is not
-    # correctly rounded; on 300 of these spheres the JAX package agrees
-    # with itself, FMA on against off, on about 97% of paths:
-    # tests/test_torch_sphere_form.py)
-    close = paths_against_cpu('sphere paths', _sphere_scene, 64, 36, dev,
-                              gate=False, max_verts=6)
-    print(f'sphere paths: card against CPU {close:.4f}, '
-          f'{"at or above" if close >= 0.99 else "BELOW"} the bar of 0.99',
-          flush=True)
+    close = cell_vs_cpu('spheres', dev)
     return dict(frame_s=res.seconds / 2, rays=rays,
                 mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
                 mean=float(res.image_xyz.mean()), launches=launches,
                 frame_forms=forms, edges=edges, profile=profile,
-                paths_vs_cpu=close, paths_vs_cpu_meets_bar=close >= 0.99)
+                paths_vs_cpu=close)
 
 
 def zoom_tree_report(b):
@@ -1508,8 +1583,7 @@ def zoom_frame_phase(dev, card):
           f'mf=4, max_verts=6, NEE, on {card}')
     forms, edges = deep_forms('zoom', sc, cfg, card)
     profile = _profile_frame('zoom frame', sc, cfg, card)
-    close = paths_against_cpu('zoom paths', _zoom_scene, 64, 36, dev,
-                              max_verts=6)
+    close = cell_vs_cpu('zoom', dev)
     return dict(frame_s=res.seconds / 2, frame_s_spread=secs, rays=rays,
                 mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
                 mean=float(res.image_xyz.mean()), launches=launches,
@@ -1805,10 +1879,11 @@ def _hair_scene(dev, n_fibers=1 << 16, seed=0, radii=(0.1, 0.06)):
     and a small area light, made from ``seed``; the camera at the origin
     looks down +z over it.  The fibres are thick on purpose: the cone
     test's c = |o|^2 - ya^2 - s^2 cancels when a ray starts far from a thin
-    fibre, so an ulp between the card's and the CPU's sin, cos or sqrt
-    moves such a hit by percents and each bounce multiplies it (radii
-    (0.03, 0.01): 97.0% of the 64x36 paths equal the CPU's; (0.06, 0.03):
-    99.3%; (0.1, 0.06): 99.7%; NVIDIA H100 80GB HBM3, 700.00 W)."""
+    fibre, so an ulp between the card's and the CPU's sin, cos, erf or
+    division by a constant (scripts/bisect_vs_cpu.py) moves such a hit by
+    percents and each bounce multiplies it (radii (0.03, 0.01): 98.96% of
+    the 64x36 paths equal the CPU's; (0.1, 0.06): 99.96%; NVIDIA H100 80GB
+    HBM3, 700.00 W, scripts/paths_vs_cpu.py)."""
     from corona13_tpu_torch import scene as scene_mod
     from corona13_tpu_torch import testing
     from corona13_tpu_torch.io import cam as cam_io
@@ -1980,6 +2055,77 @@ def paths_against_cpu(name, build, w, h, dev, gate=True, **cfg_kw):
     return close
 
 
+def vs_cpu_cells():
+    """The scenes whose paths the card is held to the CPU on: cell ->
+    (label, build(device, env), w, h, gated at 0.99, PTConfig keywords).
+    ``env`` is the sky's envmap, fitted once on the card (the CPU fits
+    nothing).  The phases and scripts/paths_vs_cpu.py and
+    scripts/bisect_vs_cpu.py read the cells from here."""
+    import dataclasses
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.models import daylight
+    load = lambda name: lambda d, env: scene_mod.load_scene(
+        _scene_path(name), device=d)[0]
+    return {
+        'cornell': ('main path (cornell)',
+                    lambda d, env: testing.cornell_scene(device=d), 64, 36,
+                    True, dict(max_verts=6)),
+        '0031_hete': ('media path (0031_hete)', load('0031_hete'), 64, 40,
+                      True, dict(max_verts=8, media=True)),
+        '0002_mb': ('0002_mb paths', load('0002_mb'), 64, 40, True,
+                    dict(max_verts=6)),
+        'hair': ('hair paths', lambda d, env: _hair_scene(d), 64, 36, True,
+                 dict(max_verts=6)),
+        # fibres as thin as real hair: see _hair_scene; the share is kept
+        # in sight so that a change to the cone test shows here, and is
+        # held to no bar
+        'hair_thin': ('hair paths, thin fibres (radii 0.03 to 0.01)',
+                      lambda d, env: _hair_scene(d, radii=(0.03, 0.01)), 64,
+                      36, False, dict(max_verts=6)),
+        # a bounce off a small sphere carries an ulp of its hit point and
+        # normal into the next vertex, so the share rests on both devices
+        # rounding their roots alike (utils.math.sqrt, rsqrt; phase 1b)
+        'spheres': ('sphere paths', lambda d, env: _sphere_scene(d), 64, 36,
+                    True, dict(max_verts=6)),
+        'zoom': ('zoom paths', lambda d, env: _zoom_scene(d), 64, 36, True,
+                 dict(max_verts=6)),
+        'sky': ('sky paths (envmap NEE)', lambda d, env: dataclasses.replace(
+            testing.plane_scene(device=d), envmap=_moved(env, d),
+            has_envmap=True), 64, 36, True, dict(max_verts=6)),
+        'daylight': ('daylight paths', lambda d, env: dataclasses.replace(
+            testing.plane_scene(device=d), has_daylight=True,
+            daylight=daylight.build(SUN_DIR, 2.5, device=d)), 64, 36, True,
+            dict(max_verts=6)),
+    }
+
+
+def sky_rgb():
+    """The sky phase's envmap: a 1024x2048 gradient sky, the sun at
+    SUN_DIR at radiance 200."""
+    from corona13_tpu_torch.models import envmap
+    return envmap.make_gradient_sky(sun_dir=SUN_DIR, sun_radiance=200.0,
+                                    res=(1024, 2048))
+
+
+def sky_env(dev):
+    """The sky cell's envmap tables, fitted on ``dev`` over the plane
+    scene."""
+    from corona13_tpu_torch import testing
+    return testing.plane_scene(device=dev).with_envmap(sky_rgb()).envmap
+
+
+def cell_vs_cpu(cell, dev, gate=None, env=None):
+    """paths_against_cpu on the cell of vs_cpu_cells: its own bar, or none
+    with gate=False.  The sky cell fits its envmap on the card unless
+    ``env`` is given."""
+    label, build, w, h, gated, cfg_kw = vs_cpu_cells()[cell]
+    if cell == 'sky' and env is None:
+        env = sky_env(dev)
+    return paths_against_cpu(label, lambda d: build(d, env), w, h, dev,
+                             gate=gated if gate is None else gate, **cfg_kw)
+
+
 def prims_phase(dev, card):
     """Phase 8b: 0002_mb (moving triangles) and the hair frame (a line
     BVH) at full width, launch counts asserted, and each on the card
@@ -1997,9 +2143,7 @@ def prims_phase(dev, card):
     out['0002_mb'] = dict(frame_s=res.seconds / 2, rays=rays,
                           mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
                           mean=float(res.image_xyz.mean()), launches=launches,
-                          paths_vs_cpu=paths_against_cpu(
-                              '0002_mb paths', load_mb, 64, 40, dev,
-                              max_verts=6))
+                          paths_vs_cpu=cell_vs_cpu('0002_mb', dev))
     t0 = time.time()
     hair = scene_mod.fit_film(_hair_scene(dev), W, H)
     print(f'hair scene: {hair.geom.n_lines} fibres, line BVH of '
@@ -2014,16 +2158,8 @@ def prims_phase(dev, card):
     out['hair'] = dict(frame_s=res.seconds / 2, rays=rays,
                        mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
                        mean=float(res.image_xyz.mean()), launches=launches,
-                       paths_vs_cpu=paths_against_cpu(
-                           'hair paths', _hair_scene, 64, 36, dev,
-                           max_verts=6),
-                       # fibres as thin as real hair: see _hair_scene; the
-                       # share is kept in sight so that a change to the cone
-                       # test shows here, and is held to no bar
-                       thin_paths_vs_cpu=paths_against_cpu(
-                           'hair paths, thin fibres (radii 0.03 to 0.01)',
-                           lambda d: _hair_scene(d, radii=(0.03, 0.01)), 64,
-                           36, dev, gate=False, max_verts=6))
+                       paths_vs_cpu=cell_vs_cpu('hair', dev),
+                       thin_paths_vs_cpu=cell_vs_cpu('hair_thin', dev))
     return out
 
 
@@ -2149,8 +2285,7 @@ def sky_phase(dev, card):
     phase(f'sky: envmap 1024x2048 (gradient sky, sun {SUN_DIR} at radiance '
           f'200) over the plane scene, on {card}')
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
-    rgb = envmap.make_gradient_sky(sun_dir=SUN_DIR, sun_radiance=200.0,
-                                   res=(1024, 2048))
+    rgb = sky_rgb()
     torch.cuda.synchronize()
     t0 = time.time()
     sky = plane.with_envmap(rgb)
@@ -2203,10 +2338,7 @@ def sky_phase(dev, card):
                          peak_gb=peak,
                          profile=_profile_frame('sky frame', sky, cfg, card))
     # the same tables on both devices: the CPU fits nothing
-    out['envmap']['paths_vs_cpu'] = paths_against_cpu(
-        'sky paths (envmap NEE)', lambda d: dataclasses.replace(
-            testing.plane_scene(device=d), envmap=_moved(env, d),
-            has_envmap=True), 64, 36, dev, max_verts=6)
+    out['envmap']['paths_vs_cpu'] = cell_vs_cpu('sky', dev, env=env)
 
     day = dataclasses.replace(plane, has_daylight=True, daylight=daylight.build(
         SUN_DIR, 2.5, device=dev))
@@ -2216,11 +2348,7 @@ def sky_phase(dev, card):
     out['daylight'] = dict(frame_s=res.seconds / 2, rays=rays,
                            mrays_per_s=rays / res.seconds / 1e6,
                            lit_share=lit, mean=float(res.image_xyz.mean()),
-                           paths_vs_cpu=paths_against_cpu(
-        'daylight paths', lambda d: dataclasses.replace(
-            testing.plane_scene(device=d), has_daylight=True,
-            daylight=daylight.build(SUN_DIR, 2.5, device=d)), 64, 36, dev,
-        max_verts=6))
+                           paths_vs_cpu=cell_vs_cpu('daylight', dev))
     return out, sky
 
 
@@ -3503,6 +3631,7 @@ def shard_phase(dev, card):
 
 def main():
     smi = device_phase()
+    rounding_phase(smi)
     from corona13_tpu_torch import scene as scene_mod
     from corona13_tpu_torch import testing
     dev = torch.device('cuda')
@@ -3521,9 +3650,7 @@ def main():
         'cornell', cornell, spp, gpu,
         forms=('closest', 'any', 'dense_sphere_closest', 'dense_sphere_any'))
     check(lit >= 0.95, f'only {lit} of the pixels are lit')
-    path_close = paths_against_cpu(
-        'main path (cornell)', lambda d: testing.cornell_scene(device=d), 64, 36,
-        dev, max_verts=6)
+    path_close = cell_vs_cpu('cornell', dev)
 
     plane = scene_mod.fit_film(testing.plane_scene(device=dev), W, H)
     res2, lit2, launches2, rays2 = render_phase('plane (8198 triangles)', plane,
@@ -3533,10 +3660,7 @@ def main():
     del bvhs, cases
     gold = golden_phase(dev)
     media = media_paths_phase(dev, smi)
-    media_close = paths_against_cpu(
-        'media path (0031_hete)', lambda d: scene_mod.load_scene(
-            _scene_path('0031_hete'), device=d)[0], 64, 40, dev, max_verts=8,
-        media=True)
+    media_close = cell_vs_cpu('0031_hete', dev)
     prims = prims_phase(dev, gpu)
     spheres = sphere_frame_phase(dev, smi)
     zoom = zoom_frame_phase(dev, smi)

@@ -250,7 +250,7 @@
 // of 65,536 rays aimed at points where two spheres of different leaves
 // meet on the frame's tree, and on 352 on the 2^16-sphere soup
 // (chip_smoke.sphere_edge_rays; scripts/moving_order.py --kind sphere
-// predicted 55 and 351 on the CPU, whose sqrt is not correctly rounded).
+// predicted 55 and 351 on the CPU, whose sqrt was then an ulp low).
 // Kept (NVIDIA H100 80GB HBM3, 700 W; ms a sphere frame of five launches,
 // closest / any-hit, then the soup; each item against the tree without
 // it, means of two passes in turns):

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from ..utils.math import build_onb, dot, from_frame, normalize
+from ..utils.math import build_onb, dot, from_frame, normalize, rsqrt, sqrt
 
 # BSDF kinds (host shaders)
 DIFFUSE = 0
@@ -86,9 +86,9 @@ def fresnel_conductor(eta, k, cos_i):
     e2 = eta * eta
     k2 = k * k
     t0 = e2 - k2 - s2
-    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=1e-12))
+    a2b2 = sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=1e-12))
     t1 = a2b2 + c2
-    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=1e-12))
+    a = sqrt(torch.clamp(0.5 * (a2b2 + t0), min=1e-12))
     t2 = 2.0 * a * c
     rs = (t1 - t2) / (t1 + t2)
     t3 = c2 * a2b2 + s2 * s2
@@ -103,7 +103,7 @@ def ggx_smith_g1(cos_wn, roughness):
     r2 = roughness * roughness
     c2 = torch.clamp(cos_wn * cos_wn, 1e-12, 1.0)
     t2 = (1.0 - c2) / c2
-    return 2.0 / (1.0 + torch.sqrt(1.0 + r2 * t2))
+    return 2.0 / (1.0 + sqrt(1.0 + r2 * t2))
 
 
 def ggx_ndf(cos_h, roughness):
@@ -121,20 +121,20 @@ def ggx_sample_vndf(wi_t, roughness, r1, r2):
     vh = normalize(torch.stack([a * wi_t[..., 0], a * wi_t[..., 1],
                                 wi_t[..., 2]], dim=-1))
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
-    inv = torch.rsqrt(torch.clamp(lensq, min=1e-20))
+    inv = rsqrt(torch.clamp(lensq, min=1e-20))
     ex = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
     t1 = torch.where(lensq[..., None] > 1e-12,
                      torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
                                   torch.zeros_like(inv)], dim=-1),
                      ex.expand(vh.shape))
     t2v = torch.linalg.cross(vh, t1, dim=-1)
-    r = torch.sqrt(r1)
+    r = sqrt(r1)
     phi = 2.0 * math.pi * r2
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh[..., 2])
-    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=1e-12)) + s * p2
-    p3 = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=1e-12))
+    p2 = (1.0 - s) * sqrt(torch.clamp(1.0 - p1 * p1, min=1e-12)) + s * p2
+    p3 = sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=1e-12))
     nh = p1[..., None] * t1 + p2[..., None] * t2v + p3[..., None] * vh
     return normalize(torch.stack([a * nh[..., 0], a * nh[..., 1],
                                   torch.clamp(nh[..., 2], min=0.0)], dim=-1))
@@ -157,8 +157,8 @@ def diffuse_sample(sp: ShadingPoint, wi, r1, r2):
     gn = _flip(sp, sp.gn)
     u, v = build_onb(n)
     phi = 2.0 * math.pi * r2
-    s = torch.sqrt(r1)
-    z = torch.sqrt(torch.clamp(1.0 - r1, min=0.0))
+    s = sqrt(r1)
+    z = sqrt(torch.clamp(1.0 - r1, min=0.0))
     wo = (z[..., None] * n + (s * torch.cos(phi))[..., None] * u
           + (s * torch.sin(phi))[..., None] * v)
     pdf = torch.full_like(sp.rd, 1.0 / math.pi)
@@ -205,7 +205,7 @@ def dielectric_sample(sp: ShadingPoint, wi, r1, r2, r_mode):
     nr = n1 / n2
     cos_t2 = 1.0 - nr * nr * (1.0 - cos_r[..., None] ** 2)
     cos_t = torch.where(cos_t2 <= 0.0, 0.0,
-                        torch.sqrt(torch.clamp(cos_t2, min=1e-12)))
+                        sqrt(torch.clamp(cos_t2, min=1e-12)))
     big_r = fresnel_dielectric(n1, n2, cos_r[..., None], cos_t)
     do_reflect = r_mode <= big_r[..., 0]
 
@@ -237,7 +237,7 @@ def dielectric_sample(sp: ShadingPoint, wi, r1, r2, r_mode):
     lane_ok = (cos_h_l > 0.0) & (cos_r_l > 0.0)
     cos_t2_l = 1.0 - nr * nr * (1.0 - cos_r_l * cos_r_l)
     cos_t_l = torch.where(cos_t2_l <= 0.0, 0.0,
-                          torch.sqrt(torch.clamp(cos_t2_l, min=1e-12)))
+                          sqrt(torch.clamp(cos_t2_l, min=1e-12)))
     r_l = fresnel_dielectric(n1, n2, cos_r_l, cos_t_l)
     denom = n1 * cos_r_l - n2 * cos_t_l
     jac_t = n2 * n2 * cos_t_l / torch.clamp(denom * denom, min=1e-20)
@@ -287,7 +287,7 @@ def dielectric_eval_pdf(sp: ShadingPoint, wi, wo):
     cos_r_r = torch.abs(dot(h_r, wi))
     cos_t2_r = 1.0 - nr * nr * (1.0 - cos_r_r[..., None] ** 2)
     cos_t_r = torch.where(cos_t2_r <= 0.0, 0.0,
-                          torch.sqrt(torch.clamp(cos_t2_r, min=1e-12)))
+                          sqrt(torch.clamp(cos_t2_r, min=1e-12)))
     big_r_r = fresnel_dielectric(n1, n2, cos_r_r[..., None], cos_t_r)
     d_r = ggx_ndf(cos_h_r, rr)
     g2_r = ggx_smith_g1(cos_in, rr) * ggx_smith_g1(cos_out, rr)
@@ -304,7 +304,7 @@ def dielectric_eval_pdf(sp: ShadingPoint, wi, wo):
     lane_ok = (cos_h_l > 0.0) & (cos_r_l > 0.0)
     cos_t2_l = 1.0 - nr * nr * (1.0 - cos_r_l * cos_r_l)
     cos_t_l = torch.where(cos_t2_l <= 0.0, 0.0,
-                          torch.sqrt(torch.clamp(cos_t2_l, min=1e-12)))
+                          sqrt(torch.clamp(cos_t2_l, min=1e-12)))
     big_r_l = fresnel_dielectric(n1, n2, cos_r_l, cos_t_l)
     denom = n1 * cos_r_l - n2 * cos_t_l
     jac = n2 * n2 * cos_t_l / torch.clamp(denom * denom, min=1e-20)
@@ -336,7 +336,7 @@ def _diffdiel_fresnel(sp: ShadingPoint, cos_in):
     nr = n1 / n2
     cos_t2 = 1.0 - nr * nr * (1.0 - cos_in[..., None] ** 2)
     cos_t = torch.where(cos_t2 <= 0.0, 0.0,
-                        torch.sqrt(torch.clamp(cos_t2, min=1e-12)))
+                        sqrt(torch.clamp(cos_t2, min=1e-12)))
     return fresnel_dielectric(n1, n2, cos_in[..., None], cos_t)
 
 
@@ -375,8 +375,8 @@ def diffdiel_sample(sp: ShadingPoint, wi, r1, r2, r_mode):
 
     # diffuse transmission branch: cosine lobe around -n
     phi = 2.0 * math.pi * r2
-    s = torch.sqrt(r1)
-    z = torch.sqrt(torch.clamp(1.0 - r1, min=0.0))
+    s = sqrt(r1)
+    z = sqrt(torch.clamp(1.0 - r1, min=0.0))
     wo_t = (-z[..., None] * n + (s * torch.cos(phi))[..., None] * u
             + (s * torch.sin(phi))[..., None] * v)
     pdf_proj_t = (1.0 - big_r) / math.pi
@@ -523,7 +523,7 @@ def hair_S(sp, wi, wo):
     longitudinal specular cone / (2 pi norm)."""
     t, _, _, ci = _hair_frame(sp, wi)
     co = dot(t, wo)
-    sin_o = torch.sqrt(torch.clamp(1.0 - co * co, min=1e-12))
+    sin_o = sqrt(torch.clamp(1.0 - co * co, min=1e-12))
     beta = torch.clamp(sp.roughness, min=_HAIR_BETA_MIN)
     s_d = sp.rd * (sin_o / (math.pi ** 2))[..., None]
     g = _hair_gauss(co, ci, beta)
@@ -569,7 +569,7 @@ def hair_sample(sp, wi, r1, r2, r_mode):
                                              -1 + 1e-7, 1 - 1e-7))
     use_s = r_mode < p_s
     co = torch.clamp(torch.where(use_s, co_s, co_d), -1.0 + 1e-6, 1.0 - 1e-6)
-    sin_o = torch.sqrt(1.0 - co * co)
+    sin_o = sqrt(1.0 - co * co)
     wo = normalize(co[..., None] * t
                    + (sin_o * torch.cos(phi))[..., None] * u
                    + (sin_o * torch.sin(phi))[..., None] * v)

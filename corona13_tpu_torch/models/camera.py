@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from ..utils.math import normalize, quat_rotate, quat_slerp
+from ..utils.math import normalize, quat_rotate, quat_slerp, sqrt
 
 SENSOR_RESPONSE = 106.86535  # X+Y+Z=1 -> visible scale (thinlens.c:28)
 
@@ -41,7 +41,7 @@ def sample(camera, width: int, height: int, pix_i, pix_j, r_ap1, r_ap2, time):
     a, b, n, x = cam_frame(camera, time)
     lens_radius = 0.5 / camera.f_stop * camera.focal_length
     phi = 2.0 * math.pi * r_ap1
-    rad = torch.sqrt(r_ap2) * lens_radius
+    rad = sqrt(r_ap2) * lens_radius
     u = torch.cos(phi) * rad
     v = torch.sin(phi) * rad
 
@@ -95,7 +95,7 @@ def connect(camera, width: int, height: int, y, r_ap1, r_ap2, time):
     a, b, n, x = cam_frame(camera, time)
     lens_radius = 0.5 / camera.f_stop * camera.focal_length
     phi = 2.0 * math.pi * r_ap1
-    rad = torch.sqrt(r_ap2) * lens_radius
+    rad = sqrt(r_ap2) * lens_radius
     u = torch.cos(phi) * rad
     v = torch.sin(phi) * rad
     aoff = u[..., None] * a + v[..., None] * b
@@ -119,7 +119,7 @@ def connect(camera, width: int, height: int, y, r_ap1, r_ap2, time):
     valid = valid & (pix_i >= 0) & (pix_i < width) & \
         (pix_j >= 0) & (pix_j < height)
 
-    dist = torch.sqrt(torch.clamp(torch.sum(to_y * to_y, dim=-1), min=1e-20))
+    dist = sqrt(torch.clamp(torch.sum(to_y * to_y, dim=-1), min=1e-20))
     direction = -to_y / dist[..., None]    # y -> aperture
     sensor = SENSOR_RESPONSE * 100.0 * camera.exposure_time
     weight = sensor * aperture_area(camera)   # = sensor / p_ap

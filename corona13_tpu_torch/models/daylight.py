@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.math import sqrt
+
 # CIE daylight basis, 380..780 nm in 10 nm steps (41 entries)
 S0 = np.array([63.4, 65.8, 94.8, 104.8, 105.9, 96.8, 113.9, 125.6, 125.5,
                121.3, 121.3, 113.5, 113.1, 110.8, 106.5, 108.8, 105.3,
@@ -155,7 +157,7 @@ def eval_radiance(sky: DaylightSky, direction, lam):
     cos_g = torch.clamp(torch.sum(d * sky.sun_dir, dim=-1), -1.0, 1.0)
     gamma = torch.acos(cos_g)
     dz = torch.clamp(d[..., 2], min=0.01)
-    theta_v = torch.acos(dz / torch.sqrt(
+    theta_v = torch.acos(dz / sqrt(
         d[..., 0] ** 2 + d[..., 1] ** 2 + dz * dz))
     x, y, yy = (sky.zenith[k] * _perez(sky.perez[k], sky.theta_sun, theta_v,
                                        gamma) for k in range(3))

@@ -13,7 +13,7 @@ import math
 import torch
 
 from ..utils.math import (build_onb, cross, dot, from_frame, normalize,
-                          sample_cos_hemisphere)
+                          sample_cos_hemisphere, sqrt)
 
 
 def phong_edf(roughness, cos_gn):
@@ -65,7 +65,7 @@ def sample_nee(lights, geom, from_pos, r1, r2, r3):
     v0 = geom.tri_v0[prim]
     e1 = geom.tri_e1[prim]
     e2 = geom.tri_e2[prim]
-    a = torch.sqrt(r2)
+    a = sqrt(r2)
     u = r3 * a          # weight of vertex 2 (reference hit->u)
     v = (1.0 - r3) * a  # weight of vertex 1 (reference hit->v)
     pos = v0 + v[..., None] * e1 + u[..., None] * e2

@@ -24,7 +24,7 @@ import math
 import torch
 
 from ..spectral import rgb2spec
-from ..utils.math import build_onb, dot, normalize
+from ..utils.math import build_onb, dot, normalize, sqrt
 
 
 def sigma_t(materials, med, lam):
@@ -107,7 +107,7 @@ def transmittance_scene(scene, med, lam, org, w, dist):
 def hg_phase(g, cos_t):
     """Henyey-Greenstein phase function value (1/sr)."""
     denom = torch.clamp(1.0 + g * g - 2.0 * g * cos_t, min=1e-8)
-    return (1.0 - g * g) / (4.0 * math.pi * denom * torch.sqrt(denom))
+    return (1.0 - g * g) / (4.0 * math.pi * denom * sqrt(denom))
 
 
 def hg_sample(g, wi, r1, r2):
@@ -122,7 +122,7 @@ def hg_sample(g, wi, r1, r2):
     cos_t_aniso = (1.0 + g_safe * g_safe - sq * sq) / (2.0 * g_safe)
     cos_t = torch.where(iso, 1.0 - 2.0 * r1,
                         torch.clamp(cos_t_aniso, -1.0, 1.0))
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
+    sin_t = sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
     phi = 2.0 * math.pi * r2
     u, v = build_onb(wi)
     wo = (cos_t[..., None] * wi
@@ -182,7 +182,7 @@ def equiangular_sample(org, w, light_pos, t_max, rnd):
     to_l = light_pos - org
     a = dot(to_l, w)                       # closest-approach parameter
     d2 = torch.clamp(dot(to_l, to_l) - a * a, min=1e-12)
-    dd = torch.sqrt(d2)
+    dd = sqrt(d2)
     th_a = torch.atan2(0.0 - a, dd)
     th_b = torch.atan2(t_max - a, dd)
     span = torch.clamp(th_b - th_a, min=1e-9)

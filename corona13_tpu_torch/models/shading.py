@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..spectral import fresnel_data, rgb2spec
-from ..utils.math import build_onb, cross, normalize
+from ..utils.math import build_onb, cross, normalize, sqrt
 from .bsdf import ShadingPoint
 
 
@@ -65,8 +65,7 @@ def _line_geo(geom, local, x, y_frac):
     r0 = geom.line_r0[local]
     r1 = geom.line_r1[local]
     axis = v1 - v0
-    length = torch.sqrt(torch.clamp(torch.sum(axis * axis, dim=-1),
-                                    min=1e-20))
+    length = sqrt(torch.clamp(torch.sum(axis * axis, dim=-1), min=1e-20))
     d = axis / length[..., None]
     o = x - v0
     ya = torch.sum(o * d, dim=-1)

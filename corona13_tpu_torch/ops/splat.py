@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from ..utils.math import sqrt
+
 
 def cubic_bspline(x):
     """Cubic B-spline kernel, support [-2, 2]."""
@@ -58,9 +60,9 @@ def splat_pixel_aligned(fb, jx, jy, col, batch: int = 1,
     elif filter_kind == 'spline':
         f = cubic_bspline(dv)[:, :, None] * cubic_bspline(du)[:, None, :]
     elif filter_kind == 'gaussian':
-        f = gaussian_window(torch.sqrt(du[:, None, :] ** 2 + dv[:, :, None] ** 2))
+        f = gaussian_window(sqrt(du[:, None, :] ** 2 + dv[:, :, None] ** 2))
     else:
-        f = bh_window(torch.sqrt(du[:, None, :] ** 2 + dv[:, :, None] ** 2)
+        f = bh_window(sqrt(du[:, None, :] ** 2 + dv[:, :, None] ** 2)
                       + 1.5)
     f = f.reshape(batch, h, w, 5, 5)
     ys = torch.arange(h, device=dev)[:, None, None, None]
@@ -209,7 +211,7 @@ def splat(fb, pix_i, pix_j, col, filter_kind: str = 'blackmanharris'):
     if filter_kind == 'spline':
         f = cubic_bspline(vv)[..., :, None] * cubic_bspline(uu)[..., None, :]
     else:
-        r = torch.sqrt(uu[..., None, :] ** 2 + vv[..., :, None] ** 2)
+        r = sqrt(uu[..., None, :] ** 2 + vv[..., :, None] ** 2)
         f = gaussian_window(r) if filter_kind == 'gaussian' \
             else bh_window(r + 1.5)                               # [N, 4v, 4u]
     xi = (x0[..., None, None] + taps[None, None, :]).expand(f.shape)

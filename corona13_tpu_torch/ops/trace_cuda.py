@@ -168,8 +168,12 @@ launches = {k: 0 for k in (
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
 _BUILD = os.path.join(os.path.dirname(_CSRC), '_build')
+# The rounding flags are nvcc's defaults, stated so that no later flag
+# turns the kernels' sqrtf and divisions into approximations: the plain
+# versions round as IEEE does (utils.math.sqrt), and so must the card.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
+              '-fmad=false', '-prec-sqrt=true', '-prec-div=true', '-ftz=false',
+              '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 _fn = None       # the loaded library's entry point
 _work = {}       # (device, stream) -> the persistent launches' int32[2]
 build_log = ''   # nvcc's report (registers, spills) on the library in use

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.math import sqrt
 from .bvh import LEAF_SIZE as LEAF
 
 MAX_DIST = 3.4e38
@@ -78,7 +79,7 @@ def ray_sphere_intersect(c, r, org, direction):
     b = _dot(ox, oy, oz, dx, dy, dz)
     cc = _dot(ox, oy, oz, ox, oy, oz) - r * r
     disc = b * b - cc
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     t0 = -b - sq
     t1 = -b + sq
     t = torch.where(t0 > 0.0, t0, t1)
@@ -92,7 +93,7 @@ def line_terms(v0, v1, r0, r1):
     by the reference test's expressions.  The kernel's line records carry
     them (``trace_cuda.pack_line_rows``), computed once a prim."""
     ax, ay, az = _xyz(v1 - v0)
-    length = torch.sqrt(torch.clamp(_dot(ax, ay, az, ax, ay, az), min=1e-20))
+    length = sqrt(torch.clamp(_dot(ax, ay, az, ax, ay, az), min=1e-20))
     axis = torch.stack([ax / length, ay / length, az / length], dim=-1)
     k = (r1 - r0) / length
     return axis, length, k, k * k
@@ -126,7 +127,7 @@ def ray_cone_test(v0, axis, length, k, kk, r0, org, direction):
 def _cone_roots(ya, wd, a, b, c, disc, length):
     """The cone test from its discriminant on (``_cone_disc``)."""
     # robust quadratic
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     q = -0.5 * (b + torch.sign(b) * sq)
     asafe = torch.where(torch.abs(a) < 1e-12, 1e-12, a)
     t0 = q / asafe

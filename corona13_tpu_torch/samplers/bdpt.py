@@ -46,7 +46,7 @@ from ..ops import rng
 from ..ops import splat as splat_mod
 from ..ops.trace import MAX_DIST, intersect, occluded
 from ..spectral import cie, rgb2spec
-from ..utils.math import dot, ray_offset
+from ..utils.math import dot, ray_offset, sqrt
 from .pt import PTConfig, _finite, _lambert
 
 
@@ -332,7 +332,7 @@ def render_sample(scene, cfg: PTConfig, sample_idx, batch: int = 1,
 
             to_z = z_x - ry['x']
             d2 = torch.clamp(dot(to_z, to_z), min=1e-20)
-            dist = torch.sqrt(d2)
+            dist = sqrt(d2)
             wdir = to_z / dist[..., None]        # y_end -> z_end
             cos_y = _lambert(ry['sp'].n, wdir)
             cos_z = _lambert(z_n, wdir)

@@ -49,7 +49,7 @@ from ..models import shading as shading_mod
 from ..ops import rng
 from ..ops.trace import INVALID_PRIM, MAX_DIST, intersect, occluded
 from ..spectral import cie, rgb2spec
-from ..utils.math import dot, ray_offset
+from ..utils.math import dot, ray_offset, sqrt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,7 +403,7 @@ def _bounce(scene, cfg, state, depth, u=None):
             x_nee = torch.where(eq[..., None], x_eq, x_nee)
             thr_nee = torch.where(eq[..., None], state['thr'] * w_eq, thr_in)
         to_l = ls['pos'] - x_nee
-        dist = torch.sqrt(torch.clamp(dot(to_l, to_l), min=1e-20))
+        dist = sqrt(torch.clamp(dot(to_l, to_l), min=1e-20))
         wo = to_l / dist[..., None]
         cos_l = -dot(ls['gn'], wo)
         lmat = torch.clamp(scene.prim_shader[torch.clamp(ls['prim'], min=0)],

@@ -18,6 +18,7 @@ import struct
 import numpy as np
 import torch
 
+from ..utils.math import rsqrt, sqrt
 from . import cie, colour
 
 
@@ -27,7 +28,7 @@ def eval_coeff(coeff: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     coeff: [..., 3] (c0, c1, c2); lam: [...] nm (broadcastable against
     coeff minus its last axis)."""
     x = (coeff[..., 0] * lam + coeff[..., 1]) * lam + coeff[..., 2]
-    return 0.5 + 0.5 * x * torch.rsqrt(x * x + 1.0)
+    return 0.5 + 0.5 * x * rsqrt(x * x + 1.0)
 
 
 # dense wavelength grid for projection integrals
@@ -82,7 +83,7 @@ def _fit_rows(flat: torch.Tensor, space: str, iters: int) -> torch.Tensor:
 
     def residual(c):                                  # c: [B,3] normalized
         x = c @ basis.T                               # [B,Q]
-        s = 0.5 + 0.5 * x * torch.rsqrt(x * x + 1.0)
+        s = 0.5 + 0.5 * x * rsqrt(x * x + 1.0)
         xyz = (s @ cmf) / norm                        # [B,3]
         return xyz @ m.T - flat
 
@@ -93,7 +94,7 @@ def _fit_rows(flat: torch.Tensor, space: str, iters: int) -> torch.Tensor:
         return torch.einsum('bq,qo,qk->bok', dsdx, w, basis)
 
     mean = torch.clamp(torch.mean(flat, dim=-1), 1e-3, 1.0 - 1e-3)
-    x0 = (2.0 * mean - 1.0) / (2.0 * torch.sqrt(mean * (1.0 - mean)))
+    x0 = (2.0 * mean - 1.0) / (2.0 * sqrt(mean * (1.0 - mean)))
     c = torch.zeros_like(flat)
     c[:, 2] = x0
     lm = torch.full((flat.shape[0],), 1e-4, device=dev)

@@ -11,6 +11,38 @@ import math
 import torch
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of ``x``, the same bits on every
+    device: every root the port takes of a tensor comes through here.
+
+    torch's vectorized float32 ``sqrt`` on the CPU is not correctly
+    rounded: on large tensors about 0.6% of its roots are one ulp low.  A
+    double carries more than 2 * 24 + 2 bits, so the double's root rounded
+    to float32 is the correctly rounded float32 root, and that is the CPU
+    branch.  On CUDA ``torch.sqrt`` is correctly rounded (IEEE ``sqrt``, as
+    the JAX package's ``jnp.sqrt`` and the traversal kernel's ``sqrtf``
+    under ``-prec-sqrt=true``), and ``chip_smoke.py``'s rounding phase holds
+    it to the CPU branch bit for bit over every exponent: the two branches
+    compute one function, neither is a fallback.  Other dtypes go to
+    ``torch.sqrt`` as they are; the port takes no float64 root of a tensor
+    (its float64 work, the daylight model's host terms, is numpy).
+    Autograd runs through the branch taken.
+    """
+    if x.dtype == torch.float32 and x.device.type == 'cpu':
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(x)`` with the correctly rounded root and an IEEE division.
+
+    On the CPU these are the bits of ``torch.rsqrt``, which divides one by
+    a correctly rounded root.  On CUDA ``torch.rsqrt`` is the hardware's
+    approximation (to 2 ulp), so the card takes this division instead and
+    gives the CPU's bits."""
+    return torch.reciprocal(sqrt(x))
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
@@ -21,11 +53,11 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+    return sqrt(torch.clamp(dot(a, a), min=0.0))
 
 
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
-    return a * torch.rsqrt(torch.clamp(dot(a, a), min=eps))[..., None]
+    return a * rsqrt(torch.clamp(dot(a, a), min=eps))[..., None]
 
 
 def build_onb(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +94,7 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     """Normalized linear interpolation (the reference's quaternion_slerp
     is also a nlerp)."""
     q = (1.0 - t) * q0 + t * q1
-    return q / torch.clamp(torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)),
+    return q / torch.clamp(sqrt(torch.sum(q * q, dim=-1, keepdim=True)),
                            min=1e-20)
 
 
@@ -75,8 +107,8 @@ def sample_cos_hemisphere(r1, r2):
     """Cosine-weighted hemisphere sample in the local frame (z up).
     Returns (dir [..., 3], pdf = cos/pi)."""
     phi = 2.0 * math.pi * r1
-    sr = torch.sqrt(r2)
-    z = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    sr = sqrt(r2)
+    z = sqrt(torch.clamp(1.0 - r2, min=0.0))
     d = torch.stack([sr * torch.cos(phi), sr * torch.sin(phi), z], dim=-1)
     return d, z / math.pi
 
@@ -84,7 +116,7 @@ def sample_cos_hemisphere(r1, r2):
 def sample_sphere(r1, r2):
     """Uniform direction on the unit sphere."""
     z = 1.0 - 2.0 * r2
-    s = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    s = sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * math.pi * r1
     return torch.stack([s * torch.cos(phi), s * torch.sin(phi), z], dim=-1)
 

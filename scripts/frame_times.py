@@ -13,15 +13,17 @@ for the wide stack: the deep form) at max_verts=6 (--cells names a
 subset: a tree from before the skies has only the first four).  Two
 warm-up frames per cell, then N timed ones (default 8), each ending with
 the image on the host.  Prints seconds per frame as min / median / max
-with the card's name and power limit.  --root names another checkout
-whose corona13_tpu_torch to import (to compare two trees within one call
-on one card, run this script once per tree, in turns); the default is
-this script's own tree.
+with the card's name and power limit, then the kernels one more frame
+launches on the card (torch.profiler), by name.  --root
+names another checkout whose corona13_tpu_torch to import (to compare two
+trees within one call on one card, run this script once per tree, in
+turns); the default is this script's own tree.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import json
 import os
@@ -78,7 +80,7 @@ def main():
         'zoom': (lambda: cs._zoom_scene(dev), 6, {}),
     }
     names = [c for c in args.cells.split(',') if c] or list(cells)
-    out = {}
+    out, launches = {}, {}
     for name in names:
         make, max_verts, kw = cells[name]
         sc = scene_mod.fit_film(make(), W, H)
@@ -95,8 +97,24 @@ def main():
         print(f'{name}: {min(secs):.4f} / {statistics.median(secs):.4f} / '
               f'{max(secs):.4f} s per frame (min / median / max of '
               f'{len(secs)}) on {card}, tree {root}', flush=True)
-    print(json.dumps({'device': card, 'root': root, 'frame_s': out}),
-          flush=True)
+        launches[name] = _launches(lambda: render_mod.render(
+            sc, cfg, spp=1, batch=1))
+        print(f'{name}: {sum(launches[name].values())} launches a frame; '
+              f'by kernel: {launches[name].most_common(12)}', flush=True)
+    print(json.dumps({'device': card, 'root': root, 'frame_s': out,
+                      'launches': launches}), flush=True)
+
+
+def _launches(frame):
+    """The kernels one frame launches on the card, by name, counted by
+    torch.profiler (the card's activity alone)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 SUN_DIR = (0.3, 0.2, 0.9)

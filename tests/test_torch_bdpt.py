@@ -84,12 +84,19 @@ _REC_FIELDS = ('x', 'd_in', 'thr', 'pdf_fwd_a', 'pdf_rev_a', 'g_rev',
 
 
 # the bars: (rtol, share of lanes) per scene.  On the box every field of
-# every lane agrees; a sphere hit's t comes from b*b - c, which cancels at
-# grazing incidence, and torch's CPU sqrt is not correctly rounded, so
-# about 1% of all lanes carry a normal off by
-# 1e-5 to 4e-5 into the rest of their subpath (and at a dielectric it may
-# flip the reflect-or-refract pick: 1e-4 holds on the pt tests' 99%)
-_BARS = {None: ((1e-5, 0.99),), 'dielectric': ((1e-5, 0.98), (1e-4, 0.99))}
+# every lane agrees (1.0000 at each vertex: held at 99.9%).  On the
+# dielectric sphere a hit's t comes from b*b - c, which cancels at grazing
+# incidence, and this module runs the JAX package in its own process,
+# where XLA contracts multiply-adds into FMA: 1.3-1.6% of the lanes carry
+# a normal off by 1e-5 to 4e-5 into the rest of their subpath (at 1e-5 the
+# eye subpath's vertices read 0.9844-0.9922, the light's 0.9870-0.9974),
+# and at a dielectric it may flip the reflect-or-refract pick (at 1e-4:
+# 0.9948-1.0000).  The root is not the cause (the port's is correctly
+# rounded, and these shares did not move with it): with
+# XLA_FLAGS=--xla_cpu_max_isa=AVX (no FMA) they read 0.9974 or more.  The
+# shares are printed (pytest -s)
+_BARS = {None: ((1e-5, 0.999),),
+         'dielectric': ((1e-5, 0.98), (1e-4, 0.99))}
 
 
 @pytest.mark.parametrize('sphere', [None, 'dielectric'])
@@ -156,6 +163,8 @@ def test_trace_subpath_matches_jax(side, sphere):
                 else:
                     same = a == b
                 ok &= same.reshape(n, -1).all(axis=-1)
+            print(f'{side} {sphere} vertex {i} rtol {rtol}: lanes '
+                  f'{ok.mean():.4f} (bar {share})')
             assert ok.mean() >= share, (side, i, rtol, ok.mean())
         assert np.asarray(wr['valid']).mean() > 0.05
 

@@ -38,6 +38,7 @@ from corona13_tpu.ops import trace as jtrace
 from corona13_tpu_torch import convert
 from corona13_tpu_torch.ops import trace as ttrace
 from corona13_tpu_torch.ops import trace_cuda, trace_plain
+from corona13_tpu_torch.utils import math as tmath
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 J, T = jnp.asarray, torch.as_tensor
@@ -75,10 +76,11 @@ def _fibres(smoke, which):
 
 def _cone_inline(v0, v1, r0, r1, org, direction):
     """The cone test with the fibre's terms computed inline, for every ray
-    (``ray_cone_intersect`` before its terms were hoisted, line for line).
+    (``ray_cone_intersect`` before its terms were hoisted, line for line,
+    with the port's correctly rounded root).
     Returns (t, y, ok) and the terms (unit axis, length, k)."""
     ax, ay, az = (v1 - v0).unbind(-1)
-    length = torch.sqrt(torch.clamp(ax * ax + ay * ay + az * az, min=1e-20))
+    length = tmath.sqrt(torch.clamp(ax * ax + ay * ay + az * az, min=1e-20))
     ax, ay, az = ax / length, ay / length, az / length
     ox, oy, oz = (org[..., None, :] - v0).unbind(-1)
     wx, wy, wz = direction[..., None, :].unbind(-1)
@@ -92,7 +94,7 @@ def _cone_inline(v0, v1, r0, r1, org, direction):
     b = 2.0 * (ow - ya * wd - k * wd * s)
     c = oo - ya * ya - s * s
     disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = tmath.sqrt(torch.clamp(disc, min=0.0))
     q = -0.5 * (b + torch.sign(b) * sq)
     asafe = torch.where(torch.abs(a) < 1e-12, 1e-12, a)
     t0 = q / asafe

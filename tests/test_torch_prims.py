@@ -328,7 +328,8 @@ def test_motion_blur_streak():
     assert ts_mb.geom.has_motion and ts_mb.geom.sph_c_t1 is not None
     aj, at = _paths(js_mb, ts_mb, 48, 32, 3, 2, True)
     close = np.isclose(at, aj, rtol=1e-4, atol=1e-6).all(axis=-1)
-    assert close.mean() >= 0.99, close.mean()
+    # reads 1.0000 with the port's correctly rounded root
+    assert close.mean() >= 0.999, close.mean()
     cfg = pt_mod.PTConfig(width=48, height=32, max_verts=3, mf=2,
                           use_nee=True)
     ts = convert.scene_from_numpy(js, device='cpu')
@@ -375,6 +376,9 @@ def test_hair_scene_paths_match_jax(n_fibers):
     aj, at = _paths(js, ts, 32, 24, 4, 2, False)
     assert np.isfinite(at).all() and (aj > 0).any(axis=-1).mean() > 0.3
     close = np.isclose(at, aj, rtol=1e-4, atol=1e-6).all(axis=-1)
+    # 64 fibres read 0.9987, 90 read 1.0000: the JAX package runs in this
+    # process, where XLA contracts the cone quadratic's multiply-adds into
+    # FMA (with XLA_FLAGS=--xla_cpu_max_isa=AVX both read 1.0000)
     assert close.mean() >= 0.99, close.mean()
     ps = ttesting.assemble_scene(
         tri_v, tri_sh, [tscene._ResolvedMat(**m) for m in mats],

@@ -52,7 +52,9 @@ def test_eval_coeff_and_ior():
     c = c.astype(np.float32)
     lam = g.uniform(360, 830, (300, 4)).astype(np.float32)
     # 0.5 + 0.5 x / sqrt(1 + x^2) cancels towards 0 for x << 0: one ulp
-    # of rsqrt there is an absolute 6e-8, so atol covers two ulps of 0.5
+    # of rsqrt there is an absolute 6e-8, and XLA's rsqrt rounds apart from
+    # the port's one over the correctly rounded root, so atol covers two
+    # ulps of 0.5
     _close(jr2s.eval_coeff(jnp.asarray(c)[:, None, :], jnp.asarray(lam)),
            tr2s.eval_coeff(torch.as_tensor(c)[:, None, :],
                            torch.as_tensor(lam)), atol=1.2e-7)
