@@ -7,12 +7,19 @@ ptlt, bdpt1, ppm, kmlt, vmlt and vis.
     python -m corona13_tpu_torch scene.nra2 --sampler bdpt
     python -m corona13_tpu_torch scene.nra2 --sampler kmlt
     python -m corona13_tpu_torch scene.nra2 --sampler vis --aov depth
+    python -m corona13_tpu_torch scene.nra2 -s 4 --profile trace.json
 
 Writes <output>_fb00.pfm (camera XYZ), a sidecar <output>.txt and a
 resumable <output>.fb checkpoint; ``--dbor`` also the cascade levels
 <output>_dborNN.pfm (pt and ptdl only, as in the JAX CLI); ``--sampler vis``
 only the AOV image.  Renders on CUDA unless ``--device cpu`` is given;
 without a CUDA device it exits non-zero rather than fall back.
+``--profile PATH`` loads and renders under ``torch.profiler`` (the host's
+ops, and the card's kernels on CUDA), writes its Chrome trace to PATH, in
+which the program's spans (``corona13_tpu_torch/tracing.py``) and the
+card's kernels lie on one clock, and prints each span's host ms, device
+ms and calls, the set-up seconds, the nvcc runs and the traversal
+launches by form.
 """
 
 from __future__ import annotations
@@ -63,6 +70,9 @@ def main(argv=None):
                         'trust-merged image plus the per-level buffers')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument('--profile', default=None, metavar='PATH',
+                   help='render under torch.profiler, write its Chrome '
+                        'trace to PATH and print the time of each span')
     args = p.parse_args(argv)
 
     import torch
@@ -71,6 +81,28 @@ def main(argv=None):
         print('[corona13_tpu_torch] no CUDA device; pass --device cpu to '
               'render on the CPU', file=sys.stderr)
         return 1
+
+    if args.profile is None:
+        return _run(args, device)
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import tracing
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    with profile(activities=acts) as prof:
+        rc = _run(args, device)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(args.profile)
+    print(f'[corona13_tpu_torch] wrote the profile {args.profile}')
+    for line in tracing.report(prof.events()):
+        print(line)
+    return rc
+
+
+def _run(args, device):
+    """Load the scene and render as ``args`` say; the exit code."""
+    import torch
 
     from . import render as render_mod
     from . import scene as scene_mod

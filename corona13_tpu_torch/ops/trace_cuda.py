@@ -129,6 +129,7 @@ import subprocess
 import numpy as np
 import torch
 
+from .. import tracing
 from . import trace_plain
 from .bvh import LEAF_SIZE as LEAF
 from .trace_plain import inv_dir  # noqa: F401  (the plain version's)
@@ -208,9 +209,14 @@ def build():
     """Compile ``csrc/traverse_tris.cu`` for sm_90a with nvcc into
     ``_build/`` (named by a hash of the source and flags, so an up-to-date
     library is reused) and load it with ctypes, once per process."""
-    global build_log, _fn
     if _fn is not None:
         return _fn
+    with tracing.setup_span('trace_cuda.build'):
+        return _build()
+
+
+def _build():
+    global build_log, _fn
     src = os.path.join(_CSRC, 'traverse_tris.cu')
     with open(src, 'rb') as f:
         digest = hashlib.sha1(f.read() + repr(NVCC_FLAGS).encode())
@@ -219,7 +225,9 @@ def build():
     if not os.path.exists(lib_path):
         os.makedirs(_BUILD, exist_ok=True)
         tmp = f'{lib_path}.{os.getpid()}.tmp'
-        out = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+        nvcc = _nvcc()
+        tracing.note_kernel_build()
+        out = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, src],
                              capture_output=True, text=True)
         build_log = out.stdout + out.stderr
         if out.returncode != 0:

@@ -6,12 +6,14 @@ stored image is fb * iso / (100 * progressions).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time as _time
+import time
 
 import numpy as np
 import torch
 
+from . import tracing
 from .io import pfm as pfm_io
 from .samplers import pt as pt_mod
 from .spectral import colour
@@ -64,7 +66,10 @@ def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
     """Render ``spp`` progressions (1 path/pixel each) on the scene's
     device.  ``batch`` progressions run per step (0 = auto: the whole spp
     for small images, else 1); ``progress`` prints the time per frame
-    after each step."""
+    after each step.  ``path_hist``: the per-depth alive lanes of the first
+    progression, from ``tracing`` counters of the first step (a dense
+    wavefront; under cfg.compact from ``pt.alive_profile``, a second
+    render)."""
     if batch <= 0:
         batch = spp if cfg.width * cfg.height * spp <= (1 << 21) else 1
     batch = min(batch, spp)
@@ -73,22 +78,39 @@ def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
         # the scene carries participating media: run the media path
         cfg = cfg.replace(media=True)
     dev = scene.device
+    count = path_hist and cfg.compact is None
+    counters = fb_host = None
     fb = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                      device=dev)
-    t0 = _time.time()
+    t0 = time.perf_counter()
     done = 0
     with torch.no_grad():
         while done < spp:
-            fb = fb + pt_mod.render_sample(scene, cfg, done, batch=batch)
-            done += batch
+            with contextlib.ExitStack() as step:
+                step.enter_context(tracing.span(
+                    'render.progression', {'seed': cfg.seed, 'sample': done}))
+                if count and done == 0:
+                    counters = step.enter_context(
+                        tracing.counting(lanes=cfg.width * cfg.height))
+                fb = fb + pt_mod.render_sample(scene, cfg, done, batch=batch)
+                done += batch
+                if done >= spp:
+                    with tracing.span('render.readback'):
+                        fb_host = fb.cpu().numpy()
             if progress:
                 if fb.is_cuda:
                     torch.cuda.synchronize(fb.device)
-                print(f'  [{done}/{spp}] {(_time.time() - t0) / done:.3f}s/frame',
+                print(f'  [{done}/{spp}] '
+                      f'{(time.perf_counter() - t0) / done:.3f}s/frame',
                       flush=True)
-        fb_host = fb.cpu().numpy()
-        seconds = _time.time() - t0
-        hist = (pt_mod.alive_profile(scene, cfg, 0).cpu().numpy()
-                if path_hist else None)
+        if fb_host is None:     # spp 0: no step ran
+            fb_host = fb.cpu().numpy()
+        seconds = time.perf_counter() - t0
+        if counters is not None:
+            hist = np.asarray(counters.alive(), dtype=np.int64)
+        elif path_hist:
+            hist = pt_mod.alive_profile(scene, cfg, 0).cpu().numpy()
+        else:
+            hist = None
     return RenderResult(fb=fb_host, spp=done, iso=float(scene.camera.iso),
                         seconds=seconds, path_hist=hist)

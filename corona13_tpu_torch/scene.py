@@ -21,6 +21,7 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
 from .io import cam as cam_io
 from .io import fb as fb_io
 from .io import geo as geo_io
@@ -411,6 +412,7 @@ def light_table(tri_v: np.ndarray, tri_sh: np.ndarray, n_prims: int,
                       prim_weight=t(prim_weight))
 
 
+@tracing.setup_span('scene.load')
 def load_scene(nra2_path: str, cam_path: str | None = None,
                searchpath: str | None = None,
                device='cuda') -> tuple[Scene, cam_io.CameraData]:

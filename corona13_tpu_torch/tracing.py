@@ -1,0 +1,213 @@
+"""Spans and counters of the port, on the profiler's clock.
+
+Spans mark the layer boundaries of the pt/ptdl progression
+(``render.py``, ``samplers/pt.py``).  While a ``torch.profiler`` profile
+records, ``span`` enters a ``torch.profiler.record_function`` range, so
+the span lands in the profiler's timeline beside the card's kernels and
+on the same clock: an idle gap of the card can then be put down to what
+the host was doing.  Otherwise it returns one shared null context and
+costs the check alone (about 0.2 us on an Intel Xeon host, where an
+inactive ``record_function`` costs about 12 us).  The names, in their nesting:
+
+    render.progression    one step of render.render (args: seed, sample)
+      pt.camera           the camera start and the path state
+      pt.compact          the wavefront's sort and bank (cfg.compact only)
+      pt.bounce           one depth (args: depth), split with no gap into:
+        pt.intersect      the closest hit
+        pt.shade          shading.prepare and the geometric term
+        pt.media          the current medium, free flight, segment
+                          emission, the media pdf terms, the volume vertex
+        pt.shade          the emitter and sky hit with hero MIS, the pdf
+                          product
+        pt.nee            area and envmap NEE with their shadow rays
+        pt.extend         BSDF or phase sampling, RR, the stack, the merge
+      pt.splat            spectral_to_xyz and the splat
+      render.readback     the image to the host (in the render's last step)
+
+``pt.media`` also wraps NEE's ``transmittance_scene`` (inside ``pt.nee``)
+and the interior stack's push and pop (inside ``pt.extend``), so the
+outermost ``pt.media`` spans hold all of the media work.
+
+Set-up spans (``setup_span``: ``scene.load``, ``trace_cuda.build``) run
+once a process: they always keep their host seconds in memory, by name
+(``setup_seconds``), and are ``record_function`` ranges as well while a
+profiler records.  ``kernel_builds`` counts the nvcc runs.
+
+Counters are kept only inside ``counting()``: for each bounce, the lanes
+alive when it starts and the wavefront's width, as device tensors that
+are read when asked for, so nothing synchronises inside a frame.  Off,
+they cost one check a bounce; on, one reduction a bounce.
+
+``launches`` is ``ops.trace_cuda.launches``, the traversal launches per
+form, as it is.
+"""
+
+from __future__ import annotations
+
+import bisect
+import collections
+import contextlib
+import time
+
+import torch
+
+SPAN_NAMES = ('render.progression', 'render.readback', 'pt.camera',
+              'pt.compact', 'pt.bounce', 'pt.intersect', 'pt.media',
+              'pt.shade', 'pt.nee', 'pt.extend', 'pt.splat', 'scene.load',
+              'trace_cuda.build')
+
+_NULL = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+_setup_s = collections.defaultdict(float)   # set-up span -> host seconds
+_builds = 0
+_counters = None                            # the innermost counting() block
+
+
+def span(name: str, args: dict | None = None):
+    """A ``record_function(name)`` range while a profiler records, with
+    ``args`` as its ``k=v`` text; else the shared null context."""
+    if not _recording():
+        return _NULL
+    text = None if args is None else ' '.join(
+        f'{k}={v}' for k, v in args.items())
+    return torch.profiler.record_function(name, text)
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """A one-shot set-up span: its host seconds are added to
+    ``setup_seconds()[name]`` whether or not a profiler records.  Also a
+    decorator."""
+    t0 = time.perf_counter()
+    with span(name):
+        yield
+    _setup_s[name] += time.perf_counter() - t0
+
+
+def setup_seconds() -> dict:
+    """Host seconds of each set-up span so far in this process."""
+    return dict(_setup_s)
+
+
+def note_kernel_build():
+    """Count one nvcc run (``trace_cuda.build``)."""
+    global _builds
+    _builds += 1
+
+
+def kernel_builds() -> int:
+    """nvcc runs of ``trace_cuda.build`` in this process."""
+    return _builds
+
+
+class Counters:
+    """The per-bounce counts of one ``counting()`` block, in the order of
+    the bounces (several progressions follow one another)."""
+
+    def __init__(self, lanes: int | None = None):
+        self.lanes = lanes
+        self._bounces = []      # (alive lanes, a 0-d device tensor; width)
+
+    def bounce(self, alive):
+        if self.lanes is not None:
+            alive = alive[:self.lanes]
+        self._bounces.append((alive.sum(), alive.shape[0]))
+
+    def alive(self) -> list[int]:
+        """Lanes alive at the start of each bounce (one transfer)."""
+        if not self._bounces:
+            return []
+        return torch.stack([a for a, _ in self._bounces]).cpu().tolist()
+
+    def widths(self) -> list[int]:
+        """The wavefront's width at each bounce: n dense, the capacity
+        under cfg.compact."""
+        return [w for _, w in self._bounces]
+
+    def dead_lane_share(self) -> float | None:
+        """1 - the lanes alive over the lanes run, over every bounce."""
+        run = sum(self.widths())
+        return 1.0 - sum(self.alive()) / run if run else None
+
+
+@contextlib.contextmanager
+def counting(lanes: int | None = None):
+    """Count every bounce inside the block; yields the ``Counters``.
+    ``lanes``: count only the first ``lanes`` lanes of a dense wavefront
+    (the first progression of a batch)."""
+    global _counters
+    outer, _counters = _counters, Counters(lanes)
+    try:
+        yield _counters
+    finally:
+        _counters = outer
+
+
+def count_bounce(alive):
+    """Record a bounce's alive mask inside ``counting()``; else nothing."""
+    if _counters is not None:
+        _counters.bounce(alive)
+
+
+def _merged(intervals):
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def span_table(events) -> dict:
+    """{span name: (host us, device us, calls)} of the program's spans
+    among a profile's events.  Device us: the card's events whose launch
+    (the runtime call of the same correlation id) began inside a span of
+    that name, which counts the traversal kernels that ctypes launches
+    outside any torch op too; nested spans of one name count once."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = list(events)
+    launch = {e.id: e.time_range.start for e in events
+              if e.device_type == cpu and e.name.startswith(('cuda', 'cu'))}
+    kernels = sorted(
+        (launch[e.id], e.time_range.end - e.time_range.start)
+        for e in events if e.device_type != cpu and e.id in launch
+        and not getattr(e, 'is_user_annotation', False))
+    starts = [t for t, _ in kernels]
+    cum = [0.0]
+    for _, us in kernels:
+        cum.append(cum[-1] + us)
+    rows = {}
+    for name in SPAN_NAMES:
+        mine = [e for e in events if e.name == name and e.device_type == cpu]
+        if not mine:
+            continue
+        outer = _merged((e.time_range.start, e.time_range.end) for e in mine)
+        dev = sum(cum[bisect.bisect_right(starts, e)]
+                  - cum[bisect.bisect_left(starts, s)] for s, e in outer)
+        rows[name] = (sum(e - s for s, e in outer), dev, len(mine))
+    return rows
+
+
+def report(events) -> list[str]:
+    """The operator's lines of a profile: one a span name (host ms, device
+    ms, calls, in SPAN_NAMES order), the set-up seconds, the nvcc runs and
+    the traversal launches by form."""
+    from .ops import trace_cuda
+    rows = span_table(events)
+    out = [f'{n:20s} host {rows[n][0] / 1e3:10.3f} ms  device '
+           f'{rows[n][1] / 1e3:10.3f} ms  calls {rows[n][2]}'
+           for n in SPAN_NAMES if n in rows]
+    out.append('set-up s: ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in sorted(setup_seconds().items())))
+    out.append(f'kernel_builds: {kernel_builds()}')
+    out.append('launches: ' + ', '.join(
+        f'{k} {v}' for k, v in trace_cuda.launches.items() if v) or 'none')
+    return out
+
+
+def __getattr__(name):
+    if name == 'launches':
+        from .ops import trace_cuda
+        return trace_cuda.launches
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
