@@ -101,6 +101,13 @@ Phases (each prints its results; any failure exits non-zero):
      for bit on rays aimed at edges two of the tree's leaves share; one
      progression under torch.profiler; the paths on the card against the
      CPU at 64x36, bar 0.99;
+  8f. the grid march kernel (ops/hete_cuda.py) at 0031_hete's shapes: the
+     7 free-flight and 7 transmittance calls of one 1024x576 progression
+     captured and launched again on the same tensors, twice
+     (bit-identical), each held to the plain march as the card tests hold
+     it (scatter decisions on >= 0.9999 of the grid lanes, weights
+     bit-equal, distance and T within 1e-6 in the tests' scaled units,
+     the largest printed), timed beside the plain march, bound by bytes;
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
  10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp;
@@ -180,7 +187,10 @@ tree's edge rays that differ (0).  The counters row is the union walk of
 phase 6 on the plane's bounce rays (its ``definition`` key says so: rows
 of that name from before timed the per-ray walk), with its lane share
 and the share of rays equal in every bit to its plain version; the
-per-ray counters row is the per-ray walk (simple_walk).  The last line is
+per-ray counters row is the per-ray walk (simple_walk).  The hete_march
+rows are the grid march's two modes at 8f's shapes, a launch's mean, with
+the sectors ms of its density lookups, the least scatter agreement and the
+largest scaled error.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -1855,22 +1865,240 @@ def golden_phase(dev):
 
 def media_paths_phase(dev, card):
     """Both media scenes at full width through render.render, and 0031
-    with equiangular volume NEE (its grid interior opts out of it); the
-    rates are printed with the card's name and power limit."""
+    with equiangular volume NEE (its grid interior opts out of it), the
+    grid march's launches counted with the traversal's; the rates are
+    printed with the card's name and power limit.  Returns the renders'
+    numbers and their launches, summed."""
     from corona13_tpu_torch import scene as scene_mod
     out = {}
+    total = collections.Counter()
     for name, spp, kw in (('0031_hete', 2, {}), ('0030_subsurf', 2, {}),
                           ('0031_hete', 2, {'equiangular': True})):
         sc, _ = scene_mod.load_scene(_scene_path(name), device=dev)
         sc = scene_mod.fit_film(sc, W, H)
         key = name + ('/equiangular' if kw else '')
+        # the grid's march: one free-flight and one NEE transmittance
+        # launch a bounce (ops/hete_cuda.py)
+        march = ('hete_sample', 'hete_transmit') if sc.has_hete else ()
         res, lit, launches, rays = render_phase(
             f'{key} ({sc.geom.n_tris} triangles)', sc, spp, card,
-            max_verts=8, media=True, **kw)
+            max_verts=8, forms=('closest', 'any', *march), media=True, **kw)
+        total.update(launches)
         out[key] = dict(frame_s=res.seconds / spp, rays=rays,
                         mrays_per_s=rays / res.seconds / 1e6, lit_share=lit,
                         mean=float(res.image_xyz.mean()))
+    return out, total
+
+
+SECTOR = 32          # bytes an L2 lookup moves
+
+
+def _capture_media(scene, cfg, sample=0):
+    """The (mode, args) of each medium.sample_dist_scene ('sample') and
+    transmittance_scene ('transmit') call of one pt progression, the
+    tensors cloned before the call, in the order of the calls."""
+    from corona13_tpu_torch.models import medium
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    real = {'sample': medium.sample_dist_scene,
+            'transmit': medium.transmittance_scene}
+    kept = []
+
+    def wrapped(mode):
+        def call(*a):
+            kept.append((mode, tuple(x.contiguous() for x in
+                                     _cloned(a[1:]))))
+            return real[mode](*a)
+        return call
+    medium.sample_dist_scene = wrapped('sample')
+    medium.transmittance_scene = wrapped('transmit')
+    try:
+        with torch.no_grad():
+            pt_mod.render_sample(scene, cfg, sample)
+    finally:
+        medium.sample_dist_scene = real['sample']
+        medium.transmittance_scene = real['transmit']
+    return kept
+
+
+def _march_terms(vol, med, org, w, t, rnd=None):
+    """The plain march's terms on the grid's lanes: tau (or, with ``rnd``,
+    the inversion's amplification of a relative error of the running sum,
+    dx cum_before / dtau_k, at the first crossing) and the density lookups
+    (steps inside the box, up to the first crossing with ``rnd``)."""
+    from corona13_tpu_torch.models import medium_hete as thete
+    g = med == vol.mat_id
+    org, w, t = org[g], w[g], t[g]
+    a, b = thete._segment(vol, org, w, t)
+    x, dx = thete._march_x(org, w, a, b)
+    _, inside = thete._voxel(vol, vol.density, x)
+    dtau, _ = thete._march_tau(vol, org, w, a, b)
+    cum = torch.cumsum(dtau, dim=-1)
+    if rnd is None:
+        return cum[:, -1], int(inside.sum())
+    target = -torch.log(torch.clamp(1.0 - rnd[g], min=1e-20))
+    crossed = cum >= target[:, None]
+    k = torch.argmax(crossed.to(torch.int32), dim=-1)
+    steps = torch.where(crossed.any(dim=-1), k + 1, thete.N_MARCH)
+    inside &= torch.arange(thete.N_MARCH, device=x.device) < steps[:, None]
+    rows = torch.arange(k.numel(), device=k.device)
+    before = torch.where(k > 0, cum[rows, (k - 1).clamp(min=0)], 0.0)
+    amp = dx * before / torch.clamp(dtau[rows, k], min=1e-20)
+    return amp, int(inside.sum())
+
+
+def hete_march_phase(dev, card, reps=20):
+    """8f. The grid march kernel (ops/hete_cuda.py) at 0031_hete's own
+    shapes: the 7 sample_dist_scene and 7 transmittance_scene calls of one
+    1024x576 progression (mf 4, max_verts 8, NEE, media: 589,824 lanes a
+    call) captured, each launched again on the same tensors, twice
+    (bit-identical), and held to the plain march (grid_sample_plain /
+    grid_transmit_plain) on them as tests/test_torch_hete_march.py holds
+    it: scatter decisions equal on >= 0.9999 of the grid lanes, the weight
+    bit-equal and a surface distance bit-equal where they agree, a scatter
+    distance within 1e-6 |d| + 1e-6 amp, T within 1e-6 max(1, tau) T, the
+    other lanes bit-equal to the homogeneous results; the largest errors
+    in those units are printed (*_scaled: 1e-6 is the bound).  Kernel and
+    plain timed by _time_ms; the bound: bytes in and out once (every
+    lane's medium id; a grid lane's ray, t and random number, and its
+    results; the grid) over 3.35 TB/s; beside it the lookups (the plain
+    march's steps inside the box, up to the first crossing) at a 32-byte
+    sector each over the same rate, no floor (L2 serves them)."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.models import medium
+    from corona13_tpu_torch.ops import hete_cuda
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    phase('grid march kernel at 0031_hete\'s shapes (kernel vs plain)')
+    sc, _ = scene_mod.load_scene(_scene_path('0031_hete'), device=dev)
+    sc = scene_mod.fit_film(sc, W, H)
+    cfg = pt_mod.PTConfig(width=W, height=H, max_verts=8, mf=4, use_nee=True,
+                          media=True)
+    vol = sc.vol
+    kept = _capture_media(sc, cfg)
+    out = {'card': card, 'lanes': W * H}
+    for mode in ('sample', 'transmit'):
+        rows = []
+        for k, a in kept:
+            if k != mode:
+                continue
+            with torch.no_grad():
+                med, lam, org, w, t = a[:5]
+                rnd = a[5] if mode == 'sample' else None
+                if mode == 'sample':
+                    homog = medium.sample_dist(sc.materials, med, lam, t, rnd)
+                else:
+                    homog = (medium.transmittance(sc.materials, med, lam, t),)
+                res = [x.clone() for x in homog]
+
+                def kern(_, res=res, a=a, mode=mode):
+                    med, _l, org, w, t = a[:5]
+                    if mode == 'sample':
+                        hete_cuda.march('sample', vol, med, org, w, t, res[2],
+                                        rnd=a[5], scat=res[0], dist=res[1])
+                    else:
+                        hete_cuda.march('transmit', vol, med, org, w, t,
+                                        res[0])
+                    return res
+
+                def plain(_, homog=homog, a=a, mode=mode):
+                    med, _l, org, w, t = a[:5]
+                    if mode == 'sample':
+                        return medium.grid_sample_plain(vol, med, org, w, t,
+                                                        a[5], *homog)
+                    return (medium.grid_transmit_plain(vol, med, org, w, t,
+                                                       homog[0]),)
+                first = [x.clone() for x in kern(0)]
+                again = [x.clone() for x in kern(0)]
+                ref = plain(0)
+                same = all(torch.equal(x, y) for x, y in zip(first, again))
+                check(same, f'{mode}: two launches differ')
+                g = med == vol.mat_id
+                check(all(torch.equal(x[~g], y[~g])
+                          for x, y in zip(first, homog)),
+                      f'{mode}: a lane outside the grid moved')
+                terms, looked = _march_terms(vol, med, org, w, t, rnd)
+                if mode == 'sample':
+                    agree = first[0][g] == ref[0][g]
+                    share = float(agree.float().mean()) if g.any() else 1.0
+                    check(share >= 0.9999, f'sample: scatter decisions '
+                          f'equal on {share} of the grid lanes')
+                    check(torch.equal(first[2][g][agree], ref[2][g][agree]),
+                          'sample: the weight differs')
+                    stay = agree & ~ref[0][g]
+                    check(torch.equal(first[1][g][stay], ref[1][g][stay]),
+                          'sample: a surface distance differs')
+                    both = agree & ref[0][g]
+                    d_k, d_p = first[1][g][both], ref[1][g][both]
+                    scaled = ((d_k - d_p).abs() / (d_p.abs() + terms[both])
+                              .clamp(min=1e-30))
+                    err = float(scaled.max()) if scaled.numel() else 0.0
+                    check(err <= 1e-6, f'sample: distance error {err}')
+                else:
+                    share = None
+                    t_k, t_p = first[0][g][:, 0], ref[0][g][:, 0]
+                    scaled = ((t_k - t_p).abs() / (t_p * torch.clamp(
+                        terms, min=1.0)).clamp(min=1e-30))
+                    scaled = torch.where(t_k == t_p, 0.0, scaled)
+                    err = float(scaled.max()) if scaled.numel() else 0.0
+                    check(err <= 1e-6, f'transmit: T error {err}')
+                n_grid = int(g.sum())
+                k_ms = _time_ms(kern, 1, reps)
+                p_ms = _time_ms(plain, 1, max(reps // 4, 3))
+            lane_in = 24 + 4 + (4 if mode == 'sample' else 0)
+            lane_out = 4 * cfg.mf + (5 if mode == 'sample' else 0)
+            nbytes = (med.element_size() * med.numel()
+                      + n_grid * (lane_in + lane_out)
+                      + vol.density.numel() * 4)
+            b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            l2_ms = looked * SECTOR / PEAK_BYTES_PER_S * 1e3
+            rows.append(dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             sectors_ms=l2_ms, grid_lanes=n_grid,
+                             lookups=looked, scat_equal=share,
+                             err_scaled=err))
+            print(f'{mode}: {n_grid} grid lanes, {looked} lookups, kernel '
+                  f'{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms '
+                  f'(share {b_ms / k_ms:.3f}), sectors {l2_ms:.4f} ms, '
+                  f'scatter equal {share}, error {err:.3e} of |x| (bound '
+                  f'1e-6)', flush=True)
+        ms = sum(r['ms'] for r in rows)
+        out[mode] = dict(
+            launches_per_frame=len(rows), ms_a_frame=ms,
+            plain_ms_a_frame=sum(r['plain_ms'] for r in rows),
+            bound_ms_a_frame=sum(r['bound_ms'] for r in rows),
+            sectors_ms_a_frame=sum(r['sectors_ms'] for r in rows),
+            roofline_share=sum(r['bound_ms'] for r in rows) / ms,
+            scat_equal=min((r['scat_equal'] for r in rows
+                            if r['scat_equal'] is not None), default=None),
+            err_scaled=max(r['err_scaled'] for r in rows), calls=rows)
+        check(len(rows) == cfg.max_verts - 1,
+              f'{mode}: {len(rows)} calls a progression')
+    print(json.dumps({k: v for k, v in out.items() if k != 'card'} | {
+        m: {k: v for k, v in out[m].items() if k != 'calls'}
+        for m in ('sample', 'transmit')}), flush=True)
     return out
+
+
+def hete_entries(hete, launches):
+    """The kernels line's rows of the grid march (hete_march_phase): a
+    launch's mean ms, plain ms and bound at 0031_hete's shapes;
+    ``launches``: trace_cuda.launches over the run's renders."""
+    rows = []
+    for mode in ('sample', 'transmit'):
+        m = hete[mode]
+        n = m['launches_per_frame']
+        rows.append({
+            'name': f'hete_march {mode}', 'route': 'cuda',
+            'source': 'corona13_tpu_torch/csrc/hete_march.cu',
+            'replaces': 'corona13_tpu_torch/models/medium_hete.py (eager '
+                        'torch; corona13_tpu/models/medium_hete.py, not '
+                        'Pallas)',
+            'library_ms': None, 'launches': launches[f'hete_{mode}'],
+            'launches_per_frame': n, 'ms': m['ms_a_frame'] / n,
+            'plain_ms': m['plain_ms_a_frame'] / n,
+            'bound_ms': m['bound_ms_a_frame'] / n, 'bound_by': 'bytes',
+            'roofline_share': m['roofline_share'],
+            'sectors_ms': m['sectors_ms_a_frame'] / n,
+            'scat_equal': m['scat_equal'], 'err_scaled': m['err_scaled']})
+    return rows
 
 
 def _hair_scene(dev, n_fibers=1 << 16, seed=0, radii=(0.1, 0.06)):
@@ -3659,7 +3887,8 @@ def main():
     cres, claunches = counters_phase(cases, kres, smi)
     del bvhs, cases
     gold = golden_phase(dev)
-    media = media_paths_phase(dev, smi)
+    media, media_launches = media_paths_phase(dev, smi)
+    hete = hete_march_phase(dev, smi)
     media_close = cell_vs_cpu('0031_hete', dev)
     prims = prims_phase(dev, gpu)
     spheres = sphere_frame_phase(dev, smi)
@@ -3751,7 +3980,8 @@ def main():
         'cli_mean': cli_mean}, 'form_cases': fres, 'sky': sky,
         'line_counter_cases': lcres,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
-        'light_paths': light, 'ppm_mlt': mlt, 'sharded': sharded}),
+        'light_paths': light, 'ppm_mlt': mlt, 'sharded': sharded,
+        'hete_march': hete}),
         flush=True)
 
     def form_entry(key):
@@ -3844,7 +4074,8 @@ def main():
         'bound_by': m['bound_by'], 'roofline_share': m['bound_ms'] / m['ms']}
     kernels = [entry('closest', 'traverse_tris closest-hit'),
                entry('any', 'traverse_tris any-hit'), counters, per_ray] + [
-        form_entry(k) for k in fres] + [line_counters]
+        form_entry(k) for k in fres] + [line_counters] + hete_entries(
+        hete, media_launches)
     for k in kernels:
         check(k['launches'] > 0, f'{k["name"]} was never launched on its path')
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ..ops import hete_cuda
 from ..spectral import rgb2spec
 from ..utils.math import build_onb, dot, normalize, sqrt
 
@@ -78,30 +79,144 @@ def sample_dist(materials, med, lam, t_hit, rnd):
     return scatter, dist, w
 
 
+def _needs_graph(vol, tensors):
+    """Whether autograd needs the grid march's gradient on the card: an
+    input, lo, hi, sigma_t or sigma_s requires it.  The kernel has none in
+    the density: a density that requires grad raises there."""
+    if not torch.is_grad_enabled():
+        return False
+    if vol.density.requires_grad:
+        raise NotImplementedError(
+            'the grid march on the card has no gradient in the density')
+    return any(t.requires_grad for t in (*tensors, vol.lo, vol.hi,
+                                         vol.sigma_t, vol.sigma_s))
+
+
+def _lanes(x, tail=()):
+    """``x`` as a contiguous [lanes, *tail] tensor (a view where it can),
+    out of any graph: the kernel reads its memory."""
+    return x.detach().reshape(-1, *tail).contiguous()
+
+
+class _ValueOf(torch.autograd.Function):
+    """``value`` forward, the gradient of ``surrogate`` (same shape)
+    backward: the kernel's result with the plain march's gradient."""
+
+    @staticmethod
+    def forward(ctx, value, surrogate):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def grid_sample_plain(vol, med, org, w, t_hit, rnd, scat, dist, wgt):
+    """The grid's lanes of :func:`sample_dist_scene` by the plain march:
+    ``medium_hete.sample_dist`` kept where ``med`` is the grid's."""
+    from . import medium_hete
+    in_h = med == vol.mat_id
+    s2, d2, w2 = medium_hete.sample_dist(vol, org, w, t_hit, rnd)
+    return (torch.where(in_h, s2, scat), torch.where(in_h, d2, dist),
+            torch.where(in_h[..., None], w2[..., None], wgt))
+
+
+def grid_transmit_plain(vol, med, org, w, dist, tr):
+    """The grid's lanes of :func:`transmittance_scene` by the plain march."""
+    from . import medium_hete
+    in_h = med == vol.mat_id
+    t2 = medium_hete.transmittance(vol, org, w, dist)
+    return torch.where(in_h[..., None], t2[..., None], tr)
+
+
+def grid_sample_graph(vol, med, org, w, t_hit, rnd, homog, march, aux):
+    """The grid's lanes of :func:`sample_dist_scene` with a graph: the
+    values of ``march`` (the kernel's scatter and distance), the gradients
+    of the plain march.  Its optical depths are sigma_t dx times densities
+    whose lookups have no gradient, so from ``aux`` [..., 3] (the first
+    crossing's step k, the densities' sum before it, the density at it)
+    the distance is a + (k + frac) dx, frac = (target - sigma_t dx
+    R_before) / (rho_k sigma_t dx), with [a, b] of ``_segment``."""
+    from . import medium_hete
+    scat, dist, wgt = homog
+    s2, d2 = march
+    k, r_before, rho_k = aux.unbind(-1)
+    a, b = medium_hete._segment(vol, org, w, t_hit)
+    dx = (b - a) / medium_hete.N_MARCH
+    target = -torch.log(torch.clamp(1.0 - rnd, min=1e-20))
+    frac = (target - vol.sigma_t * dx * r_before) / torch.clamp(
+        rho_k * vol.sigma_t * dx, min=1e-20)
+    d = torch.where(s2, a + (k + torch.clamp(frac, 0.0, 1.0)) * dx, t_hit)
+    w2 = torch.where(s2, medium_hete.scatter_ratio(vol), 1.0)
+    in_h = med == vol.mat_id
+    return (torch.where(in_h, s2, scat),
+            torch.where(in_h, _ValueOf.apply(d2, d), dist),
+            torch.where(in_h[..., None], w2[..., None], wgt))
+
+
+def grid_transmit_graph(vol, med, org, w, dist, tr, march, aux):
+    """The grid's lanes of :func:`transmittance_scene` with a graph: the
+    kernel's T (``march`` [..., MF]) with the gradient of
+    exp(-sigma_t dx R), R = ``aux[..., 0]`` the densities' sum."""
+    from . import medium_hete
+    a, b = medium_hete._segment(vol, org, w, dist)
+    dx = (b - a) / medium_hete.N_MARCH
+    t = torch.exp(-(vol.sigma_t * dx * aux[..., 0]))
+    in_h = med == vol.mat_id
+    return torch.where(in_h[..., None],
+                       _ValueOf.apply(march, t[..., None].expand_as(march)),
+                       tr)
+
+
 def sample_dist_scene(scene, med, lam, org, w, t_hit, rnd):
     """Scene-level free flight: homogeneous material media plus the
     heterogeneous grid (scene.vol) where present.  Same contract as
-    :func:`sample_dist`; ``org``/``w`` locate the ray for the grid march."""
+    :func:`sample_dist`; ``org``/``w`` locate the ray for the grid march:
+    on the card the CUDA kernel (``ops/hete_cuda.py``), written into the
+    homogeneous results at the grid's lanes (into copies, with
+    :func:`grid_sample_graph`, where autograd needs the march), elsewhere
+    the plain march."""
     scat, dist, wgt = sample_dist(scene.materials, med, lam, t_hit, rnd)
-    if scene.has_hete:
-        from . import medium_hete
-        in_h = med == scene.vol.mat_id
-        s2, d2, w2 = medium_hete.sample_dist(scene.vol, org, w, t_hit, rnd)
-        scat = torch.where(in_h, s2, scat)
-        dist = torch.where(in_h, d2, dist)
-        wgt = torch.where(in_h[..., None], w2[..., None], wgt)
-    return scat, dist, wgt
+    if not scene.has_hete:
+        return scat, dist, wgt
+    vol = scene.vol
+    if not org.is_cuda:
+        return grid_sample_plain(vol, med, org, w, t_hit, rnd, scat, dist,
+                                 wgt)
+    graph = _needs_graph(vol, (org, w, t_hit, rnd, dist, wgt))
+    out = (scat.clone(), dist.detach().clone(), wgt.detach().clone()) \
+        if graph else (scat, dist, wgt)
+    aux = torch.zeros(med.numel(), 3, device=med.device) if graph else None
+    hete_cuda.march('sample', vol, _lanes(med), _lanes(org, (3,)),
+                    _lanes(w, (3,)), _lanes(t_hit),
+                    out[2].view(-1, wgt.shape[-1]), rnd=_lanes(rnd),
+                    scat=out[0].view(-1), dist=out[1].view(-1), aux=aux)
+    if graph:
+        return grid_sample_graph(vol, med, org, w, t_hit, rnd,
+                                 (scat, dist, wgt), out[:2],
+                                 aux.view(*med.shape, 3))
+    return out
 
 
 def transmittance_scene(scene, med, lam, org, w, dist):
-    """Scene-level transmittance along [0, dist] from org."""
+    """Scene-level transmittance along [0, dist] from org; the grid's
+    lanes as in :func:`sample_dist_scene` (:func:`grid_transmit_graph`)."""
     tr = transmittance(scene.materials, med, lam, dist)
-    if scene.has_hete:
-        from . import medium_hete
-        in_h = med == scene.vol.mat_id
-        t2 = medium_hete.transmittance(scene.vol, org, w, dist)
-        tr = torch.where(in_h[..., None], t2[..., None], tr)
-    return tr
+    if not scene.has_hete:
+        return tr
+    vol = scene.vol
+    if not org.is_cuda:
+        return grid_transmit_plain(vol, med, org, w, dist, tr)
+    graph = _needs_graph(vol, (org, w, dist, tr))
+    out = tr.detach().clone() if graph else tr
+    aux = torch.zeros(med.numel(), 3, device=med.device) if graph else None
+    hete_cuda.march('transmit', vol, _lanes(med), _lanes(org, (3,)),
+                    _lanes(w, (3,)), _lanes(dist), out.view(-1, tr.shape[-1]),
+                    aux=aux)
+    if graph:
+        return grid_transmit_graph(vol, med, org, w, dist, tr, out,
+                                   aux.view(*med.shape, 3))
+    return out
 
 
 def hg_phase(g, cos_t):

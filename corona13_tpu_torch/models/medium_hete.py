@@ -110,6 +110,13 @@ def transmittance(grid: VolGrid, org, w, dist):
     return torch.exp(-torch.sum(dtau, dim=-1))
 
 
+def scatter_ratio(grid: VolGrid):
+    """The weight of a scatter event, sigma_s / sigma_t (0-d)."""
+    return torch.where(grid.sigma_t > 0.0,
+                       grid.sigma_s / torch.clamp(grid.sigma_t, min=1e-20),
+                       0.0)
+
+
 def sample_dist(grid: VolGrid, org, w, t_hit, rnd):
     """Voxel-based free-flight distance sampling.
 
@@ -130,10 +137,7 @@ def sample_dist(grid: VolGrid, org, w, t_hit, rnd):
     frac = (target - cum_before) / torch.clamp(dtau_k, min=1e-20)
     dist = a + (k.to(torch.float32) + torch.clamp(frac, 0.0, 1.0)) * dx
     scatter = any_cross & (dist < t_hit)
-    ratio = torch.where(grid.sigma_t > 0.0,
-                        grid.sigma_s / torch.clamp(grid.sigma_t, min=1e-20),
-                        0.0)
-    weight = torch.where(scatter, ratio, 1.0)
+    weight = torch.where(scatter, scatter_ratio(grid), 1.0)
     return scatter, torch.where(scatter, dist, t_hit), weight
 
 

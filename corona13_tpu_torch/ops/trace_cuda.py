@@ -67,7 +67,8 @@ On a CPU tensor the wrappers run ``traverse_tris_plain``; on a CUDA
 tensor they launch the kernel or raise.  ``launches`` counts kernel
 launches per specialisation ('closest', 'any', and 'counters' for the
 union walk of ``want_counters``, either hit mode), per further form and
-per per-ray counting walk ('tri_counters', 'line_counters').
+per per-ray counting walk ('tri_counters', 'line_counters'), and the grid
+march of ``ops/hete_cuda.py`` by mode ('hete_sample', 'hete_transmit').
 
 Further forms (``closest_hit``, ``any_hit``).  What the JAX package
 serves with XLA's lockstep skip-link ``_traverse`` and its dense
@@ -157,14 +158,15 @@ _KINDS = {'tri': 0, 'moving': 1, 'sphere': 2, 'line': 3}
 # any-hit: the wide walk with the moving-triangle, sphere and line
 # policies, the deep-tree walk and, for a tree too deep for its stack, the
 # stackless skip-link walk (any policy), and the dense sphere and line
-# lists; and the per-ray walks with their pops (simple_walk: 'tri_counters',
-# 'line_counters')
+# lists; the per-ray walks with their pops (simple_walk: 'tri_counters',
+# 'line_counters'); and the heterogeneous grid's march (ops/hete_cuda.py:
+# its two modes)
 launches = {k: 0 for k in (
     'closest', 'any', 'counters',
     *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'skip',
                            'dense_sphere', 'dense_line')
       for m in ('closest', 'any')),
-    'tri_counters', 'line_counters')}
+    'tri_counters', 'line_counters', 'hete_sample', 'hete_transmit')}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
@@ -202,7 +204,7 @@ def _nvcc():
             shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc']:
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError('traverse_tris: no nvcc to build the CUDA kernel with')
+    raise RuntimeError('no nvcc to build the CUDA kernels with')
 
 
 def build():
@@ -217,11 +219,23 @@ def build():
 
 def _build():
     global build_log, _fn
-    src = os.path.join(_CSRC, 'traverse_tris.cu')
+    lib, build_log = compile_library('traverse_tris')
+    fn = lib.corona13_trace
+    fn.argtypes = [ctypes.POINTER(_Args)]
+    fn.restype = ctypes.c_int
+    _fn = fn
+    return fn
+
+
+def compile_library(stem: str):
+    """Compile ``csrc/<stem>.cu`` with ``NVCC_FLAGS`` into
+    ``_build/lib<stem>_<hash>.so``, the hash of the source and the flags
+    (an up-to-date library is reused), and load it with ctypes.  Returns
+    the library and nvcc's report (registers, spills)."""
+    src = os.path.join(_CSRC, f'{stem}.cu')
     with open(src, 'rb') as f:
         digest = hashlib.sha1(f.read() + repr(NVCC_FLAGS).encode())
-    lib_path = os.path.join(_BUILD,
-                            f'libtraverse_tris_{digest.hexdigest()[:12]}.so')
+    lib_path = os.path.join(_BUILD, f'lib{stem}_{digest.hexdigest()[:12]}.so')
     if not os.path.exists(lib_path):
         os.makedirs(_BUILD, exist_ok=True)
         tmp = f'{lib_path}.{os.getpid()}.tmp'
@@ -229,20 +243,16 @@ def _build():
         tracing.note_kernel_build()
         out = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, src],
                              capture_output=True, text=True)
-        build_log = out.stdout + out.stderr
+        log = out.stdout + out.stderr
         if out.returncode != 0:
-            raise RuntimeError(f'traverse_tris: nvcc failed:\n{build_log}')
+            raise RuntimeError(f'{stem}: nvcc failed:\n{log}')
         with open(lib_path + '.log', 'w') as f:
-            f.write(build_log)
+            f.write(log)
         os.replace(tmp, lib_path)
     else:
         with open(lib_path + '.log') as f:
-            build_log = f.read()
-    fn = ctypes.CDLL(lib_path).corona13_trace
-    fn.argtypes = [ctypes.POINTER(_Args)]
-    fn.restype = ctypes.c_int
-    _fn = fn
-    return fn
+            log = f.read()
+    return ctypes.CDLL(lib_path), log
 
 
 # --- the kernel's own layout -------------------------------------------------
@@ -559,24 +569,23 @@ def unpack_kernel_layout(knodes: np.ndarray, kleaves: np.ndarray):
     return wbounds, wlinks, leaf_packed
 
 
-def _check_tensors(want, dev):
+def _check_tensors(want, dev, who='traverse_tris'):
     """Each (name, tensor, dtypes, shape or None): on ``dev``, of one of
-    the dtypes, of that shape, contiguous."""
+    the dtypes, of that shape, contiguous.  ``who`` heads the message."""
     for name, x, dtypes, shape in want:
         if not isinstance(x, torch.Tensor):
-            raise TypeError(f'traverse_tris: {name} is {type(x).__name__}, '
+            raise TypeError(f'{who}: {name} is {type(x).__name__}, '
                             'needs a tensor')
         if x.device != dev:
-            raise ValueError(f'traverse_tris: {name} on {x.device}, '
-                             f'rays on {dev}')
+            raise ValueError(f'{who}: {name} on {x.device}, rays on {dev}')
         if x.dtype not in dtypes:
-            raise TypeError(f'traverse_tris: {name} is {x.dtype}, '
+            raise TypeError(f'{who}: {name} is {x.dtype}, '
                             f'needs {" or ".join(map(str, dtypes))}')
         if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f'traverse_tris: {name} has shape '
+            raise ValueError(f'{who}: {name} has shape '
                              f'{tuple(x.shape)}, needs {shape}')
         if not x.is_contiguous():
-            raise ValueError(f'traverse_tris: {name} is not contiguous')
+            raise ValueError(f'{who}: {name} is not contiguous')
 
 
 def _check_rays(org, direction, t_init, ignore_prim, ignore_prim2, time=None):

@@ -28,10 +28,11 @@ inactive ``record_function`` costs about 12 us).  The names, in their nesting:
 and the interior stack's push and pop (inside ``pt.extend``), so the
 outermost ``pt.media`` spans hold all of the media work.
 
-Set-up spans (``setup_span``: ``scene.load``, ``trace_cuda.build``) run
-once a process: they always keep their host seconds in memory, by name
-(``setup_seconds``), and are ``record_function`` ranges as well while a
-profiler records.  ``kernel_builds`` counts the nvcc runs.
+Set-up spans (``setup_span``: ``SETUP_SPANS``, the scene's load and the
+two kernel libraries' builds) run once a process: they always keep their
+host seconds in memory, by name (``setup_seconds``), and are
+``record_function`` ranges as well while a profiler records.
+``kernel_builds`` counts the nvcc runs.
 
 Counters are kept only inside ``counting()``: for each bounce, the lanes
 alive when it starts and the wavefront's width, as device tensors that
@@ -39,7 +40,7 @@ are read when asked for, so nothing synchronises inside a frame.  Off,
 they cost one check a bounce; on, one reduction a bounce.
 
 ``launches`` is ``ops.trace_cuda.launches``, the traversal launches per
-form, as it is.
+form and the grid march's by mode, as it is.
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ import torch
 SPAN_NAMES = ('render.progression', 'render.readback', 'pt.camera',
               'pt.compact', 'pt.bounce', 'pt.intersect', 'pt.media',
               'pt.shade', 'pt.nee', 'pt.extend', 'pt.splat', 'scene.load',
-              'trace_cuda.build')
+              'trace_cuda.build', 'hete_cuda.build')
+SETUP_SPANS = ('scene.load', 'trace_cuda.build', 'hete_cuda.build')
 
 _NULL = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
@@ -90,13 +92,13 @@ def setup_seconds() -> dict:
 
 
 def note_kernel_build():
-    """Count one nvcc run (``trace_cuda.build``)."""
+    """Count one nvcc run (``trace_cuda.compile_library``)."""
     global _builds
     _builds += 1
 
 
 def kernel_builds() -> int:
-    """nvcc runs of ``trace_cuda.build`` in this process."""
+    """nvcc runs of ``trace_cuda.compile_library`` in this process."""
     return _builds
 
 

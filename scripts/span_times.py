@@ -31,7 +31,9 @@ the program span that launched it began, and the device events the spans
 leave (user annotations).  A span's device ms counts the kernels whose
 launch began inside it (``tracing.span_table``); ``reader_ms`` is what the
 benchmark's reader (``portbench/metrics/_spans.py``) reads from the same
-pass.
+pass.  Last, one call inside ``tracing.counting()``: the dead-lane share,
+the lanes alive a bounce, and ``tracing.launches`` by key (the traversal
+forms, the grid march's 'hete_sample' and 'hete_transmit').
 """
 
 from __future__ import annotations
@@ -56,8 +58,7 @@ from portbench.metrics import _spans  # noqa: E402
 from portbench.metrics._kernels import kernel_key  # noqa: E402
 
 TOP = ('pt.camera', 'pt.compact', 'pt.bounce', 'pt.splat', 'render.readback')
-FRAME_SPANS = [n for n in tracing.SPAN_NAMES
-               if n not in ('scene.load', 'trace_cuda.build')]
+FRAME_SPANS = [n for n in tracing.SPAN_NAMES if n not in tracing.SETUP_SPANS]
 
 
 def _sync():
@@ -230,10 +231,14 @@ def main(argv=None) -> int:
         clock=_clock_check(events, hp),
         host_pass_annotations=_annotations(events))
     out['bounce_idle_share'] = _spans.idle_share_under(ctx, _spans.BOUNCE)
+    before = dict(tracing.launches)
     with tracing.counting() as counters:
         drv.call(0)
     out['dead_lane_share'] = counters.dead_lane_share()
     out['alive_a_bounce'] = counters.alive()
+    out['launches_a_call'] = {k: v - before[k]
+                              for k, v in tracing.launches.items()
+                              if v != before[k]}
     out['setup_s'] = tracing.setup_seconds()
     out['kernel_builds'] = tracing.kernel_builds()
     text = json.dumps(out, indent=1)
