@@ -12,7 +12,9 @@ ptlt, bdpt1, ppm, kmlt, vmlt and vis.
 Writes <output>_fb00.pfm (camera XYZ), a sidecar <output>.txt and a
 resumable <output>.fb checkpoint; ``--dbor`` also the cascade levels
 <output>_dborNN.pfm (pt and ptdl only, as in the JAX CLI); ``--sampler vis``
-only the AOV image.  Renders on CUDA unless ``--device cpu`` is given;
+only the AOV image.  pt, ptdl and bdpt render through ``render.render``
+(``PTConfig.sampler``); the other samplers one progression a call here.
+Renders on CUDA unless ``--device cpu`` is given;
 without a CUDA device it exits non-zero rather than fall back.
 ``--profile PATH`` loads and renders under ``torch.profiler`` (the host's
 ops, and the card's kernels on CUDA), writes its Chrome trace to PATH, in
@@ -30,8 +32,9 @@ import time
 
 _SAMPLERS = ['pt', 'ptdl', 'lt', 'ptlt', 'bdpt', 'bdpt1', 'kmlt', 'vmlt',
              'ppm', 'vis']
-# rendered one progression a call by ``_render_progressions``
-_STEPPED = ('lt', 'bdpt', 'ptlt', 'bdpt1', 'ppm', 'kmlt', 'vmlt')
+# rendered one progression a call by ``_render_progressions``; pt, ptdl and
+# bdpt run through ``render.render``
+_STEPPED = ('lt', 'ptlt', 'bdpt1', 'ppm', 'kmlt', 'vmlt')
 
 
 def main(argv=None):
@@ -130,7 +133,8 @@ def _run(args, device):
         width=args.width, height=args.height, max_verts=args.max_verts,
         mf=args.mf, use_nee=(args.sampler != 'pt'),
         pointsampler=args.pointsampler, seed=args.seed, media=args.media,
-        equiangular=args.equiangular)
+        equiangular=args.equiangular,
+        sampler='bdpt' if args.sampler == 'bdpt' else 'pt')
     if args.sampler == 'vis':
         from .samplers import vis as vis_mod
         with torch.no_grad():
@@ -148,7 +152,7 @@ def _run(args, device):
     if args.sampler in _STEPPED:
         fb = _render_progressions(scene, cfg, args.sampler, fbf.spp, args.spp)
         fbf.accumulate(fb, args.spp)
-    elif args.dbor:
+    elif args.dbor and args.sampler in ('pt', 'ptdl'):
         # the ptdl_dbor technique (reference src/sampler.d/ptdl_dbor.c): the
         # samples of each progression land in the log2-luminance cascade;
         # the written image is the trust-merged reassembly
@@ -159,8 +163,11 @@ def _run(args, device):
                              fbs[k].cpu().numpy())
         fbf.accumulate(merged, args.spp)
     else:
-        res = render_mod.render(scene, cfg, spp=args.spp, batch=args.batch,
-                                progress=True)
+        # bdpt resumes at the next sample index, as the stepped samplers
+        # do; pt and ptdl start at 0, as in the JAX CLI
+        res = render_mod.render(
+            scene, cfg, spp=args.spp, batch=args.batch, progress=True,
+            first=fbf.spp if args.sampler == 'bdpt' else 0)
         fbf.accumulate(res.fb, res.spp)
     fbf.flush(iso=float(scene.camera.iso))
     img = fbf.image
@@ -184,8 +191,8 @@ def _render_progressions(scene, cfg, sampler: str, first: int, spp: int):
     [H, W, 3] on the host."""
     import torch
 
-    from .samplers import bdpt, bdpt1, kmlt, lt, ppm, ptlt, vmlt
-    step = {'lt': lt.render_sample, 'bdpt': bdpt.render_sample,
+    from .samplers import bdpt1, kmlt, lt, ppm, ptlt, vmlt
+    step = {'lt': lt.render_sample,
             'ptlt': ptlt.render_sample, 'ppm': ppm.render_sample,
             'kmlt': kmlt.render_sample,
             'vmlt': vmlt.render_sample}.get(sampler)

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..utils.math import sqrt
 
 
@@ -172,10 +173,16 @@ def dbor_merge(fbs, trust: float = 4.0):
 
 
 def splat(fb, pix_i, pix_j, col, filter_kind: str = 'blackmanharris'):
-    """Accumulate colours into fb [H, W, 3].
+    """Accumulate colours into fb [H, W, 3], inside the span
+    ``splat.general``.
 
     pix_i/pix_j: continuous image coordinates [N]; col: [N, 3].
     Returns the updated framebuffer."""
+    with tracing.span('splat.general'):
+        return _splat(fb, pix_i, pix_j, col, filter_kind)
+
+
+def _splat(fb, pix_i, pix_j, col, filter_kind):
     h, w = fb.shape[0], fb.shape[1]
     dev = fb.device
     if filter_kind == 'box':

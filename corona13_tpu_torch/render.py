@@ -15,6 +15,7 @@ import torch
 
 from . import tracing
 from .io import pfm as pfm_io
+from .samplers import bdpt as bdpt_mod
 from .samplers import pt as pt_mod
 from .spectral import colour
 
@@ -62,21 +63,33 @@ class RenderResult:
 
 
 def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
-           progress: bool = False, path_hist: bool = False) -> RenderResult:
+           progress: bool = False, path_hist: bool = False,
+           first: int = 0) -> RenderResult:
     """Render ``spp`` progressions (1 path/pixel each) on the scene's
-    device.  ``batch`` progressions run per step (0 = auto: the whole spp
-    for small images, else 1); ``progress`` prints the time per frame
-    after each step.  ``path_hist``: the per-depth alive lanes of the first
-    progression, from ``tracing`` counters of the first step (a dense
-    wavefront; under cfg.compact from ``pt.alive_profile``, a second
+    device with the estimator ``cfg.sampler`` names: 'pt' (pt or ptdl by
+    ``cfg.use_nee``) or 'bdpt' (``samplers/bdpt.py``).  ``batch``
+    progressions run per step (0 = auto: the whole spp for small images,
+    else 1); bdpt runs one a step, since its batch copies share their
+    sample ids and trace the same paths.  ``first``: the sample index of
+    the first progression.  ``progress`` prints the time per frame after
+    each step.  ``path_hist`` (pt only): the per-depth alive lanes of the
+    first progression, from ``tracing`` counters of the first step (a
+    dense wavefront; under cfg.compact from ``pt.alive_profile``, a second
     render)."""
-    if batch <= 0:
-        batch = spp if cfg.width * cfg.height * spp <= (1 << 21) else 1
+    if cfg.sampler == 'bdpt':
+        step_fn, batch = bdpt_mod.render_sample, 1
+    elif cfg.sampler == 'pt':
+        step_fn = pt_mod.render_sample
+        if batch <= 0:
+            batch = spp if cfg.width * cfg.height * spp <= (1 << 21) else 1
+        if not cfg.media and (scene.has_hete
+                              or bool(scene.materials.med_enabled.any())):
+            # the scene carries participating media: run the media path
+            cfg = cfg.replace(media=True)
+    else:
+        raise ValueError(f'render: no sampler {cfg.sampler!r} (pt, bdpt)')
     batch = min(batch, spp)
-    if not cfg.media and (scene.has_hete
-                          or bool(scene.materials.med_enabled.any())):
-        # the scene carries participating media: run the media path
-        cfg = cfg.replace(media=True)
+    path_hist = path_hist and cfg.sampler == 'pt'
     dev = scene.device
     count = path_hist and cfg.compact is None
     counters = fb_host = None
@@ -88,11 +101,12 @@ def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
         while done < spp:
             with contextlib.ExitStack() as step:
                 step.enter_context(tracing.span(
-                    'render.progression', {'seed': cfg.seed, 'sample': done}))
+                    'render.progression',
+                    {'seed': cfg.seed, 'sample': first + done}))
                 if count and done == 0:
                     counters = step.enter_context(
                         tracing.counting(lanes=cfg.width * cfg.height))
-                fb = fb + pt_mod.render_sample(scene, cfg, done, batch=batch)
+                fb = fb + step_fn(scene, cfg, first + done, batch=batch)
                 done += batch
                 if done >= spp:
                     with tracing.span('render.readback'):
@@ -109,7 +123,7 @@ def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
         if counters is not None:
             hist = np.asarray(counters.alive(), dtype=np.int64)
         elif path_hist:
-            hist = pt_mod.alive_profile(scene, cfg, 0).cpu().numpy()
+            hist = pt_mod.alive_profile(scene, cfg, first).cpu().numpy()
         else:
             hist = None
     return RenderResult(fb=fb_host, spp=done, iso=float(scene.camera.iso),

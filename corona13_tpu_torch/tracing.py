@@ -1,8 +1,8 @@
 """Spans and counters of the port, on the profiler's clock.
 
-Spans mark the layer boundaries of the pt/ptdl progression
-(``render.py``, ``samplers/pt.py``).  While a ``torch.profiler`` profile
-records, ``span`` enters a ``torch.profiler.record_function`` range, so
+Spans mark the layer boundaries of a progression (``render.py``,
+``samplers/pt.py``, ``samplers/bdpt.py``).  While a ``torch.profiler``
+profile records, ``span`` enters a ``torch.profiler.record_function`` range, so
 the span lands in the profiler's timeline beside the card's kernels and
 on the same clock: an idle gap of the card can then be put down to what
 the host was doing.  Otherwise it returns one shared null context and
@@ -28,16 +28,34 @@ inactive ``record_function`` costs about 12 us).  The names, in their nesting:
 and the interior stack's push and pop (inside ``pt.extend``), so the
 outermost ``pt.media`` spans hold all of the media work.
 
+A bdpt progression (``render.render`` with ``cfg.sampler == 'bdpt'``,
+``samplers/bdpt.py``) holds, inside ``render.progression``, sibling
+spans none of which nests in another ``bdpt.*`` span:
+
+    bdpt.subpath          the subpaths' starts (camera and emission
+                          samples) and each eye and light bounce
+    bdpt.connect          one strategy (args: s, t): the s = 0 emitter
+                          hits, or an s >= 1, t >= 2 connection with its
+                          shadow ray and MIS
+    bdpt.camera           one t = 1 connection (args: s): its shadow ray,
+                          MIS and splat, with
+      splat.general       ``ops/splat.splat`` (wherever it runs: lt,
+                          ptlt, kmlt, vmlt and the sharded frame too)
+    bdpt.splat            spectral_to_xyz and the pixel-aligned splat
+
 Set-up spans (``setup_span``: ``SETUP_SPANS``, the scene's load and the
 two kernel libraries' builds) run once a process: they always keep their
 host seconds in memory, by name (``setup_seconds``), and are
 ``record_function`` ranges as well while a profiler records.
 ``kernel_builds`` counts the nvcc runs.
 
-Counters are kept only inside ``counting()``: for each bounce, the lanes
-alive when it starts and the wavefront's width, as device tensors that
-are read when asked for, so nothing synchronises inside a frame.  Off,
-they cost one check a bounce; on, one reduction a bounce.
+Counters are kept only inside ``counting()``: for each bounce (pt's, and
+each bounce of bdpt's subpaths), the lanes alive when it starts and the
+wavefront's width; for each bdpt connection that has a shadow ray (s >=
+1), the lanes that may connect before the visibility test and the lanes
+still connected after it.  They are device tensors that are read when
+asked for, so nothing synchronises inside a frame.  Off, they cost one
+check a bounce or connection; on, one reduction (two a connection).
 
 ``launches`` is ``ops.trace_cuda.launches``, the traversal launches per
 form and the grid march's by mode, as it is.
@@ -54,8 +72,9 @@ import torch
 
 SPAN_NAMES = ('render.progression', 'render.readback', 'pt.camera',
               'pt.compact', 'pt.bounce', 'pt.intersect', 'pt.media',
-              'pt.shade', 'pt.nee', 'pt.extend', 'pt.splat', 'scene.load',
-              'trace_cuda.build', 'hete_cuda.build')
+              'pt.shade', 'pt.nee', 'pt.extend', 'pt.splat', 'bdpt.subpath',
+              'bdpt.connect', 'bdpt.camera', 'bdpt.splat', 'splat.general',
+              'scene.load', 'trace_cuda.build', 'hete_cuda.build')
 SETUP_SPANS = ('scene.load', 'trace_cuda.build', 'hete_cuda.build')
 
 _NULL = contextlib.nullcontext()
@@ -109,6 +128,7 @@ class Counters:
     def __init__(self, lanes: int | None = None):
         self.lanes = lanes
         self._bounces = []      # (alive lanes, a 0-d device tensor; width)
+        self._connects = []     # (s, t, can, live: 0-d device tensors; lanes)
 
     def bounce(self, alive):
         if self.lanes is not None:
@@ -131,6 +151,27 @@ class Counters:
         run = sum(self.widths())
         return 1.0 - sum(self.alive()) / run if run else None
 
+    def connect(self, s: int, t: int, can, live):
+        self._connects.append((s, t, can.sum(), live.sum(), can.shape[0]))
+
+    def connections(self) -> list[tuple]:
+        """(s, t, lanes that may connect, lanes connected, lanes) of each
+        bdpt connection in order (one transfer)."""
+        if not self._connects:
+            return []
+        counts = torch.stack([torch.stack([c, v]) for _, _, c, v, _
+                              in self._connects]).cpu().tolist()
+        return [(s, t, c, v, n) for (s, t, _, _, n), (c, v)
+                in zip(self._connects, counts)]
+
+    def connect_live_share(self) -> float | None:
+        """The lanes still connected after the visibility test over the
+        lanes of every connection pass computed: the share of the dense
+        connection passes that does useful work."""
+        rows = self.connections()
+        run = sum(n for *_, n in rows)
+        return sum(v for _, _, _, v, _ in rows) / run if run else None
+
 
 @contextlib.contextmanager
 def counting(lanes: int | None = None):
@@ -149,6 +190,13 @@ def count_bounce(alive):
     """Record a bounce's alive mask inside ``counting()``; else nothing."""
     if _counters is not None:
         _counters.bounce(alive)
+
+
+def count_connect(s: int, t: int, can, live):
+    """Record a bdpt connection's masks (before and after the visibility
+    test) inside ``counting()``; else nothing."""
+    if _counters is not None:
+        _counters.connect(s, t, can, live)
 
 
 def _merged(intervals):

@@ -4,6 +4,8 @@ one clock, and what the spans and counters cost when they are on.
 
     python scripts/span_times.py --workload 0031_hete.progressive \
         --seed 2147483701 --calls 6 --out spans_0031.json
+    python scripts/span_times.py --workload 0002_mb_bdpt.progressive_bdpt \
+        --seed 2147483701 --calls 6 --out spans_bdpt.json
 
 From the root of a checkout, on a CUDA card.  The cell's generator
 (``portbench/drivers``) builds the scene and renders the calls, as the
@@ -24,15 +26,18 @@ clock to the host's holds in a process's second profile and drifts by
 milliseconds in later ones.  From that host pass, with spans: for each span name, device ms a call
 under its outermost spans and the card's idle ms a call inside
 ``render.progression`` while the host is inside one; the card's busy ms
-a call; and the checks: the top-level spans' device ms against the busy
-ms, ``pt.intersect`` + ``pt.nee`` against the traversal kernels' ms,
+a call; and the checks: the top-level spans' device ms (pt's, or bdpt's
+``bdpt.subpath``, ``bdpt.connect``, ``bdpt.camera``, ``bdpt.splat``, with
+``splat.general`` listed beside them) against the busy ms, ``pt.intersect``
++ ``pt.nee`` (pt) against the traversal kernels' ms,
 ``pt.media`` against the ``aten::cumsum`` ms, every kernel starting after
 the program span that launched it began, and the device events the spans
 leave (user annotations).  A span's device ms counts the kernels whose
 launch began inside it (``tracing.span_table``); ``reader_ms`` is what the
 benchmark's reader (``portbench/metrics/_spans.py``) reads from the same
 pass.  Last, one call inside ``tracing.counting()``: the dead-lane share,
-the lanes alive a bounce, and ``tracing.launches`` by key (the traversal
+the lanes alive a bounce (of pt's bounces or bdpt's subpaths), bdpt's
+connection live share, and ``tracing.launches`` by key (the traversal
 forms, the grid march's 'hete_sample' and 'hete_transmit').
 """
 
@@ -57,7 +62,8 @@ from portbench import trace as tr  # noqa: E402
 from portbench.metrics import _spans  # noqa: E402
 from portbench.metrics._kernels import kernel_key  # noqa: E402
 
-TOP = ('pt.camera', 'pt.compact', 'pt.bounce', 'pt.splat', 'render.readback')
+TOP = ('pt.camera', 'pt.compact', 'pt.bounce', 'pt.splat', 'bdpt.subpath',
+       'bdpt.connect', 'bdpt.camera', 'bdpt.splat', 'render.readback')
 FRAME_SPANS = [n for n in tracing.SPAN_NAMES if n not in tracing.SETUP_SPANS]
 
 
@@ -224,7 +230,8 @@ def main(argv=None) -> int:
     out['checks'] = dict(
         top_device_ms=top, top_over_busy=top / busy_ms if busy_ms else None,
         intersect_plus_nee_ms=(table['pt.intersect']['device_ms']
-                               + table['pt.nee']['device_ms']),
+                               + table['pt.nee']['device_ms']
+                               if 'pt.intersect' in table else None),
         trace_ms=trace_ms,
         media_ms=table.get('pt.media', {}).get('device_ms'),
         media_scan_ms=scan_ms,
@@ -235,6 +242,7 @@ def main(argv=None) -> int:
     with tracing.counting() as counters:
         drv.call(0)
     out['dead_lane_share'] = counters.dead_lane_share()
+    out['connect_live_share'] = counters.connect_live_share()
     out['alive_a_bounce'] = counters.alive()
     out['launches_a_call'] = {k: v - before[k]
                               for k, v in tracing.launches.items()

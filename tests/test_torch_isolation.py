@@ -6,7 +6,7 @@ traces one 16x9 media progression of it, renders a frame under an envmap
 frame, a gradient, a vis AOV (samplers.vis), a DBOR cascade and one 16x9
 progression of each light-path sampler (samplers.lt, bdpt, ptlt, bdpt1, with
 lights.sample_emission, camera.connect and the sampling helpers of
-utils.math) and of ppm, kmlt and vmlt (pt's primary-sample replay), a
+utils.math; bdpt once more through render.render) and of ppm, kmlt and vmlt (pt's primary-sample replay), a
 sharded render and a train step over an emulated (2, 2) mesh
 (parallel.shard), writes and reads back a .cam, .geo and .vol file (the io
 writers) and runs the tools (pfmdiff, welch, obj2geo, netdisplay's
@@ -60,6 +60,9 @@ fbs = splat.splat_dbor(torch.zeros(splat.N_DBOR, 9, 16, 3), torch.rand(50) * 16,
                        torch.rand(50) * 9, torch.rand(50, 3) * 40)
 assert np.isfinite(splat.dbor_merge(fbs).numpy()).all()
 from corona13_tpu_torch.samplers import bdpt, bdpt1, lt, ptlt
+res = render.render(sc, cfg.replace(sampler='bdpt'), spp=1)
+assert res.fb.shape == (9, 16, 3) and np.isfinite(res.fb).all()
+assert res.fb.max() > 0
 for render in (lt.render_sample, bdpt.render_sample, ptlt.render_sample):
     img = render(sc, cfg, 0).numpy()
     assert img.shape == (9, 16, 3) and np.isfinite(img).all() and img.max() > 0

@@ -271,7 +271,10 @@ def test_cli_samplers_match_the_reference():
         and node.args[0].value == '--sampler'
         for kw in node.keywords if kw.arg == 'choices']
     assert choices == [cli._SAMPLERS]
-    assert set(cli._SAMPLERS) == set(cli._STEPPED) | {'pt', 'ptdl', 'vis'}
+    # pt, ptdl and bdpt run through render.render, vis through its AOV
+    assert set(cli._SAMPLERS) == set(cli._STEPPED) | {'pt', 'ptdl', 'bdpt',
+                                                      'vis'}
+    assert not set(cli._STEPPED) & {'pt', 'ptdl', 'bdpt', 'vis'}
 
 
 # --- golden gates, the port's twins of tests/test_golden.py:134-173 --------
