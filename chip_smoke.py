@@ -136,10 +136,13 @@ Phases (each prints its results; any failure exits non-zero):
  15. light paths: lt, bdpt, ptlt and bdpt1 on cornell at 1024x576, mf=4,
      max_verts=6: 2 warm-up and 3 timed progressions each (min, median,
      max s/frame; closest-hit and any-hit launches a progression held to
-     LIGHT_CALLS; rays; peak memory), one profiled bdpt progression, one
-     bdpt frame of the plane scene; the four camera splats of a bdpt frame
-     twice (bit-identical), against the CPU (1e-6), and the splat timed
-     beside the index_add scatter it replaced; lt, bdpt, ptlt on the card
+     LIGHT_CALLS, the general splat's chains to LIGHT_SPLATS; rays; peak
+     memory), one profiled bdpt progression, one bdpt frame of the plane
+     scene; the four camera splats of a bdpt frame through the kernel
+     chain twice (bit-identical), against the sort path on the card (bit
+     for bit) and the CPU (1e-6), with no synchronising call (torch's sync
+     debug mode), the taps it sums, timed with CUDA events beside the sort
+     path and an index_add scatter; lt, bdpt, ptlt on the card
      against the CPU at 64x36 (1e-4 of the largest pixel on >= 99% of
      pixels) and bdpt1's picks and table over 4 progressions; the CLI
      with each of the four samplers on 0002_mb at 256x160;
@@ -2429,14 +2432,22 @@ def _moved(obj, dev):
 
 
 def _zero_launches():
-    from corona13_tpu_torch.ops import trace_cuda
-    for k in trace_cuda.launches:
-        trace_cuda.launches[k] = 0
+    from corona13_tpu_torch.ops import splat_cuda, trace_cuda
+    for counts in (trace_cuda.launches, splat_cuda.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _read_launches():
     from corona13_tpu_torch.ops import trace_cuda
     return {k: v for k, v in trace_cuda.launches.items() if v}
+
+
+def _read_splat_launches():
+    """The general splat's kernel chains by entry (``splat_cuda.launches``)
+    since the last ``_zero_launches``."""
+    from corona13_tpu_torch.ops import splat_cuda
+    return {k: v for k, v in splat_cuda.launches.items() if v}
 
 
 def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
@@ -2911,6 +2922,9 @@ def dbor_vis_phase(dev, sky, card):
 # ptlt keeps s = 1 (4) and the camera splats (4); bdpt1 connects once, an
 # any-hit call only where its pick has s >= 1
 LIGHT_CALLS = {'lt': (4, 5), 'bdpt': (8, 14), 'ptlt': (8, 8)}
+# general splats (the 'footprint' chain on the card) a progression: one a
+# camera connection; bdpt1 splats once where its pick has t = 1
+LIGHT_SPLATS = {'lt': 5, 'bdpt': 4, 'ptlt': 4}
 LIGHT_SAMPLERS = ('lt', 'bdpt', 'ptlt', 'bdpt1')
 
 
@@ -2957,9 +2971,10 @@ def _rays_traced(frame, s):
 def _light_frames(name, label, scene, cfg, card, dense, warm=2, timed=3):
     """warm untimed progressions, then timed ones, each ending on the host,
     with the launch counts zeroed just before the timed ones and read just
-    after (held to LIGHT_CALLS a progression; each call on cornell also
-    launches the dense sphere form); peak device memory over the timed
-    ones; the rays of one more progression."""
+    after (held to LIGHT_CALLS a progression, each call on cornell also
+    launching the dense sphere form; the general splat's chains to
+    LIGHT_SPLATS); peak device memory over the timed ones; the rays of one
+    more progression."""
     frame, picks = _light_frame(name, scene, cfg)
     times = []
     with torch.no_grad():
@@ -2974,29 +2989,37 @@ def _light_frames(name, label, scene, cfg, card, dense, warm=2, timed=3):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = _read_launches()
+        splats = _read_splat_launches()
         peak = torch.cuda.max_memory_allocated() / GB
         rays = _rays_traced(frame, warm + timed)
     if picks is not None:
         per = [(8, int(st[0] >= 1)) for st in picks[warm:warm + timed]]
+        chains = sum(int(st[1] == 1) for st in picks[warm:warm + timed])
     else:
         per = [LIGHT_CALLS[name]] * timed
+        chains = LIGHT_SPLATS[name] * timed
     calls = {'closest': sum(c for c, _ in per), 'any': sum(a for _, a in per)}
     if dense:
         calls.update({'dense_sphere_' + k: v for k, v in list(calls.items())})
     expect = {k: v for k, v in calls.items() if v}
+    expect_splats = {'footprint': chains} if chains else {}
     med = float(np.median(times))
     img = img.cpu().numpy()
     print(f'{label}: {med:.4f} s per frame (min {min(times):.4f}, max '
           f'{max(times):.4f}, {timed} frames after {warm} warm-up); kernel '
           f'launches {launches} over the {timed} frames (expected {expect}'
-          f'{", picks " + str(picks[warm:warm + timed]) if picks else ""}); '
+          f'{", picks " + str(picks[warm:warm + timed]) if picks else ""}), '
+          f'general splat chains {splats} (expected {expect_splats}); '
           f'{rays} rays a frame, {rays / med / 1e6:.2f} Mrays/s; peak memory '
           f'{peak:.3f} GB; image mean {img.mean():.6g}, finite '
           f'{bool(np.isfinite(img).all())} on {card}', flush=True)
     check(launches == expect, f'{label}: launches {launches}, expected {expect}')
+    check(splats == expect_splats,
+          f'{label}: splat chains {splats}, expected {expect_splats}')
     check(np.isfinite(img).all() and img.mean() > 0, f'{label}: image')
     return dict(frame_s=times, median_s=med, launches=launches,
                 launches_per_frame={k: v / timed for k, v in launches.items()},
+                splat_launches=splats,
                 rays=rays, mrays_per_s=rays / med / 1e6, peak_gb=peak,
                 mean=float(img.mean()), picks=picks)
 
@@ -3012,64 +3035,108 @@ def _splat_times():
     return mod
 
 
-def _light_splats(scene, cfg, dev, card):
+def _light_splats(scene, cfg, dev, card, reps=16):
     """The four t = 1 splats of one bdpt progression (their inputs
-    captured as bdpt hands them to splat): into one framebuffer twice,
-    bit-identical; against the CPU on the same inputs; splat's wall and
-    device time a call at that width beside the index_add scatter it
-    replaced, and that scatter's own run-to-run difference."""
-    from corona13_tpu_torch.ops import splat as splat_mod
+    captured as bdpt hands them to splat), each way of splatting called
+    explicitly (splat_times.runners): the kernel chain into one
+    framebuffer twice, bit-identical; against the sort path on the card,
+    bit for bit; with no synchronising call (torch's sync debug mode
+    raises on one made through torch, as a read made under it shows, and
+    the library's host side makes none: tests/test_torch_splat_cuda.py);
+    against the CPU on the same inputs; the share of the taps handed that
+    it sums; the card's ms a call of the chain (reps calls), the sort path
+    and the index_add scatter (4 calls each, so that their launches, 132
+    and 67 a call, fit the launch queue behind the spin) by ``_time_ms``,
+    and that scatter's own run-to-run difference.  The
+    chain's device events and heaviest kernels: scripts/splat_times.py, in
+    a fresh process (a profile this late in this process drops events)."""
+    from corona13_tpu_torch import tracing
+    from corona13_tpu_torch.ops import splat_cuda
     st = _splat_times()
     calls = st.capture(scene, cfg)
     check(len(calls) == 4, f'{len(calls)} general splats in a bdpt frame')
-
-    def four(d, scatter=None):
-        fb = torch.zeros((H, W, 3), device=d)
-        own = splat_mod._scatter
-        splat_mod._scatter = scatter or own
+    ways = st.runners()
+    before = splat_cuda.launches['footprint']
+    a, b = (st.four(ways['splat'], calls, dev) for _ in range(2))
+    check(splat_cuda.launches['footprint'] == before + 8,
+          'the bdpt splats did not go through the kernel chain')
+    torch.cuda.synchronize()
+    synced, control = None, None
+    torch.cuda.set_sync_debug_mode('error')
+    try:
         try:
-            for pi, pj, col in calls:
-                fb = splat_mod.splat(fb, pi.to(d), pj.to(d), col.to(d))
-        finally:
-            splat_mod._scatter = own
-        return fb
-    a, b = four(dev), four(dev)
-    cpu = four(torch.device('cpu'))
+            fb = st.four(ways['splat'], calls, dev)
+        except RuntimeError as e:
+            synced = str(e)
+        try:
+            float(a.sum())              # the mode is on: a read raises
+        except RuntimeError as e:
+            control = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(control is not None, 'the sync debug mode let a read through')
+    check(synced is not None or torch.equal(fb.view(torch.int32),
+                                            a.view(torch.int32)),
+          'the splat under the sync debug mode differs')
+    with tracing.counting() as counters:
+        st.four(ways['splat'], calls, dev)
+    share = counters.summed_tap_share()
+    srt = st.four(ways['sort'], calls, dev)
+    same = torch.equal(a.view(torch.int32), srt.view(torch.int32))
+    cpu = st.four(ways['splat'], calls, torch.device('cpu'))
     top = float(cpu.abs().max())
     err = float((a.cpu() - cpu).abs().max()) / top
-    old = [four(dev, st.scatter_index_add) for _ in range(2)]
+    old = [st.four(ways['index_add'], calls, dev) for _ in range(2)]
     old_diff = float((old[0] - old[1]).abs().max()) / top
     old_bits = int((old[0].view(torch.int32) != old[1].view(torch.int32)).sum())
     fb0 = torch.zeros((H, W, 3), device=dev)
-    run = lambda i: splat_mod.splat(fb0, *calls[i % 4])
-    new = st.time_calls(run)
-    own = splat_mod._scatter
-    splat_mod._scatter = st.scatter_index_add
-    try:
-        ref = st.time_calls(run)
-    finally:
-        splat_mod._scatter = own
+    with torch.no_grad():
+        ms = {name: _time_ms(lambda i, run=run: run(fb0, *calls[i]), 4,
+                             reps if name == 'splat' else 4)
+              for name, run in ways.items()}
+    new, plain, ref = ms['splat'], ms['sort'], ms['index_add']
     n = calls[0][0].shape[0]
+    bound = st.bound_ms(n)
     print(f'general splat, the 4 t = 1 splats of a bdpt frame ({n} splats x '
           f'16 taps x 3 colours each): two runs bit-identical '
-          f'{torch.equal(a, b)}; card against CPU {err:.2e} of the largest '
-          f'pixel (tolerance 1e-6); splat (sorted segmented sum) '
-          f'{new["wall_ms"]:.3f} ms a call, device {new["device_ms"]:.3f} ms, '
-          f'{new["launches"]:.0f} launches; with index_add '
-          f'{ref["wall_ms"]:.3f} ms, device {ref["device_ms"]:.3f} ms, '
-          f'{ref["launches"]:.0f} launches, its two runs differing on '
-          f'{old_bits} of {a.numel()} values by up to {old_diff:.2e} of the '
-          f'largest pixel; on {card}', flush=True)
+          f'{torch.equal(a, b)}; bit-equal to the sort path {same}; '
+          f'synchronising calls: {synced or "none"}; card against CPU '
+          f'{err:.2e} of the largest pixel (tolerance 1e-6); taps summed over '
+          f'taps handed {share:.5f}; card ms a call (CUDA events behind a '
+          f'spin): kernel chain {new:.4f} (bound {bound:.4f} ms, share '
+          f'{bound / new:.4f}), sort path {plain:.4f}, index_add {ref:.4f}, '
+          f'its two runs differing on {old_bits} of {a.numel()} values by up '
+          f'to {old_diff:.2e} of the largest pixel; on {card}', flush=True)
     check(torch.equal(a, b), 'the splat is not reproducible on the card')
+    check(same, 'the kernel chain differs from the sort path on the card')
+    check(synced is None, f'the kernel chain synchronises: {synced}')
     check(err <= 1e-6, f'splat on the card against the CPU: {err}')
-    check(new['device_ms'] > 0, 'the splat profile shows no device time')
-    return dict(splats=n, bit_identical=True, vs_cpu=err, ms=new['wall_ms'],
-                device_ms=new['device_ms'], launches=new['launches'],
-                index_add_ms=ref['wall_ms'],
-                index_add_device_ms=ref['device_ms'],
-                index_add_launches=ref['launches'],
+    check(new > 0, 'the splat timing shows no card time')
+    return dict(splats=n, bit_identical=True, bits_equal_to_sort=same,
+                synchronising_call=synced, vs_cpu=err, summed_tap_share=share,
+                ms=new, bound_ms=bound, plain_ms=plain, index_add_ms=ref,
                 index_add_bits_differing=old_bits,
                 index_add_run_diff=old_diff)
+
+
+def splat_entry(m, bdpt):
+    """The kernels line's row of the general splat's chain
+    (_light_splats): card ms a call at bdpt's camera splats of a cornell
+    frame at 1024x576, the sort path's and index_add's beside it; the
+    chains counted over bdpt's timed progressions (_light_frames)."""
+    chains = bdpt['splat_launches'].get('footprint', 0)
+    return {'name': 'splat_general', 'route': 'cuda',
+            'source': 'corona13_tpu_torch/csrc/splat_general.cu',
+            'replaces': 'corona13_tpu_torch/ops/splat.py (eager torch: two '
+                        'int64 sorts and segment_reduce; '
+                        'corona13_tpu/ops/splat.py, XLA scatter, not Pallas)',
+            'library_ms': m['index_add_ms'], 'launches': chains,
+            'launches_per_frame': chains / len(bdpt['frame_s']),
+            'ms': m['ms'], 'plain_ms': m['plain_ms'],
+            'bound_ms': m['bound_ms'], 'bound_by': 'bytes',
+            'roofline_share': m['bound_ms'] / m['ms'],
+            'bits_equal_to_sort': m['bits_equal_to_sort'],
+            'summed_tap_share': m['summed_tap_share']}
 
 
 def _light_vs_cpu(dev, w=64, h=36):
@@ -4075,7 +4142,7 @@ def main():
     kernels = [entry('closest', 'traverse_tris closest-hit'),
                entry('any', 'traverse_tris any-hit'), counters, per_ray] + [
         form_entry(k) for k in fres] + [line_counters] + hete_entries(
-        hete, media_launches)
+        hete, media_launches) + [splat_entry(light['splat'], light['bdpt'])]
     for k in kernels:
         check(k['launches'] > 0, f'{k["name"]} was never launched on its path')
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -44,7 +44,7 @@ spans none of which nests in another ``bdpt.*`` span:
     bdpt.splat            spectral_to_xyz and the pixel-aligned splat
 
 Set-up spans (``setup_span``: ``SETUP_SPANS``, the scene's load and the
-two kernel libraries' builds) run once a process: they always keep their
+kernel libraries' builds) run once a process: they always keep their
 host seconds in memory, by name (``setup_seconds``), and are
 ``record_function`` ranges as well while a profiler records.
 ``kernel_builds`` counts the nvcc runs.
@@ -53,9 +53,13 @@ Counters are kept only inside ``counting()``: for each bounce (pt's, and
 each bounce of bdpt's subpaths), the lanes alive when it starts and the
 wavefront's width; for each bdpt connection that has a shadow ray (s >=
 1), the lanes that may connect before the visibility test and the lanes
-still connected after it.  They are device tensors that are read when
-asked for, so nothing synchronises inside a frame.  Off, they cost one
-check a bounce or connection; on, one reduction (two a connection).
+still connected after it; for each general splat (``ops/splat.py``'s
+scatters), the taps summed (on the film and not +-0.0 in all three
+colours: the taps the card's binned sum keeps) and the taps it was
+handed.  They are device tensors that are read when asked for, so
+nothing synchronises inside a frame.  Off, they cost one check a bounce,
+connection or splat; on, one reduction (two a connection, a copy a
+splat on the card).
 
 ``launches`` is ``ops.trace_cuda.launches``, the traversal launches per
 form and the grid march's by mode, as it is.
@@ -74,8 +78,10 @@ SPAN_NAMES = ('render.progression', 'render.readback', 'pt.camera',
               'pt.compact', 'pt.bounce', 'pt.intersect', 'pt.media',
               'pt.shade', 'pt.nee', 'pt.extend', 'pt.splat', 'bdpt.subpath',
               'bdpt.connect', 'bdpt.camera', 'bdpt.splat', 'splat.general',
-              'scene.load', 'trace_cuda.build', 'hete_cuda.build')
-SETUP_SPANS = ('scene.load', 'trace_cuda.build', 'hete_cuda.build')
+              'scene.load', 'trace_cuda.build', 'hete_cuda.build',
+              'splat_cuda.build')
+SETUP_SPANS = ('scene.load', 'trace_cuda.build', 'hete_cuda.build',
+               'splat_cuda.build')
 
 _NULL = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
@@ -129,6 +135,7 @@ class Counters:
         self.lanes = lanes
         self._bounces = []      # (alive lanes, a 0-d device tensor; width)
         self._connects = []     # (s, t, can, live: 0-d device tensors; lanes)
+        self._splats = []       # (taps summed, a 0-d device tensor; handed)
 
     def bounce(self, alive):
         if self.lanes is not None:
@@ -172,6 +179,24 @@ class Counters:
         run = sum(n for *_, n in rows)
         return sum(v for _, _, _, v, _ in rows) / run if run else None
 
+    def splat(self, summed, handed: int):
+        self._splats.append((summed.to(torch.int64), handed))
+
+    def splat_taps(self) -> list[tuple]:
+        """(taps summed, taps handed) of each general splat's scatter in
+        order (one transfer)."""
+        if not self._splats:
+            return []
+        summed = torch.stack([s for s, _ in self._splats]).cpu().tolist()
+        return [(s, h) for s, (_, h) in zip(summed, self._splats)]
+
+    def summed_tap_share(self) -> float | None:
+        """The taps summed over the taps handed, over every general splat:
+        the share of the plain path's scatter that adds something."""
+        rows = self.splat_taps()
+        handed = sum(h for _, h in rows)
+        return sum(s for s, _ in rows) / handed if handed else None
+
 
 @contextlib.contextmanager
 def counting(lanes: int | None = None):
@@ -197,6 +222,19 @@ def count_connect(s: int, t: int, can, live):
     test) inside ``counting()``; else nothing."""
     if _counters is not None:
         _counters.connect(s, t, can, live)
+
+
+def counting_on() -> bool:
+    """Whether a ``counting()`` block is open."""
+    return _counters is not None
+
+
+def count_splat(summed, handed: int):
+    """Record a general splat's scatter inside ``counting()`` (the taps
+    summed, a 0-d device tensor, copied; the taps handed); else
+    nothing."""
+    if _counters is not None:
+        _counters.splat(summed, handed)
 
 
 def _merged(intervals):

@@ -37,8 +37,10 @@ launch began inside it (``tracing.span_table``); ``reader_ms`` is what the
 benchmark's reader (``portbench/metrics/_spans.py``) reads from the same
 pass.  Last, one call inside ``tracing.counting()``: the dead-lane share,
 the lanes alive a bounce (of pt's bounces or bdpt's subpaths), bdpt's
-connection live share, and ``tracing.launches`` by key (the traversal
-forms, the grid march's 'hete_sample' and 'hete_transmit').
+connection live share, the share of the general splat's taps that it
+sums (``summed_tap_share``: bdpt's four camera splats), and
+``tracing.launches`` by key (the traversal forms, the grid march's
+'hete_sample' and 'hete_transmit').
 """
 
 from __future__ import annotations
@@ -243,6 +245,7 @@ def main(argv=None) -> int:
         drv.call(0)
     out['dead_lane_share'] = counters.dead_lane_share()
     out['connect_live_share'] = counters.connect_live_share()
+    out['summed_tap_share'] = counters.summed_tap_share()
     out['alive_a_bounce'] = counters.alive()
     out['launches_a_call'] = {k: v - before[k]
                               for k, v in tracing.launches.items()

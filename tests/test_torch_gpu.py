@@ -774,6 +774,197 @@ def test_splat_reproducible_on_the_card(cuda):
         assert err <= 1e-6 or (kind == 'dbor' and err <= 1e-5), (kind, err)
 
 
+def _splat_inputs(n, w, h, seed, odd=True):
+    """Splats over a film of w x h and its border: a hot pixel of 4,096
+    splats, half the colours +0.0 or -0.0 (as bdpt's unconnected lanes);
+    with ``odd``, coordinates that are NaN or inf, and NaN and inf colours,
+    some at the hot pixel."""
+    g = torch.Generator().manual_seed(seed)
+    pi = torch.rand(n, generator=g) * (w + 4) - 2
+    pj = torch.rand(n, generator=g) * (h + 4) - 2
+    pi[:4096], pj[:4096] = pi[0], pj[0]
+    col = 10.0 ** (torch.rand(n, 3, generator=g) * 5 - 2)
+    dead = torch.rand(n, generator=g) < 0.5
+    col[dead] = torch.where(torch.rand(n, 1, generator=g)[dead] < 0.5,
+                            0.0, -0.0)
+    col[5000, 1] = -0.0                            # one colour of three
+    if odd:
+        pi[6000:6004] = float('nan')
+        pj[6004:6008] = float('inf')
+        pi[6008:6012] = -float('inf')
+        col[4000, 1] = col[7000, 0] = float('nan')
+        col[4001, 2] = col[7001, 2] = float('inf')
+    return pi, pj, col
+
+
+_SPLAT_KINDS = ['box', 'bilin', 'blackmanharris', 'spline', 'gaussian',
+                'dbor']
+
+
+@pytest.mark.parametrize('kind', _SPLAT_KINDS)
+def test_binned_scatter_equals_sort_path(cuda, kind):
+    """The binned sum's ``_scatter`` against the sort path
+    (``_scatter_sorted``), each called explicitly on the same card tensors,
+    tap for tap as ``splat`` (or ``splat_dbor``) makes them from splats
+    with a hot pixel, splats off the film and with coordinates that are not
+    finite, +-0.0, NaN and inf colours: bit-equal; the same bits under a
+    permutation of the splats, and on a second run."""
+    from corona13_tpu_torch.ops import splat
+    n, w, h = 1 << 18, 256, 144
+    pi, pj, col = [x.to(cuda) for x in _splat_inputs(n, w, h, 8)]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(9))
+    perm = perm.to(cuda)
+    shape = (splat.N_DBOR, h, w, 3) if kind == 'dbor' else (h, w, 3)
+    fb0 = torch.rand(shape, generator=torch.Generator().manual_seed(10))
+    fb0[..., 0, :] = -0.0
+    fb0 = fb0.to(cuda)
+
+    def run(scatter, a, b, c):
+        taps = (splat._dbor_taps(h, w, a, b, c) if kind == 'dbor'
+                else splat._taps(h, w, a, b, c, kind))
+        fb = fb0
+        for t in taps:
+            fb = scatter(fb, *t)
+        return fb.view(torch.int32)
+    want = run(splat._scatter_sorted, pi, pj, col)
+    got = run(splat._scatter, pi, pj, col)
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(run(splat._scatter, pi[perm], pj[perm], col[perm]),
+                       want)
+    assert torch.equal(run(splat._scatter, pi, pj, col), want)
+
+
+def test_binned_scatter_bins_of_every_size(cuda):
+    """Box splats in bins of 1, 32 and 33 taps (one thread sorts at most
+    32), 16,384 and 16,385 (a block sorts at most 16,384 in shared memory,
+    more in place) and 40,000, their colours spanning five decades and
+    signs: the sort path's bits."""
+    from corona13_tpu_torch.ops import splat
+    sizes = [1, 32, 33, 16384, 16385, 40000]
+    g = torch.Generator().manual_seed(15)
+    pix = torch.cat([torch.full((k,), 7 * i + 3) for i, k in enumerate(sizes)])
+    n = pix.shape[0]
+    col = 10.0 ** (torch.rand(n, 3, generator=g) * 5 - 2)
+    col = col * torch.where(torch.rand(n, 3, generator=g) < 0.3, -1.0, 1.0)
+    perm = torch.randperm(n, generator=g)
+    pi = (pix % 64).float()[perm].to(cuda) + 0.5
+    pj = (pix // 64).float()[perm].to(cuda) + 0.5
+    col = col[perm].to(cuda)
+    fb0 = torch.zeros((8, 64, 3), device=cuda)
+    (t,) = splat._taps(8, 64, pi, pj, col, 'box')
+    got = splat._scatter(fb0, *t).view(torch.int32)
+    want = splat._scatter_sorted(fb0, *t).view(torch.int32)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize('kind', ['blackmanharris', 'spline', 'gaussian'])
+def test_fused_footprint_against_sort_path(cuda, kind, capsys):
+    """``splat`` with a 4x4 filter on the card (the footprint formed in the
+    kernel) against the sort path over the plain footprint on the same
+    card tensors, on finite splats (the card's plain path sends a splat
+    with a NaN coordinate to pixel 0, the kernel drops it as the CPU's
+    does): bit-equal (the kernel repeats torch's operations on the card,
+    its division by a Python scalar as a product with the reciprocal and
+    its 16-tap sum's tree; the pixels that differ are printed), and the
+    same taps summed.  Splats with coordinates that are not finite add
+    nothing; the same bits under a permutation and on a second run."""
+    from corona13_tpu_torch import tracing
+    from corona13_tpu_torch.ops import splat
+    n, w, h = 1 << 18, 256, 144
+    pi, pj, col = [x.to(cuda) for x in _splat_inputs(n, w, h, 11, odd=False)]
+    fb0 = torch.zeros((h, w, 3), device=cuda)
+    with tracing.counting() as counters:
+        got = splat.splat(fb0, pi, pj, col, kind)
+        want = fb0
+        for t in splat._taps(h, w, pi, pj, col, kind):
+            want = splat._scatter_sorted(want, *t)
+        (k_sum, k_all), (s_sum, s_all) = counters.splat_taps()
+    assert (k_sum, k_all) == (s_sum, s_all) and 0 < k_sum < k_all
+    diff = (got - want).abs().amax(dim=-1)
+    err = float(diff.max() / want.abs().max())
+    with capsys.disabled():
+        print(f'\n{kind}: fused footprint against the sort path: '
+              f'{int((diff > 0).sum())} of {h * w} pixels differ, the largest '
+              f'by {err:.3e} of the largest pixel, at '
+              f'{(diff > 0).nonzero().tolist()[:8]}')
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), err
+    odd = torch.tensor([float('nan'), 3.0, float('inf'), -float('inf')],
+                       device=cuda)
+    more = splat.splat(fb0, torch.cat([pi, odd]), torch.cat([pj, odd.flip(0)]),
+                       torch.cat([col, torch.ones(4, 3, device=cuda)]), kind)
+    assert torch.equal(more.view(torch.int32), got.view(torch.int32))
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(12))
+    perm = perm.to(cuda)
+    again = splat.splat(fb0, pi[perm], pj[perm], col[perm], kind)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize('kind', ['blackmanharris', 'bilin', 'dbor'])
+def test_splat_gradient_on_the_card(cuda, kind):
+    """d sum(fb * g) / d col through the kernel's autograd Functions
+    against autograd through the sort path on the same card tensors,
+    within 1e-6 of its largest value; a pix_i that requires grad raises."""
+    from corona13_tpu_torch.ops import splat
+    n, w, h = 1 << 16, 128, 72
+    pi, pj, col = [x.to(cuda) for x in _splat_inputs(n, w, h, 13, odd=False)]
+    shape = (splat.N_DBOR, h, w, 3) if kind == 'dbor' else (h, w, 3)
+    gout = torch.rand(shape, generator=torch.Generator().manual_seed(14))
+    gout = gout.to(cuda)
+
+    def grad(sorted_path):
+        c = col.clone().requires_grad_()
+        fb = torch.zeros(shape, device=cuda)
+        if kind == 'dbor':
+            taps = splat._dbor_taps(h, w, pi, pj, c)
+        elif sorted_path:
+            taps = splat._taps(h, w, pi, pj, c, kind)
+        else:
+            fb = splat.splat(fb, pi, pj, c, kind)
+            taps = []
+        for t in taps:
+            fb = (splat._scatter_sorted if sorted_path
+                  else splat._scatter)(fb, *t)
+        (fb * gout).sum().backward()
+        return c.grad
+    want = grad(True)
+    err = float((grad(False) - want).abs().max() / want.abs().max())
+    assert err <= 1e-6, err
+    with pytest.raises(NotImplementedError):
+        splat.splat(torch.zeros(h, w, 3, device=cuda),
+                    pi.clone().requires_grad_(), pj, col)
+
+
+@pytest.mark.parametrize('kind', _SPLAT_KINDS)
+def test_splat_chain_makes_no_synchronising_call(cuda, kind):
+    """splat and splat_dbor on the card, counted or not, under torch's
+    sync debug mode: any call through torch that waits for the card (a
+    read back to the host, a synchronisation) raises."""
+    from corona13_tpu_torch import tracing
+    from corona13_tpu_torch.ops import splat
+    n, w, h = 1 << 16, 128, 72
+    pi, pj, col = [x.to(cuda) for x in _splat_inputs(n, w, h, 15)]
+    shape = (splat.N_DBOR, h, w, 3) if kind == 'dbor' else (h, w, 3)
+    fb = torch.zeros(shape, device=cuda)
+
+    def run():
+        if kind == 'dbor':
+            return splat.splat_dbor(fb, pi, pj, col)
+        return splat.splat(fb, pi, pj, col, kind)
+    want = run()                     # builds the library outside the mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        with tracing.counting() as counters:
+            got = [run(), run()]
+        with pytest.raises(RuntimeError):
+            float(want.sum())                # the mode is on: a read raises
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    bits = want.view(torch.int32)           # NaN colours: compare bits
+    assert all(torch.equal(g.view(torch.int32), bits) for g in got)
+    assert all(0 < s <= t for s, t in counters.splat_taps())
+
+
 _BDPT_STRATEGIES = [(0, 2), (0, 3), (0, 4), (1, 2), (1, 3), (2, 2), (1, 1),
                     (2, 1)]
 
