@@ -312,13 +312,13 @@ def rounding_phase(card):
 
 
 def build_phase():
-    from corona13_tpu_torch.ops import trace_cuda
+    from corona13_tpu_torch.ops import cuda_lib, trace_cuda
     phase('build')
     t0 = time.time()
     trace_cuda.build()
     print(f'built corona13_tpu_torch/csrc/traverse_tris.cu for sm_90a with '
           f'nvcc in {time.time() - t0:.1f} s', flush=True)
-    report = ptxas_report(trace_cuda.build_log)
+    report = ptxas_report(cuda_lib.build_logs['traverse_tris'])
     for name, lines in report.items():
         for line in lines:
             print(f'  {name}: {line}', flush=True)
@@ -559,11 +559,11 @@ def _run_case(name, case):
                              else N_RAYS for a in argsets) // len(argsets)))
     if any_hit:
         # the form trace.occluded launches: only the blocked flag is written
-        flag = lambda s: (trace_cuda.occluded_tris(b, *argsets[s]),)
+        flag = lambda s: (trace_cuda.any_hit(b, 'tri', *argsets[s]),)
         blocked, again = flag(0)[0], flag(0)[0]
         check(torch.equal(blocked, again) and
               torch.equal(blocked, first[1] >= 0),
-              f'{name}: occluded_tris differs from traverse_tris')
+              f'{name}: any_hit differs from traverse_tris')
         res['flag_ms'] = _time_ms(flag, 2, 20)
     slot_agree = agree if any_hit else float((k[4] == p[4]).mean())
     print(f'  {name:36s} {"any" if any_hit else "closest"}-hit: alive '
@@ -1014,13 +1014,14 @@ def _run_form(name, target, kind, offset, any_hit, argsets):
 
 def forms_phase(dev, card, bvhs, only=None):
     """Phase 3b: see the module docstring.  Returns the per-case results
-    keyed by the entry of trace_cuda.launches each case exercises, and the
+    keyed by the entry of tracing.launches each case exercises, and the
     launch counts of the intersect / occluded calls that reach the forms no
     render reaches.  ``only``: the targets to run ('moving', 'dense_line',
     ...; scripts/trace_times.py), without the intersect / occluded calls
     (their launch counts are then None)."""
     import dataclasses
     from corona13_tpu_torch.ops import trace as trace_mod
+    from corona13_tpu_torch import tracing
     from corona13_tpu_torch.ops import trace_cuda
     phase(f'forms that replace _traverse against plain, {N_RAYS} rays per '
           f'call, on {card}')
@@ -1105,8 +1106,8 @@ def forms_phase(dev, card, bvhs, only=None):
     if only is not None:
         return res, None, line_sets
     # the forms no render of this script reaches, through the entry points
-    for k in trace_cuda.launches:
-        trace_cuda.launches[k] = 0
+    for k in tracing.launches:
+        tracing.launches[k] = 0
     tm = torch.rand(N_RAYS, generator=gen).to(dev)
     deep_geom = dataclasses.replace(soup, tri_bvh=deep)
     skip_geom = dataclasses.replace(soup, tri_bvh=skip)
@@ -1119,7 +1120,7 @@ def forms_phase(dev, card, bvhs, only=None):
         check(bool(h.valid.any()) and bool(b.any()),
               'a form path found no hit')
     torch.cuda.synchronize()
-    launches = {k: v for k, v in trace_cuda.launches.items() if v}
+    launches = {k: v for k, v in tracing.launches.items() if v}
     print(f'intersect / occluded on the sphere soup, on 64 lines and on the '
           f'deep tree, by the deep walk and by skip links: launches '
           f'{launches}', flush=True)
@@ -1652,27 +1653,28 @@ def counters_phase(cases, kres, card):
     each pop (union_lanes), on occupied children and rows; the per-ray
     rows' bounds (the closest / any rows of the kernels line) count the
     per-ray pops."""
+    from corona13_tpu_torch import tracing
     from corona13_tpu_torch.ops import trace_cuda
     phase(f'counters: the union walk against plain, beside the per-ray and '
           f'the persistent walks, {N_RAYS} rays per call, on {card}')
     names = [f'{b}/{k}' for b in ('cornell', 'plane', 'soup')
              for k in ('bounce', 'shadow')]
-    for k in trace_cuda.launches:
-        trace_cuda.launches[k] = 0
+    for k in tracing.launches:
+        tracing.launches[k] = 0
     outs = [trace_cuda.traverse_tris(cases[n][0], *cases[n][2][0],
                                      any_hit=cases[n][1], want_counters=True)
             for n in names]
     torch.cuda.synchronize()
-    launches = dict(trace_cuda.launches)
+    launches = dict(tracing.launches)
     print(f'union launches {launches} (expected {len(names)} counters)',
           flush=True)
     check({k: v for k, v in launches.items() if v}
           == {'counters': len(names)}, f'counter launch counts {launches}')
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     simples = [trace_cuda.simple_walk(cases[n][0], *cases[n][2][0],
                                       any_hit=cases[n][1]) for n in names]
     torch.cuda.synchronize()
-    moved = {k: v - before[k] for k, v in trace_cuda.launches.items()
+    moved = {k: v - before[k] for k, v in tracing.launches.items()
              if v != before[k]}
     check(moved == {'tri_counters': len(names)},
           f'per-ray walk launch counts {moved}')
@@ -1727,7 +1729,7 @@ def counters_phase(cases, kres, card):
             float(((t_iters + t_leafs) * live).sum()), 1)
         simple = lambda i: trace_cuda.simple_walk(b, *argsets[i], any_hit=ah)
         if ah:
-            pers = lambda i: (trace_cuda.occluded_tris(b, *argsets[i]),)
+            pers = lambda i: (trace_cuda.any_hit(b, 'tri', *argsets[i]),)
         else:
             pers = lambda i: trace_cuda.traverse_tris(b, *argsets[i])
         ms = _in_turns({'union': union, 'simple': simple, 'persistent': pers})
@@ -1787,17 +1789,17 @@ def render_phase(name, scene, spp, gpu_name, max_verts=6,
     launched once a bounce (``per_bounce[form]`` times where given), and no
     other."""
     from corona13_tpu_torch import render as render_mod
-    from corona13_tpu_torch.ops import trace_cuda
+    from corona13_tpu_torch import tracing
     from corona13_tpu_torch.samplers import pt as pt_mod
     cfg = pt_mod.PTConfig(width=W, height=H, max_verts=max_verts, mf=4,
                           use_nee=True, **kw)
     opts = ''.join(f', {k}={v}' for k, v in kw.items())
     phase(f'{name}: render.render {W}x{H}, mf=4, max_verts={max_verts}, NEE'
           f'{opts}, {spp} spp')
-    for k in trace_cuda.launches:
-        trace_cuda.launches[k] = 0
+    for k in tracing.launches:
+        tracing.launches[k] = 0
     res = render_mod.render(scene, cfg, spp=spp, batch=1)
-    launches = dict(trace_cuda.launches)
+    launches = dict(tracing.launches)
     img = res.image_xyz
     lit = float((img.sum(axis=-1) > 0).mean())
     print(f'image {img.shape}, mean {img.mean():.6g}, finite '
@@ -2083,7 +2085,7 @@ def hete_march_phase(dev, card, reps=20):
 def hete_entries(hete, launches):
     """The kernels line's rows of the grid march (hete_march_phase): a
     launch's mean ms, plain ms and bound at 0031_hete's shapes;
-    ``launches``: trace_cuda.launches over the run's renders."""
+    ``launches``: tracing.launches over the run's renders."""
     rows = []
     for mode in ('sample', 'transmit'):
         m = hete[mode]
@@ -2432,22 +2434,26 @@ def _moved(obj, dev):
 
 
 def _zero_launches():
-    from corona13_tpu_torch.ops import splat_cuda, trace_cuda
-    for counts in (trace_cuda.launches, splat_cuda.launches):
-        for k in counts:
-            counts[k] = 0
+    from corona13_tpu_torch import tracing
+    for k in tracing.launches:
+        tracing.launches[k] = 0
 
 
 def _read_launches():
-    from corona13_tpu_torch.ops import trace_cuda
-    return {k: v for k, v in trace_cuda.launches.items() if v}
+    """The traversal and march launches since the last
+    ``_zero_launches``."""
+    from corona13_tpu_torch import tracing
+    return {k: v for k, v in tracing.launches.items()
+            if v and not k.startswith('splat_')}
 
 
 def _read_splat_launches():
-    """The general splat's kernel chains by entry (``splat_cuda.launches``)
-    since the last ``_zero_launches``."""
-    from corona13_tpu_torch.ops import splat_cuda
-    return {k: v for k, v in splat_cuda.launches.items() if v}
+    """The general splat's kernel chains by entry ('splat_footprint',
+    'splat_scatter' in ``tracing.launches``) since the last
+    ``_zero_launches``."""
+    from corona13_tpu_torch import tracing
+    return {k: v for k, v in tracing.launches.items()
+            if v and k.startswith('splat_')}
 
 
 def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
@@ -2493,7 +2499,7 @@ def _profile_frame(name, scene, cfg, card, frame=None, wall=None,
 
 
 def _kernel_key(name):
-    """The entry of trace_cuda.launches that a traversal kernel's name (as
+    """The entry of tracing.launches that a traversal kernel's name (as
     the profiler demangles it) counts under, or None for another kernel."""
     if re.search(r'union_kernel<', name):
         return 'counters'
@@ -2922,8 +2928,8 @@ def dbor_vis_phase(dev, sky, card):
 # ptlt keeps s = 1 (4) and the camera splats (4); bdpt1 connects once, an
 # any-hit call only where its pick has s >= 1
 LIGHT_CALLS = {'lt': (4, 5), 'bdpt': (8, 14), 'ptlt': (8, 8)}
-# general splats (the 'footprint' chain on the card) a progression: one a
-# camera connection; bdpt1 splats once where its pick has t = 1
+# general splats (the 'splat_footprint' chain on the card) a progression:
+# one a camera connection; bdpt1 splats once where its pick has t = 1
 LIGHT_SPLATS = {'lt': 5, 'bdpt': 4, 'ptlt': 4}
 LIGHT_SAMPLERS = ('lt', 'bdpt', 'ptlt', 'bdpt1')
 
@@ -3002,7 +3008,7 @@ def _light_frames(name, label, scene, cfg, card, dense, warm=2, timed=3):
     if dense:
         calls.update({'dense_sphere_' + k: v for k, v in list(calls.items())})
     expect = {k: v for k, v in calls.items() if v}
-    expect_splats = {'footprint': chains} if chains else {}
+    expect_splats = {'splat_footprint': chains} if chains else {}
     med = float(np.median(times))
     img = img.cpu().numpy()
     print(f'{label}: {med:.4f} s per frame (min {min(times):.4f}, max '
@@ -3051,14 +3057,13 @@ def _light_splats(scene, cfg, dev, card, reps=16):
     chain's device events and heaviest kernels: scripts/splat_times.py, in
     a fresh process (a profile this late in this process drops events)."""
     from corona13_tpu_torch import tracing
-    from corona13_tpu_torch.ops import splat_cuda
     st = _splat_times()
     calls = st.capture(scene, cfg)
     check(len(calls) == 4, f'{len(calls)} general splats in a bdpt frame')
     ways = st.runners()
-    before = splat_cuda.launches['footprint']
+    before = tracing.launches['splat_footprint']
     a, b = (st.four(ways['splat'], calls, dev) for _ in range(2))
-    check(splat_cuda.launches['footprint'] == before + 8,
+    check(tracing.launches['splat_footprint'] == before + 8,
           'the bdpt splats did not go through the kernel chain')
     torch.cuda.synchronize()
     synced, control = None, None
@@ -3124,7 +3129,7 @@ def splat_entry(m, bdpt):
     (_light_splats): card ms a call at bdpt's camera splats of a cornell
     frame at 1024x576, the sort path's and index_add's beside it; the
     chains counted over bdpt's timed progressions (_light_frames)."""
-    chains = bdpt['splat_launches'].get('footprint', 0)
+    chains = bdpt['splat_launches'].get('splat_footprint', 0)
     return {'name': 'splat_general', 'route': 'cuda',
             'source': 'corona13_tpu_torch/csrc/splat_general.cu',
             'replaces': 'corona13_tpu_torch/ops/splat.py (eager torch: two '
@@ -3365,7 +3370,7 @@ def _hold_launch(where, mode, target, kind, args, kw):
     its plain version on the same tensors (timed; a tree's with the
     skip-link walk's counts, _plain_counts): prim, slot and t, u, v (the
     any-hit flag) held as phase 3b holds them (_form_compare).  Returns the
-    launch's record: its key in trace_cuda.launches, form, rays, alive,
+    launch's record: its key in tracing.launches, form, rays, alive,
     agreement, max |dt|, plain ms and the walk's summed counts."""
     from corona13_tpu_torch.ops import trace_cuda
     any_hit = mode == 'any_hit'
@@ -3431,7 +3436,7 @@ def frame_calls(scene, cfg, sample=0):
 
 def frame_forms(where, kept, keys, card, reps=20):
     """The captured launches of the forms in ``keys`` (entries of
-    trace_cuda.launches) at a frame's own shapes: each held by _hold_launch,
+    tracing.launches) at a frame's own shapes: each held by _hold_launch,
     timed on the card (the spin timer, mean of ``reps`` launches, every
     launch on a fresh clone of its carry) and given the bound _form_bound
     gives phase 3b, from the plain skip-link walk's visits on the same rays

@@ -12,16 +12,16 @@ ptlt, bdpt1, ppm, kmlt, vmlt and vis.
 Writes <output>_fb00.pfm (camera XYZ), a sidecar <output>.txt and a
 resumable <output>.fb checkpoint; ``--dbor`` also the cascade levels
 <output>_dborNN.pfm (pt and ptdl only, as in the JAX CLI); ``--sampler vis``
-only the AOV image.  pt, ptdl and bdpt render through ``render.render``
-(``PTConfig.sampler``); the other samplers one progression a call here.
+only the AOV image.  Every sampler but vis renders through
+``render.render`` (``PTConfig.sampler``; ``--dbor`` through its cascade).
 Renders on CUDA unless ``--device cpu`` is given;
 without a CUDA device it exits non-zero rather than fall back.
 ``--profile PATH`` loads and renders under ``torch.profiler`` (the host's
 ops, and the card's kernels on CUDA), writes its Chrome trace to PATH, in
 which the program's spans (``corona13_tpu_torch/tracing.py``) and the
 card's kernels lie on one clock, and prints each span's host ms, device
-ms and calls, the set-up seconds, the nvcc runs and the traversal
-launches by form.
+ms and calls, the set-up seconds, the nvcc runs and the hand-written
+kernels' launches by key.
 """
 
 from __future__ import annotations
@@ -32,9 +32,6 @@ import time
 
 _SAMPLERS = ['pt', 'ptdl', 'lt', 'ptlt', 'bdpt', 'bdpt1', 'kmlt', 'vmlt',
              'ppm', 'vis']
-# rendered one progression a call by ``_render_progressions``; pt, ptdl and
-# bdpt run through ``render.render``
-_STEPPED = ('lt', 'ptlt', 'bdpt1', 'ppm', 'kmlt', 'vmlt')
 
 
 def main(argv=None):
@@ -134,7 +131,7 @@ def _run(args, device):
         mf=args.mf, use_nee=(args.sampler != 'pt'),
         pointsampler=args.pointsampler, seed=args.seed, media=args.media,
         equiangular=args.equiangular,
-        sampler='bdpt' if args.sampler == 'bdpt' else 'pt')
+        sampler={'ptdl': 'pt', 'vis': 'pt'}.get(args.sampler, args.sampler))
     if args.sampler == 'vis':
         from .samplers import vis as vis_mod
         with torch.no_grad():
@@ -149,10 +146,7 @@ def _run(args, device):
     if fbf.spp:
         print(f'[corona13_tpu_torch] resuming at {fbf.spp} spp from '
               f'{args.output}.fb')
-    if args.sampler in _STEPPED:
-        fb = _render_progressions(scene, cfg, args.sampler, fbf.spp, args.spp)
-        fbf.accumulate(fb, args.spp)
-    elif args.dbor and args.sampler in ('pt', 'ptdl'):
+    if args.dbor and args.sampler in ('pt', 'ptdl'):
         # the ptdl_dbor technique (reference src/sampler.d/ptdl_dbor.c): the
         # samples of each progression land in the log2-luminance cascade;
         # the written image is the trust-merged reassembly
@@ -163,11 +157,11 @@ def _run(args, device):
                              fbs[k].cpu().numpy())
         fbf.accumulate(merged, args.spp)
     else:
-        # bdpt resumes at the next sample index, as the stepped samplers
-        # do; pt and ptdl start at 0, as in the JAX CLI
+        # a resumed render goes on at the next sample index; pt and ptdl
+        # start at 0, as in the JAX CLI
         res = render_mod.render(
             scene, cfg, spp=args.spp, batch=args.batch, progress=True,
-            first=fbf.spp if args.sampler == 'bdpt' else 0)
+            first=0 if cfg.sampler == 'pt' else fbf.spp)
         fbf.accumulate(res.fb, res.spp)
     fbf.flush(iso=float(scene.camera.iso))
     img = fbf.image
@@ -183,35 +177,6 @@ def _run(args, device):
     print(f'[corona13_tpu_torch] wrote {args.output}_fb00.pfm '
           f'({fbf.spp} spp total)')
     return 0
-
-
-def _render_progressions(scene, cfg, sampler: str, first: int, spp: int):
-    """Progressions first .. first+spp-1 of one of ``_STEPPED`` (one
-    progression a step, as the JAX CLI runs them); returns their sum
-    [H, W, 3] on the host."""
-    import torch
-
-    from .samplers import bdpt1, kmlt, lt, ppm, ptlt, vmlt
-    step = {'lt': lt.render_sample,
-            'ptlt': ptlt.render_sample, 'ppm': ppm.render_sample,
-            'kmlt': kmlt.render_sample,
-            'vmlt': vmlt.render_sample}.get(sampler)
-    table = bdpt1.ConfigTable.create(cfg) if sampler == 'bdpt1' else None
-    acc = None
-    t0 = time.time()
-    with torch.no_grad():
-        for s in range(first, first + spp):
-            if table is None:
-                out = step(scene, cfg, s)
-            else:
-                out, table = bdpt1.render_sample(scene, cfg, s, table)
-            acc = out if acc is None else acc + out
-            if acc.is_cuda:
-                torch.cuda.synchronize(acc.device)
-            done = s + 1 - first
-            print(f'  [{done}/{spp}] {(time.time() - t0) / done:.3f}s/frame',
-                  flush=True)
-    return acc.cpu().numpy()
 
 
 def _render_dbor(scene, cfg, first: int, spp: int):

@@ -75,4 +75,8 @@ def scene_from_numpy(tree, device='cuda'):
             kw[f.name] = scene_from_numpy(val, device)
         else:
             kw[f.name] = _leaf(val, device)
+    if cls is scene_mod.Scene:
+        # the JAX package decides the media path at each render
+        kw['has_media'] = bool(tree.has_hete) or bool(
+            np.asarray(tree.materials.med_enabled).any())
     return cls(**kw)

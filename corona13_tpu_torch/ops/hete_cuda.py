@@ -22,33 +22,28 @@ also writes a few sums a lane (``aux``) from which ``models/medium.py``
 rebuilds the plain march's gradient (not the density's: no caller makes
 the grid a parameter).
 
-Build: ``trace_cuda.compile_library('hete_march')``, the traversal
-library's nvcc, flags and ``_build/`` directory, its own hash.  The grid's
-constants (lo, hi, sigma_t, sigma_s) are read by the kernel from their
-device tensors: no host sync.  ``trace_cuda.launches`` counts
-'hete_sample' and 'hete_transmit'.
+Build and launch: ``ops/cuda_lib.py`` (entry ``corona13_hete_march``,
+``_build/libhete_march_<hash>.so``).  The grid's constants (lo, hi,
+sigma_t, sigma_s) are read by the kernel from their device tensors: no
+host sync.  ``tracing.launches`` counts 'hete_sample' and
+'hete_transmit'.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .. import tracing
-from . import trace_cuda
+from . import cuda_lib
 
 MODES = {'sample': 0, 'transmit': 1}
-_fn = None
-build_log = ''   # nvcc's report on the library in use
 
 
-class _Args(ctypes.Structure):
+class _Args(cuda_lib.Args):
     """Corona13HeteArgs of csrc/hete_march.cu, field for field."""
-    _p, _i = ctypes.c_void_p, ctypes.c_int
+    _p, _i = cuda_lib.PTR, cuda_lib.INT
     _fields_ = [
         ('mode', _i), ('n', _i), ('mf', _i), ('nx', _i), ('ny', _i),
-        ('nz', _i), ('mat_id', ctypes.c_longlong), ('med_is64', _i),
+        ('nz', _i), ('mat_id', cuda_lib.LONG), ('med_is64', _i),
         ('med', _p), ('org', _p), ('dir', _p), ('t_max', _p), ('rnd', _p),
         ('density', _p), ('lo', _p), ('hi', _p), ('sigma_t', _p),
         ('sigma_s', _p), ('scat', _p), ('dist', _p), ('weight', _p),
@@ -56,16 +51,10 @@ class _Args(ctypes.Structure):
 
 
 def build():
-    """Compile ``csrc/hete_march.cu`` and load it, once per process."""
-    global _fn, build_log
-    if _fn is None:
-        with tracing.setup_span('hete_cuda.build'):
-            lib, build_log = trace_cuda.compile_library('hete_march')
-            fn = lib.corona13_hete_march
-            fn.argtypes = [ctypes.POINTER(_Args)]
-            fn.restype = ctypes.c_int
-            _fn = fn
-    return _fn
+    """``csrc/hete_march.cu``'s entry, built and loaded once a process
+    (``cuda_lib.load``)."""
+    return cuda_lib.load('hete_march', 'hete_cuda.build',
+                         'corona13_hete_march', _Args)
 
 
 def march(mode, grid, med, org, w, t_max, out, *, rnd=None, scat=None,
@@ -99,7 +88,7 @@ def march(mode, grid, med, org, w, t_max, out, *, rnd=None, scat=None,
                  ('dist', dist, f32, (n,))]
     if aux is not None:
         want.append(('aux', aux, f32, (n, 3)))
-    trace_cuda._check_tensors(want, dev, 'hete_march')
+    cuda_lib.check_tensors(want, dev, 'hete_march')
     fn = build()
     ptr = lambda x: None if x is None else x.data_ptr()
     nz, ny, nx = grid.density.shape
@@ -110,12 +99,6 @@ def march(mode, grid, med, org, w, t_max, out, *, rnd=None, scat=None,
               density=grid.density.data_ptr(), lo=grid.lo.data_ptr(),
               hi=grid.hi.data_ptr(), sigma_t=grid.sigma_t.data_ptr(),
               sigma_s=grid.sigma_s.data_ptr(), scat=ptr(scat),
-              dist=ptr(dist), weight=out.data_ptr(), aux=ptr(aux),
-              stream=torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(a))
-    if err != 0:
-        raise RuntimeError(f'hete_march: the kernel launch failed with CUDA '
-                           f'error {err}')
-    trace_cuda.launches[f'hete_{mode}'] += 1
+              dist=ptr(dist), weight=out.data_ptr(), aux=ptr(aux))
+    cuda_lib.launch(fn, a, dev, 'hete_march', f'hete_{mode}')
     return out

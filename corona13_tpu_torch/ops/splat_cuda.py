@@ -16,32 +16,27 @@ current stream.
 The chain records no autograd graph: ``ops/splat.py`` wraps it in
 ``torch.autograd.Function``s whose backward is plain torch.
 
-Build: ``trace_cuda.compile_library('splat_general')``, the traversal
-library's nvcc, flags and ``_build/`` directory, its own hash, at the first
-call.  ``launches`` counts the chains by entry; inside
-``tracing.counting()`` each call records the taps it summed (a device
-tensor) and the taps it was handed.
+Build and launch: ``ops/cuda_lib.py`` (entry ``corona13_splat``,
+``_build/libsplat_general_<hash>.so``), at the first call.
+``tracing.launches`` counts the chains by entry ('splat_scatter',
+'splat_footprint'); inside ``tracing.counting()`` each call records the
+taps it summed (a device tensor) and the taps it was handed.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import tracing
-from . import trace_cuda
+from . import cuda_lib
 
 FILTERS = {'blackmanharris': 0, 'gaussian': 1, 'spline': 2}
 MAX_SPLATS = (1 << 27) - 1        # 16 taps a splat index an int32 bin
-launches = {'scatter': 0, 'footprint': 0}
-_lib = None
-build_log = ''   # nvcc's report on the library in use
 
 
-class _Args(ctypes.Structure):
+class _Args(cuda_lib.Args):
     """Corona13SplatArgs of csrc/splat_general.cu, field for field."""
-    _p, _i = ctypes.c_void_p, ctypes.c_int
+    _p, _i = cuda_lib.PTR, cuda_lib.INT
     _fields_ = [
         ('mode', _i), ('filter', _i), ('n', _i), ('w', _i), ('h', _i),
         ('n_pix', _i), ('pix_i', _p), ('pix_j', _p), ('col', _p),
@@ -50,22 +45,19 @@ class _Args(ctypes.Structure):
 
 
 def build():
-    """Compile ``csrc/splat_general.cu`` and load it, once per process."""
-    global _lib, build_log
-    if _lib is None:
-        with tracing.setup_span('splat_cuda.build'):
-            lib, build_log = trace_cuda.compile_library('splat_general')
-            lib.corona13_splat.argtypes = [ctypes.POINTER(_Args)]
-            lib.corona13_splat.restype = ctypes.c_int
-            lib.corona13_splat_scratch.argtypes = [ctypes.c_int]
-            lib.corona13_splat_scratch.restype = ctypes.c_longlong
-            _lib = lib
-    return _lib
+    """``csrc/splat_general.cu``'s entry and its scratch size (ints a call
+    over n_pix pixels), built and loaded once a process
+    (``cuda_lib.load``)."""
+    return (cuda_lib.load('splat_general', 'splat_cuda.build',
+                          'corona13_splat', _Args),
+            cuda_lib.load('splat_general', 'splat_cuda.build',
+                          'corona13_splat_scratch', cuda_lib.INT,
+                          cuda_lib.LONG))
 
 
 def _check_fb(fb, dev):
-    trace_cuda._check_tensors([('fb', fb, (torch.float32,), None)], dev,
-                              'splat_cuda')
+    cuda_lib.check_tensors([('fb', fb, (torch.float32,), None)], dev,
+                           'splat_cuda')
     if fb.dim() < 3 or fb.shape[-1] != 3:
         raise ValueError(f'splat_cuda: fb has shape {tuple(fb.shape)}, '
                          'needs [..., H, W, 3]')
@@ -75,23 +67,16 @@ def _check_fb(fb, dev):
 
 def _launch(entry, fb, taps, mode, n, **ptrs):
     """Run the chain into a new framebuffer; ``taps`` bins at most."""
-    lib = build()
+    fn, scratch_ints = build()
     dev = fb.device
     n_pix = fb.numel() // 3
     out = torch.empty_like(fb)
-    scratch = torch.empty(lib.corona13_splat_scratch(n_pix),
-                          dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_ints(n_pix), dtype=torch.int32, device=dev)
     bins = torch.empty((taps, 3), dtype=torch.int32, device=dev)
     a = _Args(mode=mode, n=n, n_pix=n_pix, fb=fb.data_ptr(),
               out=out.data_ptr(), scratch=scratch.data_ptr(),
-              bins=bins.data_ptr() if taps else None,
-              stream=torch.cuda.current_stream(dev).cuda_stream, **ptrs)
-    with torch.cuda.device(dev):
-        err = lib.corona13_splat(ctypes.byref(a))
-    if err != 0:
-        raise RuntimeError(f'splat_cuda: the kernel launch failed with CUDA '
-                           f'error {err}')
-    launches[entry] += 1
+              bins=bins.data_ptr() if taps else None, **ptrs)
+    cuda_lib.launch(fn, a, dev, 'splat_cuda', f'splat_{entry}')
     tracing.count_splat(scratch[-1], taps)
     return out
 
@@ -110,9 +95,9 @@ def footprint(fb, pix_i, pix_j, col, filter_kind):
     if not 0 <= n <= MAX_SPLATS:
         raise ValueError(f'splat_cuda: pix_i has shape {tuple(pix_i.shape)}')
     f32 = (torch.float32,)
-    trace_cuda._check_tensors([('pix_i', pix_i, f32, (n,)),
-                               ('pix_j', pix_j, f32, (n,)),
-                               ('col', col, f32, (n, 3))], dev, 'splat_cuda')
+    cuda_lib.check_tensors([('pix_i', pix_i, f32, (n,)),
+                            ('pix_j', pix_j, f32, (n,)),
+                            ('col', col, f32, (n, 3))], dev, 'splat_cuda')
     h, w = fb.shape[0], fb.shape[1]
     return _launch('footprint', fb, 16 * n, 1, n, w=w, h=h,
                    filter=FILTERS.get(filter_kind, 0),
@@ -133,7 +118,7 @@ def scatter(fb, flat, keep, vals):
             ('vals', vals, (torch.float32,), (m, 3))]
     if keep is not None:
         want.append(('keep', keep, (torch.bool,), (m,)))
-    trace_cuda._check_tensors(want, dev, 'splat_cuda')
+    cuda_lib.check_tensors(want, dev, 'splat_cuda')
     return _launch('scatter', fb, m, 0, m, flat=flat.data_ptr(),
                    keep=None if keep is None else keep.data_ptr(),
                    vals=vals.data_ptr())

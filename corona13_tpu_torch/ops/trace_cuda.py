@@ -38,8 +38,8 @@ slowest ray.  The design (``csrc/traverse_tris.cu``) goes at each:
   every launch.
 - wrapper: the kernel derives the clamped inverse direction, takes the
   ignore ids as int32, int64 or ``None`` and ``t_init`` as a tensor or
-  one float, and writes ``prim``/``slot`` as int64 (``occluded_tris``:
-  only a bool), so a caller adds no torch pass around the launch.
+  one float, and writes ``prim``/``slot`` as int64 (``any_hit``: only a
+  bool), so a caller adds no torch pass around the launch.
 
 Order and rounding are the TPU kernel's: children pushed in ascending
 child index (its packet order restricted to the ray's own hits), an
@@ -60,15 +60,14 @@ the leaves the skip-link walk tests, in its order, and gives its bits on
 every ray, ties and hits an ulp before their box included.  Its records (``pack_moving_rows``) give a row a second,
 shutter-close record only where the row moves, and a leaf's filled rows.
 
-Build: ``nvcc`` compiles ``csrc/traverse_tris.cu`` (plain C interface)
-for sm_90a into ``_build/`` and ``ctypes`` loads it; the launch's
+Build: ``ops/cuda_lib.py`` compiles ``csrc/traverse_tris.cu`` (plain C
+interface, entry ``corona13_trace``) and launches it; the launch's
 ``cudaGetLastError`` comes back as the C function's result and raises.
 On a CPU tensor the wrappers run ``traverse_tris_plain``; on a CUDA
-tensor they launch the kernel or raise.  ``launches`` counts kernel
-launches per specialisation ('closest', 'any', and 'counters' for the
-union walk of ``want_counters``, either hit mode), per further form and
-per per-ray counting walk ('tri_counters', 'line_counters'), and the grid
-march of ``ops/hete_cuda.py`` by mode ('hete_sample', 'hete_transmit').
+tensor they launch the kernel or raise.  ``tracing.launches`` counts
+kernel launches per specialisation ('closest', 'any', and 'counters' for
+the union walk of ``want_counters``, either hit mode), per further form
+and per per-ray counting walk ('tri_counters', 'line_counters').
 
 Further forms (``closest_hit``, ``any_hit``).  What the JAX package
 serves with XLA's lockstep skip-link ``_traverse`` and its dense
@@ -92,9 +91,10 @@ Prim ids are global: a launch takes the kind's offset.
 ``closest_hit`` / ``any_hit`` serve the static triangles of a wide tree as
 well (kind 'tri': the TPU kernel's closest-hit and any-hit specialisations,
 counted as 'closest' and 'any'), so ``trace.intersect`` and ``occluded``
-are one loop over a scene's prim kinds; ``traverse_tris`` and
-``occluded_tris`` remain the TPU kernel's own interface (``want_counters``,
-the tests against interpret mode).  One
+are one loop over a scene's prim kinds; ``traverse_tris`` remains the
+TPU kernel's own interface (``want_counters``, the tests against interpret
+mode), and ``any_hit(bvh, 'tri', ...)`` is its any-hit launch that writes
+only the blocked flag.  One
 ``trace.intersect`` call chains its kinds through ``carry``: a launch
 starts from the running (t, prim, u, v, slot), or the blocked flags, of
 the launches before it and updates them in place where it finds better,
@@ -121,17 +121,10 @@ the persistent launches, and the pops that bound them.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-
 import numpy as np
 import torch
 
-from .. import tracing
-from . import trace_plain
+from . import cuda_lib, trace_plain
 from .bvh import LEAF_SIZE as LEAF
 from .trace_plain import inv_dir  # noqa: F401  (the plain version's)
 
@@ -152,39 +145,12 @@ _FORMS = {'wide': 0, 'deep': 1, 'dense': 2, 'skip': 3, 'union': 4}
 PREORDER_KINDS = ('moving', 'sphere')
 _KINDS = {'tri': 0, 'moving': 1, 'sphere': 2, 'line': 3}
 
-# kernel launches per form: the TPU kernel's three specialisations
-# ('closest', 'any': static triangles, wide walk; 'counters': the union
-# walk), then the forms that replace XLA's _traverse, each closest-hit and
-# any-hit: the wide walk with the moving-triangle, sphere and line
-# policies, the deep-tree walk and, for a tree too deep for its stack, the
-# stackless skip-link walk (any policy), and the dense sphere and line
-# lists; the per-ray walks with their pops (simple_walk: 'tri_counters',
-# 'line_counters'); and the heterogeneous grid's march (ops/hete_cuda.py:
-# its two modes)
-launches = {k: 0 for k in (
-    'closest', 'any', 'counters',
-    *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'skip',
-                           'dense_sphere', 'dense_line')
-      for m in ('closest', 'any')),
-    'tri_counters', 'line_counters', 'hete_sample', 'hete_transmit')}
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), 'csrc')
-_BUILD = os.path.join(os.path.dirname(_CSRC), '_build')
-# The rounding flags are nvcc's defaults, stated so that no later flag
-# turns the kernels' sqrtf and divisions into approximations: the plain
-# versions round as IEEE does (utils.math.sqrt), and so must the card.
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-fmad=false', '-prec-sqrt=true', '-prec-div=true', '-ftz=false',
-              '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
-_fn = None       # the loaded library's entry point
 _work = {}       # (device, stream) -> the persistent launches' int32[2]
-build_log = ''   # nvcc's report (registers, spills) on the library in use
 
 
-class _Args(ctypes.Structure):
+class _Args(cuda_lib.Args):
     """Corona13TraceArgs of csrc/traverse_tris.cu, field for field."""
-    _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _p, _i, _f = cuda_lib.PTR, cuda_lib.INT, cuda_lib.FLOAT
     _fields_ = [
         ('form', _i), ('kind', _i), ('any_hit', _i), ('carry', _i),
         ('nodes', _p), ('leaves', _p), ('leaves_t1', _p), ('ids', _p),
@@ -198,61 +164,11 @@ class _Args(ctypes.Structure):
         ('work', _p), ('stream', _p)]
 
 
-def _nvcc():
-    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
-    for cand in ([os.path.join(home, 'bin', 'nvcc')] if home else []) + [
-            shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc']:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError('no nvcc to build the CUDA kernels with')
-
-
 def build():
-    """Compile ``csrc/traverse_tris.cu`` for sm_90a with nvcc into
-    ``_build/`` (named by a hash of the source and flags, so an up-to-date
-    library is reused) and load it with ctypes, once per process."""
-    if _fn is not None:
-        return _fn
-    with tracing.setup_span('trace_cuda.build'):
-        return _build()
-
-
-def _build():
-    global build_log, _fn
-    lib, build_log = compile_library('traverse_tris')
-    fn = lib.corona13_trace
-    fn.argtypes = [ctypes.POINTER(_Args)]
-    fn.restype = ctypes.c_int
-    _fn = fn
-    return fn
-
-
-def compile_library(stem: str):
-    """Compile ``csrc/<stem>.cu`` with ``NVCC_FLAGS`` into
-    ``_build/lib<stem>_<hash>.so``, the hash of the source and the flags
-    (an up-to-date library is reused), and load it with ctypes.  Returns
-    the library and nvcc's report (registers, spills)."""
-    src = os.path.join(_CSRC, f'{stem}.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + repr(NVCC_FLAGS).encode())
-    lib_path = os.path.join(_BUILD, f'lib{stem}_{digest.hexdigest()[:12]}.so')
-    if not os.path.exists(lib_path):
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f'{lib_path}.{os.getpid()}.tmp'
-        nvcc = _nvcc()
-        tracing.note_kernel_build()
-        out = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, src],
-                             capture_output=True, text=True)
-        log = out.stdout + out.stderr
-        if out.returncode != 0:
-            raise RuntimeError(f'{stem}: nvcc failed:\n{log}')
-        with open(lib_path + '.log', 'w') as f:
-            f.write(log)
-        os.replace(tmp, lib_path)
-    else:
-        with open(lib_path + '.log') as f:
-            log = f.read()
-    return ctypes.CDLL(lib_path), log
+    """``csrc/traverse_tris.cu``'s entry, built and loaded once a process
+    (``cuda_lib.load``)."""
+    return cuda_lib.load('traverse_tris', 'trace_cuda.build', 'corona13_trace',
+                         _Args)
 
 
 # --- the kernel's own layout -------------------------------------------------
@@ -569,25 +485,6 @@ def unpack_kernel_layout(knodes: np.ndarray, kleaves: np.ndarray):
     return wbounds, wlinks, leaf_packed
 
 
-def _check_tensors(want, dev, who='traverse_tris'):
-    """Each (name, tensor, dtypes, shape or None): on ``dev``, of one of
-    the dtypes, of that shape, contiguous.  ``who`` heads the message."""
-    for name, x, dtypes, shape in want:
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f'{who}: {name} is {type(x).__name__}, '
-                            'needs a tensor')
-        if x.device != dev:
-            raise ValueError(f'{who}: {name} on {x.device}, rays on {dev}')
-        if x.dtype not in dtypes:
-            raise TypeError(f'{who}: {name} is {x.dtype}, '
-                            f'needs {" or ".join(map(str, dtypes))}')
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f'{who}: {name} has shape '
-                             f'{tuple(x.shape)}, needs {shape}')
-        if not x.is_contiguous():
-            raise ValueError(f'{who}: {name} is not contiguous')
-
-
 def _check_rays(org, direction, t_init, ignore_prim, ignore_prim2, time=None):
     """Raise on rays the kernel does not take; returns the ray count."""
     if org.dim() != 2 or org.shape[1] != 3:
@@ -604,7 +501,7 @@ def _check_rays(org, direction, t_init, ignore_prim, ignore_prim2, time=None):
         want.append(('ignore_prim2', ignore_prim2, int_ids, (n,)))
     if time is not None:
         want.append(('time', time, f32, (n,)))
-    _check_tensors(want, org.device)
+    cuda_lib.check_tensors(want, org.device, 'traverse_tris')
     if (ignore_prim is not None and ignore_prim2 is not None
             and ignore_prim.dtype != ignore_prim2.dtype):
         raise TypeError('traverse_tris: ignore_prim and ignore_prim2 differ '
@@ -615,9 +512,10 @@ def _check_rays(org, direction, t_init, ignore_prim, ignore_prim2, time=None):
 def _check_wide_tris(bvh, dev):
     """The reference arrays of a triangle BVH, as traverse_tris takes them."""
     wb, wl, lp = bvh.wbounds, bvh.wlinks, bvh.leaf_packed
-    _check_tensors([('wbounds', wb, (torch.float32,), None),
-                    ('wlinks', wl, (torch.int32,), None),
-                    ('leaf_packed', lp, (torch.float32,), None)], dev)
+    cuda_lib.check_tensors([('wbounds', wb, (torch.float32,), None),
+                            ('wlinks', wl, (torch.int32,), None),
+                            ('leaf_packed', lp, (torch.float32,), None)],
+                           dev, 'traverse_tris')
     if wb.dim() != 3 or tuple(wb.shape[1:]) != (8, 8):
         raise ValueError(f'traverse_tris: wbounds shape {tuple(wb.shape)}')
     if tuple(wl.shape) != (wb.shape[0] * 8,):
@@ -631,12 +529,14 @@ def _check_carry(carry, any_hit, n, dev):
     blocked flags of an any-hit call."""
     f32, i64 = (torch.float32,), (torch.int64,)
     if any_hit:
-        _check_tensors([('carry', carry, (torch.bool,), (n,))], dev)
+        cuda_lib.check_tensors([('carry', carry, (torch.bool,), (n,))], dev,
+                               'traverse_tris')
         return
     if not isinstance(carry, (tuple, list)) or len(carry) != 5:
         raise ValueError('traverse_tris: carry needs (t, prim, u, v, slot)')
-    _check_tensors([(f'carry[{k}]', x, dt, (n,)) for k, (x, dt) in enumerate(
-        zip(carry, (f32, i64, f32, f32, i64)))], dev)
+    cuda_lib.check_tensors([(f'carry[{k}]', x, dt, (n,)) for k, (x, dt) in
+                            enumerate(zip(carry, (f32, i64, f32, f32, i64)))],
+                           dev, 'traverse_tris')
 
 
 def _check_dense(kind, recs, dev):
@@ -657,7 +557,7 @@ def _check_dense(kind, recs, dev):
             want.append(('sph_c_t1', recs[2], f32, (k, 3)))
     else:
         want = [('line records', recs[0], f32, (k, ROW_FLOATS['line']))]
-    _check_tensors(want, dev)
+    cuda_lib.check_tensors(want, dev, 'traverse_tris')
     return k
 
 
@@ -698,7 +598,7 @@ def _check_bvh(bvh, kind, form, dev):
         want.append(('leaf_prims', bvh.leaf_prims, (torch.int64,),
                      (kl.shape[0] * LEAF,)))
     try:
-        _check_tensors(want, dev)
+        cuda_lib.check_tensors(want, dev, 'traverse_tris')
     except (TypeError, ValueError) as e:
         raise ValueError('traverse_tris: the BVH carries no kernel layout '
                          f'for this device ({e})') from None
@@ -723,7 +623,7 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
     slot) plus (iters, leafs) with want_counters (per ray, or per block
     for the union form).  With ``carry`` (the running hit, or the blocked
     flags) the launch updates those tensors in place and returns them.
-    ``key``: the entry of ``launches`` that counts it."""
+    ``key``: the entry of ``tracing.launches`` that counts it."""
     dev = org.device
     if n >= 1 << 30:
         raise ValueError(f'traverse_tris: {n} rays in one launch')
@@ -746,10 +646,10 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
         size = -(-n // BLOCK) if form == 'union' else n
         iters = torch.empty(size, dtype=torch.int32, device=dev)
         leafs = torch.empty(size, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if form in ('wide', 'deep') and not want_counters:
         # the persistent launch's work counters: zeroed once here, left at
         # zero again by every launch, so launches of one stream share them
+        stream = torch.cuda.current_stream(dev).cuda_stream
         work = _work.get((dev, stream))
         if work is None:
             work = _work[(dev, stream)] = torch.zeros(
@@ -763,8 +663,7 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
               ignore1=ptr(ignore_prim), ignore2=ptr(ignore_prim2), n=n,
               t_out=ptr(t), prim_out=ptr(prim), u_out=ptr(u), v_out=ptr(v),
               slot_out=ptr(slot), blocked_out=ptr(blocked),
-              iters_out=ptr(iters), leafs_out=ptr(leafs), work=ptr(work),
-              stream=stream)
+              iters_out=ptr(iters), leafs_out=ptr(leafs), work=ptr(work))
     if form == 'dense':
         a.n_prims = recs[0].shape[0]
         a.d0 = ptr(recs[0])
@@ -784,12 +683,7 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
             a.nodes, a.depth = bvh.bnodes.data_ptr(), bvh.bin_depth
         else:
             a.nodes, a.n_nodes = bvh.nodes.data_ptr(), bvh.nodes.shape[0]
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(a))
-    if err != 0:
-        raise RuntimeError(f'traverse_tris: the kernel launch failed with '
-                           f'CUDA error {err}')
-    launches[key] += 1
+    cuda_lib.launch(fn, a, dev, 'traverse_tris', key)
     if blocked_only:
         return blocked
     if want_counters:
@@ -798,7 +692,7 @@ def _launch(form, kind, org, direction, t_init, ignore_prim, ignore_prim2, n,
 
 
 def _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2, n,
-                 any_hit, walk='persistent', blocked_only=False):
+                 any_hit, walk='persistent'):
     """The TPU kernel's specialisations on static triangles: the persistent
     wide walk ('closest', 'any'), the union walk of 128-ray tiles
     ('counters') or the per-ray walk with its own pops ('tri_counters')."""
@@ -812,8 +706,7 @@ def _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2, n,
                  'simple': ('wide', 'tri_counters')}[walk]
     return _launch(form, 'tri', org, direction, t_init, ignore_prim,
                    ignore_prim2, n, any_hit, bvh=bvh,
-                   want_counters=walk != 'persistent',
-                   blocked_only=blocked_only, key=key)
+                   want_counters=walk != 'persistent', key=key)
 
 
 def traverse_tris(bvh, org, direction, t_init, ignore_prim=None,
@@ -876,25 +769,6 @@ def simple_walk(bvh, org, direction, t_init, ignore_prim=None,
     _check_wide_tris(bvh, org.device)
     return _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2,
                         n, any_hit, 'simple')
-
-
-def occluded_tris(bvh, org, direction, t_init, ignore_prim=None,
-                  ignore_prim2=None):
-    """The any-hit launch that writes only its answer: blocked [N] bool,
-    ``traverse_tris(..., any_hit=True)[1] >= 0`` without the other four
-    outputs.  Counts as an 'any' launch."""
-    n = _check_rays(org, direction, t_init, ignore_prim, ignore_prim2)
-    _check_wide_tris(bvh, org.device)
-    if org.device.type == 'cpu':
-        return traverse_tris_plain(bvh.wbounds, bvh.wlinks, bvh.leaf_packed,
-                                   org, direction, t_init, ignore_prim,
-                                   ignore_prim2, any_hit=True)[1] >= 0
-    if org.device.type != 'cuda':
-        raise ValueError(f'traverse_tris: no kernel for {org.device}')
-    if n == 0:
-        return torch.empty(0, dtype=torch.bool, device=org.device)
-    return _launch_tris(bvh, org, direction, t_init, ignore_prim, ignore_prim2,
-                        n, True, blocked_only=True)
 
 
 # --- the forms that replace XLA's skip-link _traverse ------------------------

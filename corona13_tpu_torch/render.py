@@ -16,8 +16,32 @@ import torch
 from . import tracing
 from .io import pfm as pfm_io
 from .samplers import bdpt as bdpt_mod
+from .samplers import bdpt1 as bdpt1_mod
+from .samplers import kmlt, lt, ppm, ptlt, vmlt
 from .samplers import pt as pt_mod
 from .spectral import colour
+
+# the estimator of each ``PTConfig.sampler``: its step renders ``batch``
+# progressions from a sample index, (scene, cfg, sample, batch=) -> their
+# sum [H, W, 3]; only pt runs several a step.  bdpt1's also takes and
+# returns its strategy table (``_bdpt1_step``).
+SAMPLERS = {'pt': pt_mod.render_sample, 'bdpt': bdpt_mod.render_sample,
+            'lt': lt.render_sample, 'ptlt': ptlt.render_sample,
+            'bdpt1': bdpt1_mod.render_sample, 'ppm': ppm.render_sample,
+            'kmlt': kmlt.render_sample, 'vmlt': vmlt.render_sample}
+
+
+def _bdpt1_step(cfg):
+    """bdpt1's step with a fresh strategy table, threaded from step to
+    step."""
+    table = bdpt1_mod.ConfigTable.create(cfg)
+
+    def step(scene, cfg, sample, batch=1):
+        nonlocal table
+        fb, table = bdpt1_mod.render_sample(scene, cfg, sample, table,
+                                            batch=batch)
+        return fb
+    return step
 
 
 @dataclasses.dataclass
@@ -66,28 +90,31 @@ def render(scene, cfg: pt_mod.PTConfig, spp: int = 16, batch: int = 0,
            progress: bool = False, path_hist: bool = False,
            first: int = 0) -> RenderResult:
     """Render ``spp`` progressions (1 path/pixel each) on the scene's
-    device with the estimator ``cfg.sampler`` names: 'pt' (pt or ptdl by
-    ``cfg.use_nee``) or 'bdpt' (``samplers/bdpt.py``).  ``batch``
-    progressions run per step (0 = auto: the whole spp for small images,
-    else 1); bdpt runs one a step, since its batch copies share their
-    sample ids and trace the same paths.  ``first``: the sample index of
-    the first progression.  ``progress`` prints the time per frame after
+    device with the estimator ``cfg.sampler`` names (``SAMPLERS``): 'pt'
+    (pt or ptdl by ``cfg.use_nee``), 'bdpt', 'lt', 'ptlt', 'bdpt1', 'ppm',
+    'kmlt' or 'vmlt' (``samplers/``).  ``batch`` progressions run per pt
+    step (0 = auto: the whole spp for small images, else 1); the others
+    run one a step (bdpt's batch copies share their sample ids and trace
+    the same paths).  ``first``: the sample index of the first
+    progression.  ``progress`` prints the time per frame after
     each step.  ``path_hist`` (pt only): the per-depth alive lanes of the
     first progression, from ``tracing`` counters of the first step (a
     dense wavefront; under cfg.compact from ``pt.alive_profile``, a second
     render)."""
-    if cfg.sampler == 'bdpt':
-        step_fn, batch = bdpt_mod.render_sample, 1
-    elif cfg.sampler == 'pt':
+    if cfg.sampler not in SAMPLERS:
+        raise ValueError(f'render: no sampler {cfg.sampler!r} '
+                         f'({", ".join(SAMPLERS)})')
+    if cfg.sampler == 'pt':
         step_fn = pt_mod.render_sample
         if batch <= 0:
             batch = spp if cfg.width * cfg.height * spp <= (1 << 21) else 1
-        if not cfg.media and (scene.has_hete
-                              or bool(scene.materials.med_enabled.any())):
+        if not cfg.media and scene.has_media:
             # the scene carries participating media: run the media path
             cfg = cfg.replace(media=True)
     else:
-        raise ValueError(f'render: no sampler {cfg.sampler!r} (pt, bdpt)')
+        step_fn, batch = SAMPLERS[cfg.sampler], 1
+        if cfg.sampler == 'bdpt1':
+            step_fn = _bdpt1_step(cfg)
     batch = min(batch, spp)
     path_hist = path_hist and cfg.sampler == 'pt'
     dev = scene.device

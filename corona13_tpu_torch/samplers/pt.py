@@ -68,8 +68,9 @@ class PTConfig:
     # per-depth wavefront capacity fractions (len = max_verts-1, first
     # entry 1.0); None = the dense wavefront
     compact: tuple | None = None
-    # the estimator ``render.render`` runs: 'pt' (pt or ptdl by use_nee)
-    # or 'bdpt' (samplers/bdpt.py)
+    # the estimator ``render.render`` runs (``render.SAMPLERS``): 'pt' (pt
+    # or ptdl by use_nee), 'bdpt', 'lt', 'ptlt', 'bdpt1', 'ppm', 'kmlt' or
+    # 'vmlt'
     sampler: str = 'pt'
 
     def replace(self, **kw) -> 'PTConfig':

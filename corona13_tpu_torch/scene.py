@@ -119,6 +119,9 @@ class Scene:
     has_envmap: bool = False
     has_daylight: bool = False
     has_hete: bool = False
+    # a material carries a medium, or the grid does: render.render runs
+    # pt's media path (decided here, so a render reads nothing back)
+    has_media: bool = False
     has_vol_emission: bool = False
     exterior_med: int = -1
     has_textures: bool = False
@@ -569,6 +572,7 @@ def load_scene(nra2_path: str, cam_path: str | None = None,
         kinds_used=tuple(sorted({m.kind for m in mats})),
         daylight=daylight_sky, has_daylight=daylight_sky is not None,
         has_hete=vol_grid is not None,
+        has_media=vol_grid is not None or any(m.med_enabled for m in mats),
         has_vol_emission=has_vol_emission, exterior_med=_exterior_med(desc),
         has_textures=bool(tex_files), vol=vol_grid,
         tex_atlas=tex_atlas, tex_dims=tex_dims)

@@ -84,7 +84,8 @@ def assemble_scene(tri_v, tri_sh, mats, cam: cam_io.CameraData,
         prim_shader=t(prim_shader, np.int64),
         sky_kind=torch.tensor(sky_kind, dtype=torch.int64, device=device),
         sky_coeff=t(sc[0]), sky_mul=f32(sm[0]),
-        kinds_used=tuple(sorted({m.kind for m in mats})))
+        kinds_used=tuple(sorted({m.kind for m in mats})),
+        has_media=any(m.med_enabled for m in mats))
 
 
 def cornell_scene(sphere: str | None = 'diffuse', light=40.0,

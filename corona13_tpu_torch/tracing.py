@@ -61,8 +61,9 @@ nothing synchronises inside a frame.  Off, they cost one check a bounce,
 connection or splat; on, one reduction (two a connection, a copy a
 splat on the card).
 
-``launches`` is ``ops.trace_cuda.launches``, the traversal launches per
-form and the grid march's by mode, as it is.
+``launches`` counts the hand-written kernels' launches by key, as
+``ops/cuda_lib.launch`` makes them (``count_launch``): the traversal's per
+form, the grid march's by mode and the general splat's chains by entry.
 """
 
 from __future__ import annotations
@@ -88,6 +89,18 @@ _recording = torch._C._autograd._profiler_enabled
 _setup_s = collections.defaultdict(float)   # set-up span -> host seconds
 _builds = 0
 _counters = None                            # the innermost counting() block
+
+# launches of the hand-written kernels (ops/cuda_lib.launch), by key: the
+# traversal's forms, each closest-hit and any-hit, its union walk
+# ('counters') and per-ray walks (ops/trace_cuda.py); the grid march by
+# mode (ops/hete_cuda.py); the general splat's chains (ops/splat_cuda.py)
+launches = {k: 0 for k in (
+    'closest', 'any', 'counters',
+    *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'skip',
+                           'dense_sphere', 'dense_line')
+      for m in ('closest', 'any')),
+    'tri_counters', 'line_counters', 'hete_sample', 'hete_transmit',
+    'splat_scatter', 'splat_footprint')}
 
 
 def span(name: str, args: dict | None = None):
@@ -117,14 +130,20 @@ def setup_seconds() -> dict:
 
 
 def note_kernel_build():
-    """Count one nvcc run (``trace_cuda.compile_library``)."""
+    """Count one nvcc run (``cuda_lib.compile_library``)."""
     global _builds
     _builds += 1
 
 
 def kernel_builds() -> int:
-    """nvcc runs of ``trace_cuda.compile_library`` in this process."""
+    """nvcc runs of ``cuda_lib.compile_library`` in this process."""
     return _builds
+
+
+def count_launch(key: str):
+    """Count one launch of a hand-written kernel under ``key``, one of
+    ``launches``' keys."""
+    launches[key] += 1
 
 
 class Counters:
@@ -280,8 +299,7 @@ def span_table(events) -> dict:
 def report(events) -> list[str]:
     """The operator's lines of a profile: one a span name (host ms, device
     ms, calls, in SPAN_NAMES order), the set-up seconds, the nvcc runs and
-    the traversal launches by form."""
-    from .ops import trace_cuda
+    the hand-written kernels' launches by key."""
     rows = span_table(events)
     out = [f'{n:20s} host {rows[n][0] / 1e3:10.3f} ms  device '
            f'{rows[n][1] / 1e3:10.3f} ms  calls {rows[n][2]}'
@@ -289,13 +307,6 @@ def report(events) -> list[str]:
     out.append('set-up s: ' + ', '.join(
         f'{k} {v:.3f}' for k, v in sorted(setup_seconds().items())))
     out.append(f'kernel_builds: {kernel_builds()}')
-    out.append('launches: ' + ', '.join(
-        f'{k} {v}' for k, v in trace_cuda.launches.items() if v) or 'none')
+    out.append('launches: ' + (', '.join(
+        f'{k} {v}' for k, v in launches.items() if v) or 'none'))
     return out
-
-
-def __getattr__(name):
-    if name == 'launches':
-        from .ops import trace_cuda
-        return trace_cuda.launches
-    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -14,7 +14,7 @@ against ``1 / sqrt_rn`` (numpy's division of one by numpy's root).  With
 ``lax.rsqrt`` on the CPU (JAX is imported by this option only).
 
 ``flags`` builds ``corona13_tpu_torch/csrc/traverse_tris.cu`` twice, with
-``trace_cuda.NVCC_FLAGS`` and with the same flags less the explicit
+``cuda_lib.NVCC_FLAGS`` and with the same flags less the explicit
 rounding ones (``-prec-sqrt=true -prec-div=true -ftz=false``, nvcc's
 defaults), and compares each kernel's ptxas registers and the hash of its
 SASS (``cuobjdump -sass``).  The build goes to a temporary directory.
@@ -116,11 +116,11 @@ def _build(nvcc, flags, src, out_dir):
 
 
 def flag_counts():
-    from corona13_tpu_torch.ops import trace_cuda
-    new = trace_cuda.NVCC_FLAGS
+    from corona13_tpu_torch.ops import cuda_lib
+    new = cuda_lib.NVCC_FLAGS
     old = tuple(f for f in new if f not in ROUNDING_FLAGS)
     src = os.path.join(HERE, 'corona13_tpu_torch', 'csrc', 'traverse_tris.cu')
-    nvcc = trace_cuda._nvcc()
+    nvcc = cuda_lib._nvcc()
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ThreadPoolExecutor(2) as pool:
         dirs = [os.path.join(tmp, d) for d in ('old', 'new')]

@@ -40,7 +40,8 @@ the lanes alive a bounce (of pt's bounces or bdpt's subpaths), bdpt's
 connection live share, the share of the general splat's taps that it
 sums (``summed_tap_share``: bdpt's four camera splats), and
 ``tracing.launches`` by key (the traversal forms, the grid march's
-'hete_sample' and 'hete_transmit').
+'hete_sample' and 'hete_transmit', the general splat's 'splat_footprint'
+and 'splat_scatter').
 """
 
 from __future__ import annotations

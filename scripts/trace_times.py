@@ -87,6 +87,17 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _trace_build_log():
+    """nvcc's report on the traversal library (a checkout from before
+    ``ops/cuda_lib.py`` keeps it in ``trace_cuda.build_log``)."""
+    try:
+        from corona13_tpu_torch.ops import cuda_lib
+    except ImportError:
+        from corona13_tpu_torch.ops import trace_cuda
+        return trace_cuda.build_log
+    return cuda_lib.build_logs['traverse_tris']
+
+
 def union_times(cs, dev, card, root):
     """The union kernel on phase 6's cases: ms a launch, its pops a tile,
     held to the plain union walk's counts on every block."""
@@ -222,7 +233,7 @@ def main():
             '0002_mb', mb.geom.tri_bvh, 'moving',
             cs.edge_rays(mb.geom, 1 << 16, 21, dev), card,
             strict=root == HERE)
-        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+        regs = {k: v for k, v in cs.ptxas_report(_trace_build_log()).items()
                 if 'MovingTriangle' in k}
         for k, v in regs.items():
             print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
@@ -237,7 +248,7 @@ def main():
                 **cs._sphere_soup(1 << 16, 9), device=dev)}, card,
             strict=root == HERE and 'sphere' in cs.EXACT_KINDS)
         del sph
-        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+        regs = {k: v for k, v in cs.ptxas_report(_trace_build_log()).items()
                 if 'Sphere' in k}
         for k, v in regs.items():
             print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
@@ -248,7 +259,7 @@ def main():
         frames['zoom'], frames['zoom edges'] = cs.deep_forms(
             'zoom', zoom, cfg, card, skip=has_skip, strict=root == HERE)
         del zoom
-        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+        regs = {k: v for k, v in cs.ptxas_report(_trace_build_log()).items()
                 if k.split()[0] in ('deep', 'skip')}
         for k, v in regs.items():
             print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)
@@ -258,7 +269,7 @@ def main():
             gate=False, max_verts=6)
     if 'union' in cases:
         frames['union'] = union_times(cs, dev, card, root)
-        regs = {k: v for k, v in cs.ptxas_report(trace_cuda.build_log).items()
+        regs = {k: v for k, v in cs.ptxas_report(_trace_build_log()).items()
                 if k.startswith('union')}
         for k, v in regs.items():
             print(f'ptxas, {k}: {"; ".join(v)} (tree {root})', flush=True)

@@ -76,7 +76,7 @@ def test_render_equals_sum_of_render_sample(mb, first, batch):
     assert res.spp == 3 and res.path_hist is None
     assert np.array_equal(res.fb, want) and want.max() > 0
     with pytest.raises(ValueError):
-        render_mod.render(mb, CFG.replace(sampler='lt'), spp=1)
+        render_mod.render(mb, CFG.replace(sampler='mlt'), spp=1)
 
 
 def test_cli_bdpt_writes_the_image_of_its_progressions(tmp_path, capsys):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from corona13_tpu_torch import tracing
 from corona13_tpu_torch.ops import trace as ttrace
 from corona13_tpu_torch.ops import trace_cuda
 
@@ -41,13 +42,13 @@ def _kernel_vs_plain(b, org, d, t0, ig, ig2, any_hit):
     """Kernel and plain version on the same card and inputs: prim and slot
     identical on >= 99.9% of rays (both round the same expressions;
     -fmad=false), t within rtol 1e-6 where prim agrees; two launches of
-    the kernel bit-identical; occluded_tris the any-hit flag."""
+    the kernel bit-identical; any_hit's launch the any-hit flag."""
     key = 'any' if any_hit else 'closest'
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     k = trace_cuda.traverse_tris(b, org, d, t0, ig, ig2, any_hit=any_hit)
     again = trace_cuda.traverse_tris(b, org, d, t0, ig, ig2, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert trace_cuda.launches[key] == before[key] + 2
+    assert tracing.launches[key] == before[key] + 2
     for x, y in zip(k, again):
         assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32
                            else x, y.view(torch.int32)
@@ -56,7 +57,9 @@ def _kernel_vs_plain(b, org, d, t0, ig, ig2, any_hit):
     p = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
                                        org, d, t0, ig, ig2, any_hit=any_hit)
     if any_hit:
-        flag = trace_cuda.occluded_tris(b, org, d, t0, ig, ig2)
+        before = tracing.launches['any']
+        flag = trace_cuda.any_hit(b, 'tri', org, d, t0, ig, ig2)
+        assert tracing.launches['any'] == before + 1
         assert flag.dtype == torch.bool and torch.equal(flag, k[1] >= 0)
     k = [x.cpu().numpy() for x in k]
     p = [x.cpu().numpy() for x in p]
@@ -165,14 +168,14 @@ def _union_vs_plain(b, org, d, t0, ig, any_hit, ig2=None):
     union_walk_plain on the same card and inputs: the per-block counts and
     every bit of (t, prim, u, v, slot) equal, two launches bit-identical,
     and only the 'counters' launch count moves.  Returns the outputs."""
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     k = trace_cuda.traverse_tris(b, org, d, t0, ig, ig2, any_hit=any_hit,
                                  want_counters=True)
     again = trace_cuda.traverse_tris(b, org, d, t0, ig, ig2, any_hit=any_hit,
                                      want_counters=True)
     torch.cuda.synchronize()
-    moved = {key: trace_cuda.launches[key] - before[key] for key in before
-             if trace_cuda.launches[key] != before[key]}
+    moved = {key: tracing.launches[key] - before[key] for key in before
+             if tracing.launches[key] != before[key]}
     assert moved == {'counters': 2}
     n_blocks = -(-org.shape[0] // trace_cuda.BLOCK)
     assert k[5].shape == k[6].shape == (n_blocks,)
@@ -222,11 +225,11 @@ def test_kernel_counters_blocked_shadow_tiles(cuda):
     k = _union_vs_plain(b, org, d, t0, ig, True, ig2)
     blocked = (k[1] >= 0).reshape(-1, 128)
     assert (blocked.any(axis=1) & ~blocked.all(axis=1)).all()
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     s = trace_cuda.simple_walk(b, org, d, t0, ig, ig2, any_hit=True)
     torch.cuda.synchronize()
-    assert trace_cuda.launches['tri_counters'] == before['tri_counters'] + 1
-    assert trace_cuda.launches['counters'] == before['counters']
+    assert tracing.launches['tri_counters'] == before['tri_counters'] + 1
+    assert tracing.launches['counters'] == before['counters']
     p = trace_cuda.traverse_tris_plain(b.wbounds, b.wlinks, b.leaf_packed,
                                        org, d, t0, ig, ig2, any_hit=True,
                                        ray_pops=True)
@@ -276,7 +279,7 @@ def _form_vs_plain(target, kind, key, dev, offset, any_hit, n=40000):
     assert (first[1] >= 0).float().mean() > 0.05
     ig = torch.where(torch.arange(n, device=dev) % 3 == 0, first[1], -1)
     kw = dict(time=time, prim_offset=offset)
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     if any_hit:
         carry = (torch.rand(n, generator=g) < 0.2).to(dev)
         runs = [trace_cuda.any_hit(target, kind, org, d, t0, ig, ig,
@@ -323,8 +326,8 @@ def _form_vs_plain(target, kind, key, dev, offset, any_hit, n=40000):
         # lanes the carried hit already wins keep all five of its values
         kept = runs[2][0] == carry[0]
         assert (runs[2][1][kept] == 7).all() and (runs[2][4][kept] == 3).all()
-    moved = {k for k in before if trace_cuda.launches[k] != before[k]}
-    assert moved == {key} and trace_cuda.launches[key] == before[key] + 4
+    moved = {k for k in before if tracing.launches[k] != before[k]}
+    assert moved == {key} and tracing.launches[key] == before[key] + 4
 
 
 @pytest.mark.parametrize('any_hit', [False, True])
@@ -461,12 +464,12 @@ def test_line_form_at_hair_shapes(cuda):
     out = cs._hold_calls('hair frame', lines)
     assert set(out) == {'line_closest', 'line_any'}
     target, _, args, kw = lines['closest_hit'][0]
-    before = trace_cuda.launches['line_counters']
+    before = tracing.launches['line_counters']
     pops = cs.line_counts('hair first bounce', target, kw['prim_offset'],
                           'closest', (args[0], args[1], kw['carry'][0],
                                       args[3], None), 'the card',
                           time_it=False)
-    assert trace_cuda.launches['line_counters'] == before + 1
+    assert tracing.launches['line_counters'] == before + 1
     assert 0 < pops['leaf_per_ray'] <= pops['plain_leaves_per_ray']
 
 
@@ -589,7 +592,7 @@ def test_deep_form_at_zoom_frame_shapes(cuda, any_hit):
     assert len(calls) == cfg.max_verts - 1
     skip = cs._skip_tree(sc.geom.tri_bvh)
     tup = (lambda x: (x,)) if any_hit else (lambda x: x)
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     for target, kind, args, kw in calls:
         p = getattr(trace_cuda, mode + '_plain')(target, kind, *args,
                                                  **cs._cloned(kw))
@@ -598,7 +601,7 @@ def test_deep_form_at_zoom_frame_shapes(cuda, any_hit):
             for x, y in zip(tup(k), tup(p)):
                 assert torch.equal(_bits(x), _bits(y))
     m = 'any' if any_hit else 'closest'
-    moved = {k: v - before[k] for k, v in trace_cuda.launches.items()
+    moved = {k: v - before[k] for k, v in tracing.launches.items()
              if v != before[k]}
     assert moved == {f'deep_{m}': 5, f'skip_{m}': 5}
 
@@ -631,12 +634,12 @@ def test_intersect_mixed_scene_on_the_card(cuda):
     org, d = _rays(30000, 9, cuda)
     time = torch.rand(30000, device=cuda)
     t_max = torch.full((30000,), 12.0, device=cuda)
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     hk = ttrace.intersect(geoms[0], org, d, time=time)
     bk = ttrace.occluded(geoms[0], org, d, t_max, time=time)
     torch.cuda.synchronize()
-    moved = {k: trace_cuda.launches[k] - before[k] for k in before
-             if trace_cuda.launches[k] != before[k]}
+    moved = {k: tracing.launches[k] - before[k] for k in before
+             if tracing.launches[k] != before[k]}
     assert moved == {f'{k}_{m}': 1 for k in ('moving', 'sphere', 'line')
                      for m in ('closest', 'any')}
     hp = ttrace.intersect(geoms[1], org.cpu(), d.cpu(), time=time.cpu())
@@ -657,13 +660,13 @@ def _paths_on_both(build, cfg, cuda, sample=5):
     from corona13_tpu_torch.samplers import pt as pt_mod
     out = []
     for d in (cuda, torch.device('cpu')):
-        before = dict(trace_cuda.launches)
+        before = dict(tracing.launches)
         pix = torch.arange(cfg.width * cfg.height, device=d)
         out.append(pt_mod.sample_paths(build(d), cfg, sample, pix)[0].cpu()
                    .numpy())
         if d is cuda:
-            moved = {k: trace_cuda.launches[k] - v for k, v in before.items()
-                     if trace_cuda.launches[k] != v}
+            moved = {k: tracing.launches[k] - v for k, v in before.items()
+                     if tracing.launches[k] != v}
     close = np.isclose(out[0], out[1], rtol=1e-4, atol=1e-6).all(axis=-1)
     assert (out[1] > 0).any(axis=-1).mean() > 0.05
     return float(close.mean()), moved
@@ -985,14 +988,16 @@ def test_bdpt_strategy_on_the_card(cuda, st):
     out = []
     for d in (cuda, torch.device('cpu')):
         sc = scene_mod.fit_film(testing.cornell_scene(device=d), 64, 42)
-        before = dict(trace_cuda.launches)
+        before = dict(tracing.launches)
         out.append(bdpt.render_sample(sc, cfg, 3, only=st).cpu().numpy())
-        moved = {k: v - before[k] for k, v in trace_cuda.launches.items()
+        moved = {k: v - before[k] for k, v in tracing.launches.items()
                  if v != before[k]}
         if d is cuda:
             calls = {'closest': 4, 'any': int(st[0] >= 1)}
             want = {f'{p}{k}': v for k, v in calls.items() if v
                     for p in ('', 'dense_sphere_')}
+            if st[1] == 1:      # the camera connection's general splat
+                want['splat_footprint'] = 1
             assert moved == want, moved
     top = float(np.abs(out[1]).max())
     assert top > 0
@@ -1016,14 +1021,14 @@ def test_ppm_mlt_on_the_card(cuda, name):
     out = []
     for d in (cuda, torch.device('cpu')):
         sc = scene_mod.fit_film(testing.cornell_scene(device=d), 64, 36)
-        before = dict(trace_cuda.launches)
+        before = dict(tracing.launches)
         if name == 'ppm':
             out.append({'image': ppm.render_sample(sc, cfg, 3)})
         else:
             mod = {'kmlt': kmlt, 'vmlt': vmlt}[name]
             out.append(kmlt.run_chains(sc, cfg, 3, 1, 256, 8,
                                        mod.STUCK_LIMIT, mod.MULT, mod.step))
-        moved = {k for k, v in trace_cuda.launches.items() if v != before[k]}
+        moved = {k for k, v in tracing.launches.items() if v != before[k]}
         if d is cuda:
             assert 'closest' in moved
             assert ('any' in moved) == (name != 'ppm'), moved
@@ -1076,10 +1081,10 @@ def test_sharded_render_on_the_card(cuda):
                 padding=3)[0, 0] > 0)
         for n_sp, n_px in ((2, 2), (1, 4)):
             mesh = shard.make_mesh(n_sp, n_px)
-            before = trace_cuda.launches['closest']
+            before = tracing.launches['closest']
             fb = shard.render_samples_sharded(sc, cfg, mesh, 0, emulate=True,
                                               device=dev)
-            assert trace_cuda.launches['closest'] == before + 5 * mesh.size
+            assert tracing.launches['closest'] == before + 5 * mesh.size
             off = ~torch.stack(near[:n_sp]).any(0)
             assert float(off.float().mean()) > 0.5
             torch.testing.assert_close(fb[off], sum(single[:n_sp])[off],

@@ -47,7 +47,7 @@ from corona13_tpu_torch import tracing
 from corona13_tpu_torch.io import vol as tvol
 from corona13_tpu_torch.models import medium as tmed
 from corona13_tpu_torch.models import medium_hete as thete
-from corona13_tpu_torch.ops import hete_cuda, trace_cuda
+from corona13_tpu_torch.ops import cuda_lib, hete_cuda
 
 PACKAGE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'corona13_tpu_torch')
@@ -313,7 +313,7 @@ def test_binding_matches_the_c_struct():
     for approx in ('__expf', '__logf', '__fdividef', '__frcp', '__fadd',
                    '__fmul', 'fmaf('):
         assert approx not in src, approx
-    assert '-fmad=false' in trace_cuda.NVCC_FLAGS
+    assert '-fmad=false' in cuda_lib.NVCC_FLAGS
 
 
 # --- the kernel against the plain march, on the card -------------------------

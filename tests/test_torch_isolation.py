@@ -11,11 +11,21 @@ sharded render and a train step over an emulated (2, 2) mesh
 (parallel.shard), writes and reads back a .cam, .geo and .vol file (the io
 writers) and runs the tools (pfmdiff, welch, obj2geo, netdisplay's
 tonemap), and neither jax, flax nor any module of the JAX package
-corona13_tpu gets imported."""
+corona13_tpu gets imported.
 
+The port's layers, read from its imports with ``ast``: only the kernel
+library module ``ops/cuda_lib.py`` builds and loads code (ctypes,
+subprocess, hashlib); no kernel binding imports another; ``tracing``, the
+bottom layer, imports nothing from ``ops``; and the CLI chooses no
+estimator (``render.render`` does): it imports no sampler module but vis
+and pt (for ``--dbor``)."""
+
+import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 _SCRIPT = """
 import sys
@@ -127,3 +137,60 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert 'ISOLATED' in out.stdout
+
+
+PORT = 'corona13_tpu_torch'
+BINDINGS = {f'{PORT}.ops.{m}' for m in ('trace_cuda', 'hete_cuda',
+                                         'splat_cuda')}
+
+
+def _port_imports():
+    """{module of the port: the absolute names it imports anywhere in its
+    file}; ``from a import b`` names a and a.b."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for d, _, files in os.walk(os.path.join(root, PORT)):
+        for f in files:
+            if not f.endswith('.py'):
+                continue
+            path = os.path.join(d, f)
+            parts = os.path.relpath(path, root)[:-3].split(os.sep)
+            pkg = parts[:-1]
+            if parts[-1] == '__init__':
+                parts = pkg
+            names = set()
+            with open(path) as fh:
+                tree = ast.parse(fh.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names |= {a.name for a in node.names}
+                elif isinstance(node, ast.ImportFrom):
+                    base = pkg[:len(pkg) - node.level + 1] if node.level \
+                        else []
+                    mod = '.'.join(base + ([node.module] if node.module
+                                           else []))
+                    names |= {mod} | {f'{mod}.{a.name}' for a in node.names}
+            out['.'.join(parts)] = names
+    return out
+
+
+@pytest.mark.parametrize('rule', ['ffi', 'bindings', 'tracing', 'cli'])
+def test_port_layering(rule):
+    imports = _port_imports()
+    if rule == 'ffi':
+        ffi = {'ctypes', 'subprocess', 'hashlib'}
+        assert ffi <= imports[f'{PORT}.ops.cuda_lib']
+        bad = {m for m, names in imports.items()
+               if names & ffi and m != f'{PORT}.ops.cuda_lib'}
+    elif rule == 'bindings':
+        assert all(f'{PORT}.ops.cuda_lib' in imports[m] for m in BINDINGS)
+        bad = {m for m in BINDINGS if imports[m] & (BINDINGS - {m})}
+    elif rule == 'tracing':
+        bad = {n for n in imports[f'{PORT}.tracing']
+               if n == f'{PORT}.ops' or n.startswith(f'{PORT}.ops.')}
+    else:
+        assert f'{PORT}.render' in imports[f'{PORT}.__main__']
+        bad = {n for n in imports[f'{PORT}.__main__']
+               if n.startswith(f'{PORT}.samplers.')} - {
+            f'{PORT}.samplers.vis', f'{PORT}.samplers.pt'}
+    assert not bad, bad

@@ -357,7 +357,10 @@ def test_emission_along_analytic():
 def test_media_end_to_end_properties():
     """An absorbing interior darkens the sphere; media=True is a no-op on a
     media-free scene; the subsurf scene renders finite; equiangular NEE
-    agrees with free-flight NEE in expectation (tests/test_media.py)."""
+    agrees with free-flight NEE in expectation (tests/test_media.py); a
+    scene with a medium-enabled material and no grid is flagged so when
+    built (through ``fit_film`` too), and ``render.render`` then runs the
+    media path whatever ``cfg.media`` says."""
     cfg = pt_mod.PTConfig(width=48, height=32, max_verts=8, mf=2,
                           use_nee=True, media=True)
     a = render_mod.render(testing.cornell_scene(sphere='absorb',
@@ -383,6 +386,13 @@ def test_media_end_to_end_properties():
     assert np.isfinite(img0).all() and img0.max() > 0
     assert np.isfinite(img1).all()
     assert abs(img1.mean() / img0.mean() - 1.0) < 0.1
+    assert sub.vol is None and not sc.has_media
+    assert tscene.fit_film(sub, 24, 16).has_media
+    fb = render_mod.render(sub, cfg0.replace(media=False), spp=2).fb
+    assert np.array_equal(fb, pt_mod.render_sample(sub, cfg0, 0,
+                                                   batch=2).numpy())
+    assert not np.array_equal(fb, pt_mod.render_sample(
+        sub, cfg0.replace(media=False), 0, batch=2).numpy())
 
 
 def test_nested_media_transmittance():

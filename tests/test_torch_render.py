@@ -22,8 +22,7 @@ from corona13_tpu.samplers import pt as jpt
 from corona13_tpu_torch import convert
 from corona13_tpu_torch import render as render_mod
 from corona13_tpu_torch import scene as tscene
-from corona13_tpu_torch import testing
-from corona13_tpu_torch.ops import trace_cuda
+from corona13_tpu_torch import testing, tracing
 from corona13_tpu_torch.samplers import pt as pt_mod
 
 W, H = 32, 18
@@ -99,14 +98,14 @@ def _render(scene, spp=4, w=64, h=48, **kw):
 
 
 def test_cornell_smoke(cornell, tmp_path):
-    before = dict(trace_cuda.launches)
+    before = dict(tracing.launches)
     res = _render(cornell, spp=4)
     img = res.image_xyz
     assert np.isfinite(img).all()
     assert img.max() > 0
     assert img.min() >= 0
     assert (img.sum(axis=-1) > 0).mean() > 0.9
-    assert trace_cuda.launches == before     # the CPU takes the plain walk
+    assert tracing.launches == before     # the CPU takes the plain walk
     srgb = res.image_srgb
     assert srgb.shape == img.shape and np.isfinite(srgb).all()
     res.write_pfm(str(tmp_path / 'r.pfm'))

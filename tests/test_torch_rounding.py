@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from corona13_tpu_torch.ops import trace_cuda
+from corona13_tpu_torch.ops import cuda_lib
 from corona13_tpu_torch.utils import math as tmath
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -156,7 +156,7 @@ def test_kernel_rounds_as_ieee():
     """The kernel's roots and divisions: nvcc's IEEE defaults stated in
     the flags (which name the built library), no fast-math, and no
     approximate intrinsic in the source."""
-    flags = trace_cuda.NVCC_FLAGS
+    flags = cuda_lib.NVCC_FLAGS
     for f in ('-prec-sqrt=true', '-prec-div=true', '-ftz=false',
               '-fmad=false'):
         assert f in flags

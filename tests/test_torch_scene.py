@@ -263,6 +263,7 @@ def test_cli_samplers_match_the_reference():
     them has a branch."""
     import ast
     from corona13_tpu_torch import __main__ as cli
+    from corona13_tpu_torch import render
     src = open(os.path.join(ROOT, 'corona13_tpu', '__main__.py')).read()
     choices = [
         ast.literal_eval(kw.value) for node in ast.walk(ast.parse(src))
@@ -271,10 +272,10 @@ def test_cli_samplers_match_the_reference():
         and node.args[0].value == '--sampler'
         for kw in node.keywords if kw.arg == 'choices']
     assert choices == [cli._SAMPLERS]
-    # pt, ptdl and bdpt run through render.render, vis through its AOV
-    assert set(cli._SAMPLERS) == set(cli._STEPPED) | {'pt', 'ptdl', 'bdpt',
-                                                      'vis'}
-    assert not set(cli._STEPPED) & {'pt', 'ptdl', 'bdpt', 'vis'}
+    # every sampler but vis runs through render.render (ptdl as pt with
+    # NEE), vis through its AOV
+    assert set(cli._SAMPLERS) == set(render.SAMPLERS) | {'ptdl', 'vis'}
+    assert not set(render.SAMPLERS) & {'ptdl', 'vis'}
 
 
 # --- golden gates, the port's twins of tests/test_golden.py:134-173 --------

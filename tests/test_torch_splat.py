@@ -15,6 +15,7 @@ from corona13_tpu.samplers import vis as jvis
 from corona13_tpu.spectral import rgb2spec as jr2s
 from corona13_tpu_torch import __main__ as cli
 from corona13_tpu_torch import convert
+from corona13_tpu_torch import render as render_mod
 from corona13_tpu_torch.io import pfm as pfm_io
 from corona13_tpu_torch.ops import splat
 from corona13_tpu_torch.samplers import pt as pt_mod
@@ -182,4 +183,4 @@ def test_cli_vis_and_unported_samplers(tmp_path):
         img = pfm_io.read_pfm(out + '_fb00.pfm')
         assert img.shape == (32, 32, 3) and np.isfinite(img).all()
         assert img.max() > 0 and img.max() <= 1.0
-    assert {'ppm', 'kmlt', 'vmlt'} <= set(cli._STEPPED)
+    assert {'ppm', 'kmlt', 'vmlt'} <= set(render_mod.SAMPLERS)

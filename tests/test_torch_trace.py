@@ -496,8 +496,8 @@ def test_wrapper_argument_forms(soup, form):
                                       if b.dtype == np.float32 else b)
     if any_hit:
         np.testing.assert_array_equal(got[1] >= 0, jp >= 0)
-        blocked = trace_cuda.occluded_tris(tb, T(org), T(d), 18.0, T(ig),
-                                           T(ig2))
+        blocked = trace_cuda.any_hit(tb, 'tri', T(org), T(d), 18.0, T(ig),
+                                     T(ig2))
         assert blocked.dtype == torch.bool
         np.testing.assert_array_equal(blocked.numpy(), got[1] >= 0)
         assert blocked.any() and not blocked.all()
@@ -522,7 +522,7 @@ def test_wrapper_rejects_bad_inputs(soup):
     with pytest.raises(ValueError):      # contiguous rays
         trace_cuda.traverse_tris(tb, T(org).t().contiguous().t(), T(d), T(t0))
     with pytest.raises(ValueError):
-        trace_cuda.occluded_tris(tb, T(org), T(d), T(t0[:5]))
+        trace_cuda.any_hit(tb, 'tri', T(org), T(d), T(t0[:5]))
 
 
 def test_entry_points_default_to_the_card():
