@@ -108,6 +108,15 @@ Phases (each prints its results; any failure exits non-zero):
      it (scatter decisions on >= 0.9999 of the grid lanes, weights
      bit-equal, distance and T within 1e-6 in the tests' scaled units,
      the largest printed), timed beside the plain march, bound by bytes;
+  8g. the counter RNG's kernel (ops/rng_cuda.py): a draw at 2,073,600 and
+     589,824 lanes (sample ids a lane, and one Python int), bit-equal to
+     the torch path (rng.uniform_plain), both timed with CUDA events
+     over input sets four times the L2, beside the byte floor (20 or 12
+     bytes a lane over 3.35 TB/s); one
+     progression of each cell of portbench/configs with the draws counted
+     (41 / 62 / 43: one 'rng_uniform' launch a draw, none left on the
+     torch path), then its frame s with the kernel and with it refused,
+     in turns;
   9. media path on the card against the CPU: sample_paths of 0031_hete at
      64x40;
  10. the CLI: python -m corona13_tpu_torch on 0031_hete, 256x160, 2 spp;
@@ -156,7 +165,8 @@ Phases (each prints its results; any failure exits non-zero):
      calls (a photon bounce of 1,179,648 rays; a replay bounce and its NEE
      shadow rays at 8192 chains), each against its plain version on the
      same tensors as 3b holds them; the three on the card against the CPU
-     at 64x36 (chains=256);
+     at 64x36 (chains=256), every draw on the card one 'rng_uniform'
+     launch;
  17. sharded: an NCCL process group of world size 1 (one H100) through a
      file:// store; parallel.shard.render_samples_sharded on cornell at
      1024x576, mf=4, max_verts=6, NEE on, 2 warm-up and 3 timed calls
@@ -200,6 +210,7 @@ largest scaled error.  The last line is
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -1798,7 +1809,8 @@ def render_phase(name, scene, spp, gpu_name, max_verts=6,
           f'{opts}, {spp} spp')
     for k in tracing.launches:
         tracing.launches[k] = 0
-    res = render_mod.render(scene, cfg, spp=spp, batch=1)
+    with _draws_counted() as draws:
+        res = render_mod.render(scene, cfg, spp=spp, batch=1)
     launches = dict(tracing.launches)
     img = res.image_xyz
     lit = float((img.sum(axis=-1) > 0).mean())
@@ -1810,9 +1822,14 @@ def render_phase(name, scene, spp, gpu_name, max_verts=6,
     check(img.mean() > 0, 'black image')
     per = spp * (cfg.max_verts - 1)
     expect = {k: per * (per_bounce or {}).get(k, 1) for k in forms}
-    moved = {k: v for k, v in launches.items() if v}
-    print(f'kernel launches {moved} (expected {expect})', flush=True)
+    moved = {k: v for k, v in launches.items() if v and k != 'rng_uniform'}
+    print(f'kernel launches {moved} (expected {expect}); {draws["card"]} '
+          f'draws, {launches["rng_uniform"]} rng_uniform launches',
+          flush=True)
     check(moved == expect, f'launch counts {moved}, expected {expect}')
+    check(draws['card'] > 0 and draws['plain_on_card'] == 0
+          and launches['rng_uniform'] == draws['card'],
+          f'draws {dict(draws)}, rng_uniform {launches["rng_uniform"]}')
     rays = 0
     pix = torch.arange(W * H, device=scene.device)
     for s in range(spp):
@@ -2104,6 +2121,125 @@ def hete_entries(hete, launches):
             'sectors_ms': m['sectors_ms_a_frame'] / n,
             'scat_equal': m['scat_equal'], 'err_scaled': m['err_scaled']})
     return rows
+
+
+RNG_CELLS = ('0002_mb', '0031_hete', '0002_mb_bdpt')   # portbench/configs
+
+
+def _cell_frame(name, dev):
+    """The scene and PTConfig of portbench/configs/<name>.json (a cell's
+    configuration) on the card."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    with open(os.path.join(ROOT, 'portbench', 'configs', f'{name}.json')) as f:
+        conf = json.load(f)
+    keys = conf['render']
+    sc, _ = scene_mod.load_scene(os.path.join(ROOT, conf['scene']['path']),
+                                 device=dev)
+    return (scene_mod.fit_film(sc, keys['width'], keys['height']),
+            pt_mod.PTConfig(**keys))
+
+
+def rng_phase(dev, card, reps=50, cold_bytes=200e6):
+    """8g. The counter RNG's kernel (ops/rng_cuda.py, csrc/rng.cu): a draw
+    at the cells' widths, kernel against the torch path (bits and ms,
+    _time_ms) beside its byte floor: 8 bytes of pixel id, 8 of sample id
+    where the sample is a tensor, 4 of output a lane, over 3.35 TB/s.  The
+    calls cycle over enough input sets that they hold ``cold_bytes``, four
+    times the card's 50 MB L2, so each call reads its ids from HBM.
+    Then one progression of each cell's configuration with its draws
+    counted (``_draws_counted``) and, in turns, its frame s with the
+    kernel and with it refused (every draw through ``rng.uniform_plain``)."""
+    from corona13_tpu_torch import render as render_mod
+    from corona13_tpu_torch import tracing
+    from corona13_tpu_torch.ops import rng, rng_cuda
+    phase(f'counter RNG kernel: a draw at the cells\' widths and the cells\' '
+          f'progressions, on {card}')
+    out = {'card': card, 'draws': {}, 'cells': {}}
+    g = np.random.default_rng(24)
+    for n in (1920 * 1080, 1024 * 576):
+        sets = max(2, int(np.ceil(cold_bytes / (n * 20))))
+        pix = [torch.as_tensor(g.integers(0, 1 << 32, n)).to(dev)
+               for _ in range(sets)]
+        smp = [torch.as_tensor(g.integers(0, 1 << 32, n)).to(dev)
+               for _ in range(sets)]
+        for form in ('ids', 'int'):
+            sample = (lambda i: smp[i]) if form == 'ids' else \
+                (lambda i: 0x12345)
+            dim, seed = int(rng.Dim.NEE_X) + 101 * 3, (1 << 32) + 0x9e37
+            got = rng.uniform(pix[0], sample(0), dim, seed)
+            want = rng.uniform_plain(pix[0], sample(0), dim, seed)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f'{n} lanes, sample {form}: the kernel\'s bits differ')
+            k_ms = _time_ms(lambda i: (rng.uniform(pix[i], sample(i), dim,
+                                                   seed),), sets, reps)
+            p_ms = _time_ms(lambda i: (rng.uniform_plain(pix[i], sample(i),
+                                                         dim, seed),),
+                            sets, max(reps // 5, 3))
+            lane = 8 + 4 + (8 if form == 'ids' else 0)
+            b_ms = n * lane / PEAK_BYTES_PER_S * 1e3
+            out['draws'][f'{n}/{form}'] = dict(ms=k_ms, plain_ms=p_ms,
+                                               bound_ms=b_ms, input_sets=sets,
+                                               roofline_share=b_ms / k_ms)
+            print(f'{n} lanes, sample {form}: kernel {k_ms:.4f} ms, plain '
+                  f'{p_ms:.4f} ms, bound {b_ms:.4f} ms (share '
+                  f'{b_ms / k_ms:.3f}; {sets} input sets in turn, '
+                  f'{sets * n * lane / 1e6:.0f} MB), bits equal', flush=True)
+        del pix, smp
+    want_draws = {'0002_mb': 41, '0031_hete': 62, '0002_mb_bdpt': 43}
+    for name in RNG_CELLS:
+        sc, cfg = _cell_frame(name, dev)
+        render_mod.render(sc, cfg, spp=1, batch=1)        # warm
+        _zero_launches()
+        with _draws_counted() as draws, torch.no_grad():
+            render_mod.render(sc, cfg, spp=1, batch=1)
+        torch.cuda.synchronize()
+        n_rng = tracing.launches['rng_uniform']
+        share = n_rng / max(draws['card'], 1)
+        check(draws['card'] == want_draws[name] and n_rng == draws['card']
+              and draws['plain_on_card'] == 0,
+              f'{name}: draws {dict(draws)}, rng_uniform {n_rng}')
+        kernel = rng_cuda.uniform
+        secs = {'kernel': [], 'refused': []}
+        for turn in ('kernel', 'refused', 'refused', 'kernel') * 2:
+            rng_cuda.uniform = kernel if turn == 'kernel' else \
+                rng.uniform_plain
+            try:
+                secs[turn] += _frame_seconds(sc, cfg, warm=1, timed=2)
+            finally:
+                rng_cuda.uniform = kernel
+        med = {k: float(np.median(v)) for k, v in secs.items()}
+        out['cells'][name] = dict(draws=draws['card'], launches=n_rng,
+                                  engagement=share, frame_s=secs,
+                                  median_s=med)
+        print(f'{name} ({cfg.width}x{cfg.height}, {cfg.sampler}): '
+              f'{draws["card"]} draws a frame, {n_rng} rng_uniform '
+              f'launches, engagement {share:.3f}, 0 draws on the torch path; '
+              f'frame s kernel {med["kernel"]:.5f} / refused '
+              f'{med["refused"]:.5f} (medians of {len(secs["kernel"])}, in '
+              f'turns)', flush=True)
+        del sc
+    out['launches'] = sum(c['launches'] for c in out['cells'].values())
+    print(json.dumps({k: v for k, v in out.items() if k != 'card'}),
+          flush=True)
+    return out
+
+
+def rng_entry(r):
+    """The kernels line's row of the counter RNG (rng_phase): a draw at
+    0002_mb's width, sample ids a lane."""
+    m = r['draws'][f'{1920 * 1080}/ids']
+    return {'name': 'rng_uniform', 'route': 'cuda',
+            'source': 'corona13_tpu_torch/csrc/rng.cu',
+            'replaces': 'corona13_tpu_torch/ops/rng.py uniform (eager torch; '
+                        'corona13_tpu/ops/rng.py, not Pallas)',
+            'library_ms': None, 'launches': r['launches'],
+            'launches_per_frame': {k: c['launches']
+                                   for k, c in r['cells'].items()},
+            'engagement': {k: c['engagement'] for k, c in r['cells'].items()},
+            'ms': m['ms'], 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
+            'bound_by': 'bytes', 'roofline_share': m['roofline_share'],
+            'at_0031_hete_width': r['draws'][f'{1024 * 576}/ids']}
 
 
 def _hair_scene(dev, n_fibers=1 << 16, seed=0, radii=(0.1, 0.06)):
@@ -2444,7 +2580,33 @@ def _read_launches():
     ``_zero_launches``."""
     from corona13_tpu_torch import tracing
     return {k: v for k, v in tracing.launches.items()
-            if v and not k.startswith('splat_')}
+            if v and not k.startswith(('splat_', 'rng_'))}
+
+
+@contextlib.contextmanager
+def _draws_counted():
+    """Count the counter RNG's draws inside the block: 'card', the draws
+    of rng.uniform on a card's tensor, and 'plain_on_card', those of them
+    the torch path made (rng.uniform_plain)."""
+    from corona13_tpu_torch.ops import rng
+    counts = collections.Counter(card=0, plain_on_card=0)
+    uniform, plain = rng.uniform, rng.uniform_plain
+
+    def on_card(x):
+        return isinstance(x, torch.Tensor) and x.is_cuda
+
+    def counted(pixel, *a, **k):
+        counts['card'] += on_card(pixel)
+        return uniform(pixel, *a, **k)
+
+    def counted_plain(pixel, *a, **k):
+        counts['plain_on_card'] += on_card(pixel)
+        return plain(pixel, *a, **k)
+    rng.uniform, rng.uniform_plain = counted, counted_plain
+    try:
+        yield counts
+    finally:
+        rng.uniform, rng.uniform_plain = uniform, plain
 
 
 def _read_splat_launches():
@@ -3578,9 +3740,10 @@ def _mlt_vs_cpu(dev, w=64, h=36, chains=256):
     same scene and sample index: the share of pixels within 1e-4 of the
     largest (bar 0.99); for the chains, where an accept flips on an ulp,
     >= 99% of the chains in the same final state and the means within
-    1e-3 instead."""
+    1e-3 instead.  Every draw on the card is one 'rng_uniform' launch,
+    kmlt's 2-D draws too, and none takes the torch path."""
     from corona13_tpu_torch import scene as scene_mod
-    from corona13_tpu_torch import testing
+    from corona13_tpu_torch import testing, tracing
     from corona13_tpu_torch.samplers import kmlt
     from corona13_tpu_torch.samplers import pt as pt_mod
     phase(f'ppm, kmlt, vmlt on the card against the CPU, cornell {w}x{h}, '
@@ -3592,13 +3755,21 @@ def _mlt_vs_cpu(dev, w=64, h=36, chains=256):
     with torch.no_grad():
         for name in MLT_SAMPLERS:
             mod = _mlt_module(name)
-            if name == 'ppm':
-                res = [{'image': mod.render_sample(sc, cfg, 5)}
-                       for sc in scenes]
-            else:
-                res = [kmlt.run_chains(sc, cfg, 5, 1, chains, 8,
-                                       mod.STUCK_LIMIT, mod.MULT, mod.step)
-                       for sc in scenes]
+            before = tracing.launches['rng_uniform']
+            with _draws_counted() as draws:
+                if name == 'ppm':
+                    res = [{'image': mod.render_sample(sc, cfg, 5)}
+                           for sc in scenes]
+                else:
+                    res = [kmlt.run_chains(sc, cfg, 5, 1, chains, 8,
+                                           mod.STUCK_LIMIT, mod.MULT,
+                                           mod.step)
+                           for sc in scenes]
+            torch.cuda.synchronize()
+            n_rng = tracing.launches['rng_uniform'] - before
+            check(draws['card'] > 0 and draws['plain_on_card'] == 0
+                  and n_rng == draws['card'],
+                  f'{name}: draws {dict(draws)}, rng_uniform {n_rng}')
             card, cpu = ({k: v.cpu() for k, v in r.items()
                           if torch.is_tensor(v)} for r in res)
             top = float(cpu['image'].abs().max())
@@ -3961,6 +4132,7 @@ def main():
     gold = golden_phase(dev)
     media, media_launches = media_paths_phase(dev, smi)
     hete = hete_march_phase(dev, smi)
+    rngres = rng_phase(dev, smi)
     media_close = cell_vs_cpu('0031_hete', dev)
     prims = prims_phase(dev, gpu)
     spheres = sphere_frame_phase(dev, smi)
@@ -4053,7 +4225,7 @@ def main():
         'line_counter_cases': lcres,
         'compact': compact, 'grad': grad, 'dbor_vis': dbor_vis,
         'light_paths': light, 'ppm_mlt': mlt, 'sharded': sharded,
-        'hete_march': hete}),
+        'hete_march': hete, 'rng': rngres}),
         flush=True)
 
     def form_entry(key):
@@ -4147,7 +4319,8 @@ def main():
     kernels = [entry('closest', 'traverse_tris closest-hit'),
                entry('any', 'traverse_tris any-hit'), counters, per_ray] + [
         form_entry(k) for k in fres] + [line_counters] + hete_entries(
-        hete, media_launches) + [splat_entry(light['splat'], light['bdpt'])]
+        hete, media_launches) + [splat_entry(light['splat'], light['bdpt']),
+                                 rng_entry(rngres)]
     for k in kernels:
         check(k['launches'] > 0, f'{k["name"]} was never launched on its path')
     print(json.dumps({'kernels': kernels}), flush=True)

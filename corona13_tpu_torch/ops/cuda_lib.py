@@ -2,12 +2,13 @@
 
 A library is one ``csrc/<stem>.cu`` with a plain C entry that takes a
 pointer to its ``Args`` struct (declared field for field by its binding:
-``ops/trace_cuda.py``, ``hete_cuda.py``, ``splat_cuda.py``) and returns the
-launch's ``cudaGetLastError``.  ``load`` compiles it once a process, inside
-the binding's set-up span, into ``_build/lib<stem>_<hash>.so`` (the hash of
-the source and ``NVCC_FLAGS``: an up-to-date library is reused).  ``launch``
-runs an entry on torch's current stream under the device guard, raises on
-a CUDA error and counts the launch in ``tracing.launches``.
+``ops/trace_cuda.py``, ``hete_cuda.py``, ``splat_cuda.py``, ``rng_cuda.py``)
+and returns the launch's ``cudaGetLastError``.  ``load`` compiles it once
+a process, inside the binding's set-up span, into
+``_build/lib<stem>_<hash>.so`` (the hash of the source and ``NVCC_FLAGS``:
+an up-to-date library is reused).  ``launch`` runs an entry on torch's
+current stream under the device guard, raises on a CUDA error and counts
+the launch in ``tracing.launches``.
 ``check_tensors`` is the bindings' argument check.
 """
 
@@ -24,9 +25,9 @@ import torch
 from .. import tracing
 
 # the field types of an Args struct (ctypes.Structure subclasses of Args)
-Args, INT, LONG, FLOAT, PTR = (ctypes.Structure, ctypes.c_int,
-                               ctypes.c_longlong, ctypes.c_float,
-                               ctypes.c_void_p)
+Args, INT, UINT, LONG, FLOAT, PTR = (ctypes.Structure, ctypes.c_int,
+                                     ctypes.c_uint, ctypes.c_longlong,
+                                     ctypes.c_float, ctypes.c_void_p)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')

@@ -7,6 +7,11 @@ device, so the hash state is carried in int64 and masked to its low 32
 bits after every add and multiply.  An int64 product wraps mod 2^64, so
 its low 32 bits are exact.  Pixel and sample ids are int64 tensors
 holding values in [0, 2^32).
+
+On the card, ``uniform`` hashes in one CUDA kernel a draw
+(``ops/rng_cuda.py``, ``csrc/rng.cu``) with the same bits, whatever the
+form of its inputs; ``uniform_plain`` is the torch hash, the kernel's
+plain twin and the CPU's path.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import enum
 
 import numpy as np
 import torch
+
+from . import rng_cuda
 
 M32 = 0xFFFFFFFF
 
@@ -94,7 +101,16 @@ def _words(pixel, sample, dim, seed):
 
 def uniform(pixel, sample, dim, seed=0) -> torch.Tensor:
     """One uniform float in [0,1) per element, from the (pixel, sample,
-    dim, seed) counter.  All args broadcast; dim/seed may be python ints."""
+    dim, seed) counter.  All args broadcast; dim/seed may be python ints.
+    One kernel launch where pixel is a CUDA tensor, else
+    ``uniform_plain``."""
+    if isinstance(pixel, torch.Tensor) and pixel.is_cuda:
+        return rng_cuda.uniform(pixel, sample, dim, seed)
+    return uniform_plain(pixel, sample, dim, seed)
+
+
+def uniform_plain(pixel, sample, dim, seed=0) -> torch.Tensor:
+    """``uniform`` as eager torch ops on any device."""
     z, s, d, k = _words(pixel, sample, dim, seed)
     v0, _, _, _ = _pcg4d(z, s, d, k ^ 0x9E3779B9)
     return _to_unit(v0)

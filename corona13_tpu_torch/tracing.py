@@ -63,7 +63,8 @@ splat on the card).
 
 ``launches`` counts the hand-written kernels' launches by key, as
 ``ops/cuda_lib.launch`` makes them (``count_launch``): the traversal's per
-form, the grid march's by mode and the general splat's chains by entry.
+form, the grid march's by mode, the general splat's chains by entry and
+the counter RNG's draws ('rng_uniform').
 """
 
 from __future__ import annotations
@@ -80,9 +81,9 @@ SPAN_NAMES = ('render.progression', 'render.readback', 'pt.camera',
               'pt.shade', 'pt.nee', 'pt.extend', 'pt.splat', 'bdpt.subpath',
               'bdpt.connect', 'bdpt.camera', 'bdpt.splat', 'splat.general',
               'scene.load', 'trace_cuda.build', 'hete_cuda.build',
-              'splat_cuda.build')
+              'splat_cuda.build', 'rng_cuda.build')
 SETUP_SPANS = ('scene.load', 'trace_cuda.build', 'hete_cuda.build',
-               'splat_cuda.build')
+               'splat_cuda.build', 'rng_cuda.build')
 
 _NULL = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
@@ -93,14 +94,15 @@ _counters = None                            # the innermost counting() block
 # launches of the hand-written kernels (ops/cuda_lib.launch), by key: the
 # traversal's forms, each closest-hit and any-hit, its union walk
 # ('counters') and per-ray walks (ops/trace_cuda.py); the grid march by
-# mode (ops/hete_cuda.py); the general splat's chains (ops/splat_cuda.py)
+# mode (ops/hete_cuda.py); the general splat's chains (ops/splat_cuda.py);
+# the counter RNG's draws (ops/rng_cuda.py)
 launches = {k: 0 for k in (
     'closest', 'any', 'counters',
     *(f'{f}_{m}' for f in ('moving', 'sphere', 'line', 'deep', 'skip',
                            'dense_sphere', 'dense_line')
       for m in ('closest', 'any')),
     'tri_counters', 'line_counters', 'hete_sample', 'hete_transmit',
-    'splat_scatter', 'splat_footprint')}
+    'splat_scatter', 'splat_footprint', 'rng_uniform')}
 
 
 def span(name: str, args: dict | None = None):

@@ -653,10 +653,19 @@ def test_intersect_mixed_scene_on_the_card(cuda):
 
 # --- skies, compaction and gradients on the card against the CPU ------------
 
+def _moved(before):
+    """Launches by key since ``before``, the counter RNG's draws aside:
+    every such call draws on the card (at least one 'rng_uniform')."""
+    moved = {k: v - before[k] for k, v in tracing.launches.items()
+             if v != before[k]}
+    assert moved.pop('rng_uniform', 0) > 0, moved
+    return moved
+
+
 def _paths_on_both(build, cfg, cuda, sample=5):
     """sample_paths of ``build(device)`` on the card and on the CPU: the
     share of paths equal at rtol 1e-4 / atol 1e-6, and the card's launch
-    counts of that call."""
+    counts of that call, the RNG's aside."""
     from corona13_tpu_torch.samplers import pt as pt_mod
     out = []
     for d in (cuda, torch.device('cpu')):
@@ -665,8 +674,7 @@ def _paths_on_both(build, cfg, cuda, sample=5):
         out.append(pt_mod.sample_paths(build(d), cfg, sample, pix)[0].cpu()
                    .numpy())
         if d is cuda:
-            moved = {k: tracing.launches[k] - v for k, v in before.items()
-                     if tracing.launches[k] != v}
+            moved = _moved(before)
     close = np.isclose(out[0], out[1], rtol=1e-4, atol=1e-6).all(axis=-1)
     assert (out[1] > 0).any(axis=-1).mean() > 0.05
     return float(close.mean()), moved
@@ -990,9 +998,8 @@ def test_bdpt_strategy_on_the_card(cuda, st):
         sc = scene_mod.fit_film(testing.cornell_scene(device=d), 64, 42)
         before = dict(tracing.launches)
         out.append(bdpt.render_sample(sc, cfg, 3, only=st).cpu().numpy())
-        moved = {k: v - before[k] for k, v in tracing.launches.items()
-                 if v != before[k]}
         if d is cuda:
+            moved = _moved(before)
             calls = {'closest': 4, 'any': int(st[0] >= 1)}
             want = {f'{p}{k}': v for k, v in calls.items() if v
                     for p in ('', 'dense_sphere_')}
@@ -1103,3 +1110,193 @@ def test_sharded_render_on_the_card(cuda):
         assert torch.isfinite(card).all() and float(cpu.abs().max()) > 0, k
         assert float((card - cpu).abs().max()) <= tol * float(
             cpu.abs().max()), (k, card, cpu)
+
+
+# --- the counter RNG's kernel (ops/rng_cuda.py) against its torch path -----
+
+_RNG_EDGE = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 1 << 32, -1, -2,
+             -(1 << 31), (1 << 62) + 3]
+
+
+def _rng_ids(n, seed, dev):
+    """[n] int64 ids: random words over the whole int64 range, every other
+    one cut to 32 bits (the ids a wavefront holds), the edge words first
+    and last."""
+    g = np.random.default_rng(seed)
+    x = g.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    x[1::2] &= 0xFFFFFFFF
+    k = min(len(_RNG_EDGE), n)
+    x[:k] = _RNG_EDGE[:k]
+    x[n - k:] = _RNG_EDGE[::-1][:k]
+    return torch.as_tensor(x).to(dev)
+
+
+@pytest.mark.parametrize('n', [2073600, 589824, 1, 257])
+def test_rng_kernel_bits_equal_the_torch_path(cuda, n):
+    """rng.uniform through the kernel against uniform_plain on the same
+    card, at both cells' widths: the sample as ids a lane, as Python ints
+    (negative, >= 2^32), as a 0-dim tensor and as one expanded to the
+    lanes (stride 0); dims and seeds at their edges (bdpt's light stream
+    seeds cfg.seed + 0x9e37, past 2^32).  Every float bit-equal, one
+    launch a draw; the CPU's torch path gives the same bits."""
+    from corona13_tpu_torch.ops import rng
+    pix, smp = _rng_ids(n, 1, cuda), _rng_ids(n, 2, cuda)
+    one = torch.tensor(7, dtype=torch.int64, device=cuda)
+    samples = [smp, 12345, -1, (1 << 32) + 9, one, one.expand(n)]
+    words = [(0, 0), (int(rng.Dim.NEE_X) + 101 * 3, 0xFFFFFFFF),
+             (0x7fffffff, 0xFFFFFFFF + 0x9e37), (-3, -1)]
+    before = tracing.launches['rng_uniform']
+    for sample in samples:
+        for dim, seed in words:
+            got = rng.uniform(pix, sample, dim, seed)
+            want = rng.uniform_plain(pix, sample, dim, seed)
+            assert got.shape == (n,) and got.dtype == torch.float32
+            assert torch.equal(_bits(got), _bits(want)), (sample, dim, seed)
+    torch.cuda.synchronize()
+    assert tracing.launches['rng_uniform'] == before + len(samples) * len(
+        words)
+    cpu = rng.uniform_plain(pix.cpu(), smp.cpu(), 5, 0x1234)
+    assert torch.equal(_bits(rng.uniform(pix, smp, 5, 0x1234).cpu()),
+                       _bits(cpu))
+
+
+def test_rng_kernel_makes_no_synchronising_call(cuda):
+    """A draw through the kernel, under torch's sync debug mode: nothing
+    waits for the card."""
+    from corona13_tpu_torch.ops import rng
+    pix = torch.arange(1 << 16, device=cuda)
+    one = torch.tensor(3, device=cuda)
+    want = rng.uniform(pix, pix, 1, 2)      # builds outside the mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = [rng.uniform(pix, s, 1, 2) for s in (pix, 3, one)]
+        with pytest.raises(RuntimeError):
+            float(want.sum())                # the mode is on: a read raises
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want)
+    assert torch.equal(got[1], got[2])
+
+
+def test_rng_kernel_takes_every_form(cuda):
+    """The forms that are not the wavefront's (kmlt's [C, 1] x [1, D]
+    broadcasts, tensor dims and seeds, int32 ids, strided views, a 0-dim
+    pixel, numpy words) go through the kernel too, one launch a draw, with
+    the torch path's bits and shape."""
+    from corona13_tpu_torch.ops import rng
+    pix = _rng_ids(4096, 3, cuda)
+    cid = torch.arange(512, dtype=torch.int64, device=cuda)
+    dims = torch.arange(200, 264, device=cuda)
+    forms = [(cid[:, None], torch.tensor(11, device=cuda), dims[None, :], 3),
+             (cid[:, None], 17, dims[None, :], 3),
+             (pix, pix, 5, torch.full((4096,), -3, device=cuda)),
+             (pix.int(), pix.int().flip(0), 5, 1), (pix[::2], pix[1::2], 5, 1),
+             (torch.tensor(-7, device=cuda), pix, 5, 1),
+             (pix, np.int64(3), np.int32(5), np.uint32(0xFFFFFFFF)),
+             (pix.reshape(16, 256), torch.arange(256, device=cuda), 1, 2)]
+    before = tracing.launches['rng_uniform']
+    for args in forms:
+        got, want = rng.uniform(*args), rng.uniform_plain(*args)
+        assert got.shape == want.shape and got.is_cuda
+        assert torch.equal(_bits(got), _bits(want))
+    torch.cuda.synchronize()
+    assert tracing.launches['rng_uniform'] == before + len(forms)
+
+
+def _draw_counters(monkeypatch):
+    """Count rng.uniform's draws and those the torch path made on a card's
+    tensor."""
+    from corona13_tpu_torch.ops import rng
+    draws, on_card = [], []
+    uniform, plain = rng.uniform, rng.uniform_plain
+
+    def counted(*a):
+        draws.append(a)
+        return uniform(*a)
+
+    def counted_plain(*a):
+        on_card.append(torch.as_tensor(a[0]).is_cuda)
+        return plain(*a)
+    monkeypatch.setattr(rng, 'uniform', counted)
+    monkeypatch.setattr(rng, 'uniform_plain', counted_plain)
+    return draws, on_card
+
+
+def _refuse_rng_kernel(monkeypatch):
+    """Every draw on the card through the torch path in place of the
+    kernel."""
+    from corona13_tpu_torch.ops import rng, rng_cuda
+    monkeypatch.setattr(rng_cuda, 'uniform',
+                        lambda *a: rng.uniform_plain(*a))
+
+
+@pytest.mark.parametrize('cell', ['0002_mb', '0031_hete', '0002_mb_bdpt'])
+def test_rng_kernel_in_a_progression(cuda, monkeypatch, cell):
+    """A 64x36 progression at each cell's settings with the kernel and
+    with it refused: the image's bits equal; with it, one 'rng_uniform'
+    launch a draw, 41 / 62 / 43 draws, and no draw on a card's tensor on
+    the torch path."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch.samplers import bdpt, pt as pt_mod
+    cs = _smoke()
+    media = cell == '0031_hete'
+    sc, _ = scene_mod.load_scene(cs._scene_path(cell.split('_bdpt')[0]),
+                                 device=cuda)
+    sc = scene_mod.fit_film(sc, 64, 36)
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=8 if media else 6,
+                          mf=4, use_nee=True, media=media)
+    frame = bdpt.render_sample if cell.endswith('bdpt') else \
+        pt_mod.render_sample
+    draws, on_card = _draw_counters(monkeypatch)
+    before = tracing.launches['rng_uniform']
+    with torch.no_grad():
+        img = frame(sc, cfg, 3)
+    torch.cuda.synchronize()
+    n = {'0002_mb': 41, '0031_hete': 62, '0002_mb_bdpt': 43}[cell]
+    assert len(draws) == n
+    assert tracing.launches['rng_uniform'] - before == n
+    assert not any(on_card)
+    _refuse_rng_kernel(monkeypatch)
+    with torch.no_grad():
+        ref = frame(sc, cfg, 3)
+    assert on_card == [True] * n
+    assert tracing.launches['rng_uniform'] - before == n
+    assert float(img.sum()) > 0
+    assert torch.equal(_bits(img), _bits(ref))
+
+
+@pytest.mark.parametrize('sampler', ['kmlt', 'vmlt'])
+def test_rng_kernel_in_mlt_chains(cuda, monkeypatch, sampler):
+    """kmlt's and vmlt's chains on cornell (2-D draws of [C, D], scalar
+    draws a chain) with the kernel and with it refused: the image and the
+    chains' states bit-equal; every draw one 'rng_uniform' launch, none
+    on the torch path."""
+    from corona13_tpu_torch import scene as scene_mod
+    from corona13_tpu_torch import testing
+    from corona13_tpu_torch.samplers import kmlt, vmlt
+    from corona13_tpu_torch.samplers import pt as pt_mod
+    mod = {'kmlt': kmlt, 'vmlt': vmlt}[sampler]
+    sc = scene_mod.fit_film(testing.cornell_scene(device=cuda), 64, 36)
+    cfg = pt_mod.PTConfig(width=64, height=36, max_verts=6, mf=4,
+                          use_nee=True)
+    draws, on_card = _draw_counters(monkeypatch)
+    runs = []
+    for turn in ('kernel', 'refused'):
+        if turn == 'refused':
+            _refuse_rng_kernel(monkeypatch)
+        before = tracing.launches['rng_uniform']
+        with torch.no_grad():
+            runs.append(kmlt.run_chains(sc, cfg, 5, 1, 256, 8,
+                                        mod.STUCK_LIMIT, mod.MULT, mod.step))
+        torch.cuda.synchronize()
+        if turn == 'kernel':
+            n = len(draws)
+            assert n > 0 and not any(on_card)
+            assert tracing.launches['rng_uniform'] - before == n
+    assert on_card == [True] * n
+    got, ref = runs
+    assert float(got['image'].sum()) > 0
+    for k in ('image', 'u'):
+        assert torch.equal(_bits(got[k]), _bits(ref[k])), k
+    assert torch.equal(got['rejects'], ref['rejects'])

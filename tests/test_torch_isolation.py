@@ -141,7 +141,7 @@ def test_port_imports_no_jax():
 
 PORT = 'corona13_tpu_torch'
 BINDINGS = {f'{PORT}.ops.{m}' for m in ('trace_cuda', 'hete_cuda',
-                                         'splat_cuda')}
+                                         'splat_cuda', 'rng_cuda')}
 
 
 def _port_imports():

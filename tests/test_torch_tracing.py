@@ -18,7 +18,7 @@ from corona13_tpu_torch import __main__ as cli
 from corona13_tpu_torch import render as render_mod
 from corona13_tpu_torch import scene as tscene
 from corona13_tpu_torch import testing, tracing
-from corona13_tpu_torch.ops import hete_cuda, splat_cuda, trace_cuda
+from corona13_tpu_torch.ops import hete_cuda, rng_cuda, splat_cuda, trace_cuda
 from corona13_tpu_torch.samplers import pt as pt_mod
 
 _SCENES = os.path.join(os.path.dirname(os.path.dirname(
@@ -171,9 +171,9 @@ def test_scene_load_seconds_recorded(hete):
     assert after > before
     # one launch registry: the bindings keep no count of their own
     assert not any(hasattr(m, 'launches')
-                   for m in (trace_cuda, hete_cuda, splat_cuda))
-    assert {'closest', 'hete_sample', 'splat_footprint'} <= set(
-        tracing.launches)
+                   for m in (trace_cuda, hete_cuda, splat_cuda, rng_cuda))
+    assert {'closest', 'hete_sample', 'splat_footprint',
+            'rng_uniform'} <= set(tracing.launches)
     assert tracing.kernel_builds() == 0      # no nvcc run on the CPU
 
 
